@@ -1,0 +1,70 @@
+"""The port stands alone: it imports without JAX and never hides the device.
+
+A fresh interpreter imports every module of ``smallvcm_tpu_torch`` and
+must end with no ``jax`` in ``sys.modules``. Asking for a CUDA device
+where there is none raises instead of rendering on the CPU.
+"""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import smallvcm_tpu_torch
+from smallvcm_tpu_torch import cli
+from smallvcm_tpu_torch.ops import _cuda
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        smallvcm_tpu_torch.__path__, prefix="smallvcm_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _all_modules()
+    assert {"smallvcm_tpu_torch.ops.merge", "smallvcm_tpu_torch.ops.sweep",
+            "smallvcm_tpu_torch.algorithms.vcm", "smallvcm_tpu_torch.cli",
+            "smallvcm_tpu_torch.convert"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib', 'smallvcm_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-i", "1", "--resolution", "8", "8"])
+    assert cli.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_sources_present_and_build_is_keyed_by_source():
+    names = {p.name for p in _cuda.CSRC_DIR.glob("*.cu")}
+    assert names == {"merge_tiles.cu", "intersect_sweep.cu"}
+    for p in _cuda.CSRC_DIR.glob("*.cu"):
+        text = p.read_text()
+        assert "replaces the tpu kernel" in text.lower()
+        assert "cudaGetLastError" in text
+    path = _cuda.library_path()
+    assert path.parent.parent == _cuda.BUILD_DIR
+    assert path.parent.name == _cuda.source_digest()
+    assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
