@@ -12,8 +12,10 @@ over component-planar tensors. One iteration is
   2. the camera stage: camera sub-paths do hit-light radiance, NEE and
      same-index light-vertex connections with the dVCM/dVC/dVM MIS
      recursion per lane, and record merge queries;
-  3. the deferred merge (ops/merge.py), additive and walk-independent, so
-     deferring it is equivalent to the reference's inline loop;
+  3. the deferred merge, additive and walk-independent, so deferring it
+     is equivalent to the reference's inline loop: the tile merge
+     (ops/merge.py, the CUDA kernel on a card) or the differentiable
+     pair-expansion :func:`merge_stage`;
   4. framebuffer accumulation on each path's own pixel.
 
 The JAX ``lax.fori_loop`` bounce loops are Python loops here, and the
@@ -32,11 +34,13 @@ import torch
 from ..core import rng
 from ..core.vec3 import V3, dot, len_sqr, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, PI_F, pdf_w_to_a, sqr
-from ..io.framebuffer import add_color_at_pix, new_fb_planes, splat_colors
+from ..io.framebuffer import (add_color_at_pix, deterministic_index_add,
+                              new_fb_planes, splat_colors)
 from ..ops import bsdf as bsdf_ops
+from ..ops import hashgrid as grid_ops
 from ..ops import lights as light_ops
+from ..ops import merge as tile_merge
 from ..ops.intersect import intersect, occluded
-from ..ops.merge import merge_stage
 from ..scene.camera import check_raster, generate_ray, world_to_raster
 from ..scene.scene import SceneData
 
@@ -147,6 +151,7 @@ def compute_misc(
 
 def generate_light_sample(
     scene: SceneData, misc: VcmMisc, pix, iteration: int, base_seed: int,
+    rng_kind: str = "threefry",
 ) -> SubPathState:
     """GenerateLightSample (vertexcm.hxx:816-858)."""
     n = pix.shape[0]
@@ -155,6 +160,7 @@ def generate_light_sample(
 
     u = rng.uniform_slots(
         base_seed, rng.make_stream(iteration, rng.STAGE_LIGHT_EMIT), pix, 5,
+        rng_kind,
     )
     light_id = (u[:, 0] * light_count).long().clamp_max(light_count - 1)
     em = light_ops.emit(
@@ -292,6 +298,7 @@ def trace_light_paths(
     scene: SceneData, misc: VcmMisc, pix, iteration: int, fb,
     base_seed: int, max_path_length: int, min_path_length: int,
     use_vc: bool, use_vm: bool, light_trace_only: bool,
+    rng_kind: str = "threefry",
 ):
     """Light stage (vertexcm.hxx:321-396) -> (vertices, fb, ray_count)."""
     n = pix.shape[0]
@@ -300,7 +307,8 @@ def trace_light_paths(
     store_vertices = use_vc or use_vm
     connect_cam = use_vc or light_trace_only
 
-    state = generate_light_sample(scene, misc, pix, iteration, base_seed)
+    state = generate_light_sample(scene, misc, pix, iteration, base_seed,
+                                  rng_kind)
     verts = _empty_vertices(max_l, n, dev)
     # Deferred camera-connection splats: each bounce records (pixel, rgb)
     # rows and one deterministic scatter flushes them after the walk.
@@ -381,7 +389,7 @@ def trace_light_paths(
 
         u = rng.uniform_slots(
             base_seed, rng.make_stream(iteration, rng.STAGE_LIGHT_WALK, i),
-            pix, 4,
+            pix, 4, rng_kind,
         )
         state = sample_scattering(
             scene, misc, state, hit_point, b, u, fix_is_light=True
@@ -399,7 +407,7 @@ def trace_light_paths(
 
 def generate_camera_sample(
     scene: SceneData, misc: VcmMisc, pix, res_x: int, iteration: int,
-    base_seed: int,
+    base_seed: int, rng_kind: str = "threefry",
 ):
     """GenerateCameraSample (vertexcm.hxx:564-606)."""
     n = pix.shape[0]
@@ -409,6 +417,7 @@ def generate_camera_sample(
     y = torch.div(pix, res_x, rounding_mode="floor").to(torch.float32)
     jitter = rng.uniform_slots(
         base_seed, rng.make_stream(iteration, rng.STAGE_CAMERA_JITTER), pix, 2,
+        rng_kind,
     )
     sx = x + jitter[:, 0]
     sy = y + jitter[:, 1]
@@ -579,13 +588,13 @@ def connect_vertices(
 def _camera_stage(
     scene, misc, verts, pix, iteration: int, res_x: int, base_seed: int,
     max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
-    ppm: bool,
+    ppm: bool, rng_kind: str = "threefry",
 ):
     """Camera sub-paths -> (color V3 [N], queries, ray_count)."""
     n = pix.shape[0]
     dev = pix.device
     sx, sy, state = generate_camera_sample(
-        scene, misc, pix, res_x, iteration, base_seed
+        scene, misc, pix, res_x, iteration, base_seed, rng_kind
     )
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     color = V3(zero, zero, zero)
@@ -659,6 +668,7 @@ def _camera_stage(
             u3 = rng.uniform_slots(
                 base_seed,
                 rng.make_stream(iteration, rng.STAGE_CAMERA_NEE, i), pix, 3,
+                rng_kind,
             )
             nee = direct_illumination(scene, misc, state, hit_point, b, u3)
             nee_on = alive & ~b.is_delta
@@ -714,12 +724,141 @@ def _camera_stage(
 
         u = rng.uniform_slots(
             base_seed, rng.make_stream(iteration, rng.STAGE_CAMERA_WALK, i),
-            pix, 4,
+            pix, 4, rng_kind,
         )
         state = sample_scattering(
             scene, misc, state, hit_point, b, u, fix_is_light=False
         )
     return color, queries, rays
+
+
+# Pair-expansion merge: chunks hold at most this many candidate pairs
+# (about 2 GB of int64/f32 pair arrays), as the JAX package's render loop
+# bounds its pair arrays at 16M rows (render.py:419-424).
+MAX_PAIRS = 1 << 24
+
+
+def merge_stage(
+    scene: SceneData, misc: VcmMisc, queries: StoredVertices,
+    light_verts: StoredVertices, ppm: bool, max_path_length: int,
+    min_path_length: int, n_paths: int, num_cells: int | None = None,
+    max_pairs: int = MAX_PAIRS,
+) -> V3:
+    """Vertex merging by exact (query, photon) pair expansion -> color_add
+    V3 [n_paths]: the per-path merge radiance, scaled by the camera
+    throughput and the vm normalization.
+
+    Port of the JAX package's XLA merge (RangeQuery::Process,
+    vertexcm.hxx:130-169): photons are hashed into cells of 2r
+    (``num_cells`` buckets, default 8 per path as in the JAX render loop;
+    two probe cells of one query that share a bucket visit its photons
+    twice, as in the reference's grid) and stably sorted by cell; every live
+    query probes its nearest 2x2x2 cells, the candidates are expanded into
+    an explicit pair list (hashgrid.expand_pairs), filtered by the exact r^2
+    test and the path-length window (vertexcm.hxx:132-135), and the
+    survivors get the camera BSDF toward -photon.in_dir and the MIS weight
+    1/(w_light + 1 + w_camera) [tech. rep. (38)-(39)] (1 for ppm).
+
+    Differentiable in the vertex payload (in_dir, normal, throughput,
+    d_vcm, d_vm) and the materials; positions enter only the detached cell
+    and distance tests, as the JAX merge's stop_gradient keeps them.
+    Compaction sizes come from the live counts (host reads), so nothing can
+    overflow; candidate pairs are processed in query-range chunks of at
+    most ``max_pairs``.
+    """
+    dev = queries.valid.device
+    n = queries.valid.shape[1]
+    n_ph = light_verts.valid.shape[1]
+    num_cells = 8 * n_paths if num_cells is None else num_cells
+    flat = lambda a: a.reshape(-1)
+    gather = lambda v, idx: V3(*(flat(c)[idx] for c in v))
+    zero = torch.zeros((n_paths,), dtype=torch.float32, device=dev)
+
+    pvalid = flat(light_verts.valid)
+    qvalid = flat(queries.valid)
+    n_p, n_q = (int(v) for v in torch.stack([pvalid.sum(),
+                                             qvalid.sum()]).tolist())
+    if n_p == 0 or n_q == 0:
+        return V3(zero, zero, zero)
+
+    # ---- 1. Photons: the cell-hashed grid (positions detached). ----------
+    grid = grid_ops.build(V3(*(flat(c).detach() for c in light_verts.position)),
+                          pvalid, misc.radius, num_cells)
+    order = grid.sorted_idx[:n_p]                     # live, cell order
+    ppos = [flat(c).detach()[order] for c in light_verts.position]
+    p_len = torch.div(order, n_ph, rounding_mode="floor") + 1
+
+    # ---- 2. Queries: compact, probe the 2x2x2 neighbourhood. -------------
+    idx_q = torch.nonzero(qvalid).flatten()           # source order
+    q_len = torch.div(idx_q, n, rounding_mode="floor") + 1
+    q_path = torch.remainder(idx_q, n)
+    qpos = [flat(c).detach()[idx_q] for c in queries.position]
+    starts8, counts8 = grid_ops.query_cell_ranges(grid, num_cells, V3(*qpos))
+
+    # Query-range chunks of at most max_pairs candidates (one host read).
+    cum = torch.cumsum(counts8.sum(1), 0)
+    n_chunks = -(-int(cum[-1]) // max_pairs)
+    ends = torch.searchsorted(
+        cum, torch.arange(1, n_chunks, device=dev) * max_pairs, right=True)
+    ends = torch.cat([ends, torch.full((1,), n_q, device=dev)])
+    cum0 = torch.cat([torch.zeros((1,), dtype=cum.dtype, device=dev), cum])
+    bounds = torch.stack([ends, cum0[ends]]).tolist()
+
+    # ---- 3+4. Expand, filter, evaluate, sum per query. ---------------------
+    mats = scene.materials
+    acc = torch.zeros((n_q, 3), dtype=torch.float32, device=dev)
+    q0, c0 = 0, 0
+    for q1, c1 in zip(*bounds):
+        if c1 > c0:
+            qc_idx, php, pair_ok, _, _ = grid_ops.expand_pairs(
+                starts8[q0:q1], counts8[q0:q1], c1 - c0)
+            qs = torch.div(qc_idx, 8, rounding_mode="floor") + q0
+            dx, dy, dz = (p[php] - q[qs] for p, q in zip(ppos, qpos))
+            tlen = p_len[php] + q_len[qs]
+            pair_ok = (pair_ok & (dx * dx + dy * dy + dz * dz
+                                  <= misc.radius_sqr)
+                       & (tlen <= max_path_length)
+                       & (tlen >= min_path_length))
+            sel = torch.nonzero(pair_ok).flatten()
+            qs = qs[sel]
+            q_src = idx_q[qs]
+            p_src = order[php[sel]]
+            ones = torch.ones_like(qs, dtype=torch.bool)
+            cam_b = bsdf_ops.setup(
+                mats, gather(queries.in_dir, q_src),
+                gather(queries.normal, q_src), flat(queries.mat_id)[q_src],
+                ones)
+            ph_in = gather(light_verts.in_dir, p_src)
+            ph_b = bsdf_ops.setup(
+                mats, ph_in, gather(light_verts.normal, p_src),
+                flat(light_verts.mat_id)[p_src], ones)
+            factor, _, dir_pdf_w, rev_pdf_w = bsdf_ops.evaluate(
+                mats, cam_b, -ph_in)
+            dir_pdf_w = dir_pdf_w * cam_b.cont_prob
+            rev_pdf_w = rev_pdf_w * ph_b.cont_prob
+            if ppm:
+                mis = torch.ones_like(dir_pdf_w)
+            else:
+                w_light = (flat(light_verts.d_vcm)[p_src] * misc.mis_vc_weight
+                           + flat(light_verts.d_vm)[p_src] * _mis(dir_pdf_w))
+                w_camera = (flat(queries.d_vcm)[q_src] * misc.mis_vc_weight
+                            + flat(queries.d_vm)[q_src] * _mis(rev_pdf_w))
+                mis = 1.0 / (w_light + 1.0 + w_camera)
+            contrib = v3_where(
+                max_gt_zero(factor),
+                factor * gather(light_verts.throughput, p_src) * mis, 0.0)
+            acc = acc + deterministic_index_add(n_q, qs, contrib.to_array())
+        q0, c0 = q1, c1
+
+    # Scale by the camera throughput and the vm normalization; route each
+    # query to its path.
+    thr = gather(queries.throughput, idx_q).to_array()
+    acc = acc * thr * misc.vm_normalization
+    z = deterministic_index_add(n_paths, q_path, acc)
+    return V3(z[:, 0], z[:, 1], z[:, 2])
+
+
+MERGE_BACKENDS = ("auto", "pallas", "xla")
 
 
 def render_iteration(
@@ -736,12 +875,22 @@ def render_iteration(
     use_vm: bool = True,
     light_trace_only: bool = False,
     ppm: bool = False,
+    rng_kind: str = "threefry",
+    merge_backend: str = "auto",
 ):
     """One VCM-family iteration over every pixel of the frame on the
     scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor).
 
+    ``merge_backend``: "auto" and "pallas" take the tile merge
+    (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
+    CPU), the JAX package's Pallas design; "xla" takes the differentiable
+    pair-expansion :func:`merge_stage`, the JAX package's XLA merge.
+
     The ray count is path segments plus enabled shadow/connection rays,
     the reference-comparable work metric (bench.py's count)."""
+    if merge_backend not in MERGE_BACKENDS:
+        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
+                         f"not {merge_backend!r}")
     dev = scene.device
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=dev)
@@ -752,7 +901,7 @@ def render_iteration(
     # ---- Stage 1: light sub-paths.
     verts, fb, ray_count = trace_light_paths(
         scene, misc, pix, iteration, fb, base_seed, max_path_length,
-        min_path_length, use_vc, use_vm, light_trace_only,
+        min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
     )
     if light_trace_only:
         return fb.to_array(), ray_count
@@ -760,12 +909,14 @@ def render_iteration(
     # ---- Stage 2: camera sub-paths.
     color, queries, cam_rays = _camera_stage(
         scene, misc, verts, pix, iteration, res_x, base_seed,
-        max_path_length, min_path_length, use_vc, use_vm, ppm,
+        max_path_length, min_path_length, use_vc, use_vm, ppm, rng_kind,
     )
 
     # ---- Stage 3: deferred merging.
     if use_vm:
-        color = color + merge_stage(
+        merge = merge_stage if merge_backend == "xla" else \
+            tile_merge.merge_stage
+        color = color + merge(
             scene, misc, queries, verts, ppm, max_path_length,
             min_path_length, n,
         )

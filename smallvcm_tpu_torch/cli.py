@@ -1,11 +1,13 @@
 """Command-line interface with the reference's flags and defaults.
 
 Port of ``smallvcm_tpu/cli.py`` (ParseCommandline, config.hxx:225-388, and
-main, smallvcm.cxx:268-326) for the VertexCM family: ``-s <scene>
--a <alg> -t <sec> -i <iters> -o <name>``, the resolution, seed, radius and
-path-length flags, and ``--device`` (default ``cuda``). ``-t`` takes
-precedence over ``-i``. Asking for a CUDA device where there is none is an
-error: the renderer never falls back to the CPU on its own.
+main, smallvcm.cxx:268-326): ``-s <scene> -a <alg> -t <sec> -i <iters>
+-o <name> --report``, the resolution, seed, radius and path-length flags,
+``--rng``, ``--merge-backend``, ``--trace-backend``, ``--block``,
+``--checkpoint``/``--checkpoint-every``, and ``--device`` (default
+``cuda``). ``-t`` takes precedence over ``-i``. Asking for a CUDA device
+where there is none is an error: the renderer never falls back to the CPU
+on its own.
 
     python -m smallvcm_tpu_torch.cli -s 0 -a vcm -i 8 -o out.bmp
 """
@@ -18,8 +20,9 @@ import sys
 import torch
 
 from .io.framebuffer import save_image
-from .render import (ALGORITHM_NAMES, ALGORITHMS, RenderConfig, render,
-                     resolve_algorithm)
+from .render import (ALGORITHM_NAMES, ALGORITHMS, TRACE_BACKENDS,
+                     RenderConfig, render, resolve_algorithm)
+from .algorithms.vcm import MERGE_BACKENDS
 from .scene.scene import (GLOSSY_FLOOR, SCENE_CONFIGS, get_scene_name,
                           load_cornell_box)
 
@@ -45,8 +48,8 @@ def resolve_device(name: str) -> torch.device:
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="smallvcm_tpu_torch",
-        description="SmallVCM's VertexCM family (lt, ppm, bpm, bpt, vcm) "
-        "over 4 Cornell-box scenes, PyTorch + CUDA wavefront renderer.",
+        description="SmallVCM's 7 light-transport algorithms over 4 "
+        "Cornell-box scenes, PyTorch + CUDA wavefront renderer.",
     )
     scene_lines = "; ".join(
         f"{i}={get_scene_name(c)[0]}" for i, c in enumerate(SCENE_CONFIGS)
@@ -54,7 +57,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", type=int, default=0, dest="scene_id",
                    help=f"scene id (default 0): {scene_lines}")
     alg_lines = "; ".join(f"{a}={ALGORITHM_NAMES[a]}" for a in ALGORITHMS)
-    p.add_argument("-a", type=str, default="vcm", dest="algorithm",
+    p.add_argument("-a", type=str, default=None, dest="algorithm",
                    choices=ALGORITHMS,
                    help=f"algorithm (default vcm): {alg_lines}")
     p.add_argument("-t", type=float, default=-1.0, dest="max_time",
@@ -63,6 +66,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="iterations to run (default 1)")
     p.add_argument("-o", type=str, default="", dest="output_name",
                    help="output name with .bmp or .hdr extension")
+    p.add_argument("--report", action="store_true",
+                   help="render all scenes x algorithms and emit index.html")
     p.add_argument("--resolution", type=int, nargs=2, default=(512, 512),
                    metavar=("X", "Y"))
     p.add_argument("--max-path-length", type=int, default=10)
@@ -70,6 +75,27 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--radius-factor", type=float, default=0.003)
     p.add_argument("--radius-alpha", type=float, default=0.75)
+    p.add_argument("--rng", type=str, default="threefry",
+                   choices=("threefry", "tea"), dest="rng_kind",
+                   help="counter-based generator; 'tea' is the reference's "
+                        "LEGACY_RNG mixing function (its old_rng flavor)")
+    p.add_argument("--merge-backend", default="auto", choices=MERGE_BACKENDS,
+                   help="photon merge: auto/pallas = the tile merge (the "
+                        "CUDA kernel on a card, its plain version on the "
+                        "CPU), xla = the differentiable pair-expansion "
+                        "merge")
+    p.add_argument("--trace-backend", default="auto", choices=TRACE_BACKENDS,
+                   help="closest-hit sweep: auto/pallas = the CUDA kernel "
+                        "on a card, the dense plain sweep on the CPU; xla "
+                        "= the dense sweep, CPU only (an error on a card)")
+    p.add_argument("--block", type=int, default=0, dest="block_size",
+                   help="accepted for compatibility; no effect (the port "
+                        "renders one iteration per step)")
+    p.add_argument("--checkpoint", default="", dest="checkpoint",
+                   help="checkpoint file; resumes from it if present")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   dest="checkpoint_every",
+                   help="save the checkpoint every N iterations")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default cuda)")
     p.add_argument("-v", "--verbose", action="store_true",
@@ -79,16 +105,22 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    if args.report:
+        from .report import full_report
+
+        full_report(args)
+        return 0
     if args.scene_id < 0 or args.scene_id >= len(SCENE_CONFIGS):
         print("Invalid <sceneID> argument, please see help (-h)")
         return 1
     device = resolve_device(args.device)
 
+    algorithm = args.algorithm or "vcm"
     scene_config = SCENE_CONFIGS[args.scene_id]
     scene = load_cornell_box(tuple(args.resolution), scene_config).to(device)
     scene_name, _ = get_scene_name(scene_config)
     cfg = RenderConfig(
-        algorithm=args.algorithm,
+        algorithm=algorithm,
         iterations=args.iterations,
         max_time=args.max_time,
         radius_factor=args.radius_factor,
@@ -97,10 +129,14 @@ def main(argv=None) -> int:
         max_path_length=args.max_path_length,
         min_path_length=args.min_path_length,
         resolution=tuple(args.resolution),
+        rng_kind=args.rng_kind,
+        merge_backend=args.merge_backend,
+        trace_backend=args.trace_backend,
+        block_size=args.block_size,
     )
 
     output = args.output_name or build_default_filename(scene_config,
-                                                        args.algorithm)
+                                                        algorithm)
     if not (output.endswith(".bmp") or output.endswith(".hdr")):
         output += ".bmp"
 
@@ -110,12 +146,20 @@ def main(argv=None) -> int:
         print(f"Target:  {cfg.max_time} seconds render time")
     else:
         print(f"Target:  {cfg.iterations} iteration(s)")
-    if resolve_algorithm(scene, args.algorithm) != args.algorithm:
+    if resolve_algorithm(scene, algorithm) != algorithm:
         print("Switching from PPM to BPM (scene mixes specular and "
               "non-specular materials)")
-    print(f"Running: {ALGORITHM_NAMES[args.algorithm]}...",
+    print(f"Running: {ALGORITHM_NAMES[algorithm]}...",
           end="\n" if args.verbose else " ", flush=True)
-    img, elapsed, iters, rays = render(scene, cfg, verbose=args.verbose)
+    if args.checkpoint:
+        from .checkpoint import render_resumable
+
+        img, elapsed, iters, rays = render_resumable(
+            scene, cfg, checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, verbose=args.verbose,
+        )
+    else:
+        img, elapsed, iters, rays = render(scene, cfg, verbose=args.verbose)
     print(f"done in {elapsed:.2f} s ({iters} iterations, {rays} rays)")
 
     save_image(img, output)

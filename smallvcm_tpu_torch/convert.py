@@ -3,8 +3,10 @@
 The renderer's "weights" are the scene tensors. ``scene_from_numpy`` takes
 a JAX ``SceneData`` whose leaves were turned into numpy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and rebuilds it as the port's
-``SceneData`` on ``device``, matching NamedTuples by class name. This
-module imports nothing of JAX: it only reads attributes and arrays.
+``SceneData`` on ``device``, matching NamedTuples by class name;
+``params_from_numpy`` does the same for the differentiable parameters of
+``diff.Params``. This module imports nothing of JAX: it only reads
+attributes and arrays.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import numpy as np
 import torch
 
 from .core.vec3 import V3
+from .diff import Params
 from .scene.camera import CameraData
 from .scene.scene import Lights, Materials, SceneData, SceneSphere
 
 _NAMED = {cls.__name__: cls
-          for cls in (V3, Materials, Lights, SceneSphere, CameraData)}
+          for cls in (V3, Materials, Lights, SceneSphere, CameraData,
+                      Params)}
 
 
 def _convert(node, device):
@@ -38,3 +42,11 @@ def scene_from_numpy(tree, device="cpu") -> SceneData:
           for f in dataclasses.fields(SceneData)
           if f.name != "background_idx"}
     return SceneData(**kw, background_idx=int(tree.background_idx))
+
+
+def params_from_numpy(tree, device="cpu") -> Params:
+    """JAX ``diff.Params`` with numpy leaves -> port ``Params`` on device."""
+    params = _convert(tree, torch.device(device))
+    if not isinstance(params, Params):
+        raise TypeError(f"expected Params, got {type(tree).__name__}")
+    return params

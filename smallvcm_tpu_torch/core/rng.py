@@ -55,25 +55,54 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
+def tea6(k0, k1, c0, c1):
+    """Six-round Tiny Encryption Algorithm hash in counter mode.
+
+    The reference's LEGACY_RNG mixing function (rng.hxx:90-122) with the
+    two key words and two counter words folded into the initial state, as
+    ``smallvcm_tpu/core/rng.py::tea6`` does. Arguments are Python ints or
+    int64 tensors holding uint32 words; each sum is reduced mod 2**32 once
+    at the end of its round (addition and xor commute with the mask, and
+    the unmasked intermediates stay below 2**38).
+    """
+    v0 = (_u32(k0) + _u32(c0)) & _MASK
+    v1 = _u32(k1) ^ _u32(c1)
+    s = 0
+    for _ in range(6):
+        s = (s + 0x9E3779B9) & _MASK
+        v0 = (v0 + (((v1 << 4) + 0xA341316C) ^ (v1 + s)
+                    ^ ((v1 >> 5) + 0xC8013EA4))) & _MASK
+        v1 = (v1 + (((v0 << 4) + 0xAD90777D) ^ (v0 + s)
+                    ^ ((v0 >> 5) + 0x7E95761E))) & _MASK
+    return v0, v1
+
+
+_GENERATORS = {"threefry": threefry2x32, "tea": tea6}
+
+
 def _to_unit_float(bits):
     """uint32 (in int64) -> float32 in [0, 1) using the top 24 bits."""
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def uniform_slots(seed: int, stream, path_ids, n_slots: int):
+def uniform_slots(seed: int, stream, path_ids, n_slots: int,
+                  generator: str = "threefry"):
     """Generate ``[..., n_slots]`` uniforms in [0, 1) for each path.
 
     seed:      python int (base seed, reference default 1234)
     stream:    python int identifying (iteration, stage, bounce)
     path_ids:  integer tensor [...] of *global* path indices
     n_slots:   number of random values per path
+    generator: "threefry" (default) or "tea" — the reference's LEGACY_RNG
+               mixing function in counter mode (its `old_rng` build flavor)
     """
+    bits2x32 = _GENERATORS[generator]
     path_ids = _u32(path_ids)
     k0 = seed & _MASK
     k1 = _u32(stream)
     out = []
     for pair in range((n_slots + 1) // 2):
-        b0, b1 = threefry2x32(k0, k1, path_ids, pair)
+        b0, b1 = bits2x32(k0, k1, path_ids, pair)
         out.append(_to_unit_float(b0))
         out.append(_to_unit_float(b1))
     return torch.stack(out[:n_slots], dim=-1)

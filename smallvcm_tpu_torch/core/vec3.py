@@ -133,3 +133,38 @@ def max_gt_zero(a: V3):
     """True where any component is positive (the usual !IsZero test for
     nonnegative radiance/factors)."""
     return a.max_component() > 0.0
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` with a backward that sums each lane's gradient into
+    its row by a one-hot reduction (deterministic, no atomics)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        onehot = torch.zeros((flat.shape[0], ctx.rows), dtype=grad.dtype,
+                             device=grad.device)
+        onehot.scatter_(1, flat[:, None], 1.0)
+        return (onehot * grad.reshape(-1, 1)).sum(0), None
+
+
+def take(table, idx):
+    """``table[idx]`` for a small 1-D table (or a V3 of them), such as the
+    materials or lights gathered per lane. Where the table needs a
+    gradient, its backward is :class:`_TakeRows`: PyTorch's own index
+    backward on CUDA accumulates the lanes of one row serially, which took
+    ~11 ms per call with 262,144 lanes over a handful of rows (96% of a
+    512x512 path-tracing gradient step's device time, measured on an NVIDIA
+    H100 80GB HBM3 at 700 W)."""
+    if isinstance(table, V3):
+        return V3(*(take(c, idx) for c in table))
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _TakeRows.apply(table, idx)
+    return table[idx]

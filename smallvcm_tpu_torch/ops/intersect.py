@@ -68,8 +68,10 @@ def occluded(scene: SceneData, point: V3, direction: V3, dist) -> torch.Tensor:
     EPS_RAY along the direction, max distance shortened by 2*EPS_RAY.
 
     ``nearest hit < tmax`` is the same predicate as the XLA sweep's
-    ``any(t < tmax)`` over primitives, so one closest-hit sweep serves."""
+    ``any(t < tmax)`` over primitives, so one closest-hit sweep serves.
+    A boolean has no gradient, so the rays go in detached."""
     org = point + direction * EPS_RAY
     tmax = dist - 2.0 * EPS_RAY
-    best_t, _ = sweep(scene, org, direction)
+    best_t, _ = sweep(scene, V3(*(a.detach() for a in org)),
+                      V3(*(a.detach() for a in direction)))
     return best_t < tmax

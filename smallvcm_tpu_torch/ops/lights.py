@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.vec3 import V3, dot, len_sqr, v3_where
+from ..core.vec3 import V3, dot, len_sqr, take, v3_where
 from ..core.vecmath import (
     EPS_COSINE,
     INV_PI_F,
@@ -63,7 +63,7 @@ class RadianceResult(NamedTuple):
 
 def _gather(lights: Lights, idx):
     safe = idx.long().clamp(0, lights.kind.shape[0] - 1)
-    g = lambda a: a[safe]
+    g = lambda a: take(a, safe)
     return (
         g(lights.kind), g(lights.p0), g(lights.e1), g(lights.e2),
         g(lights.frame_x), g(lights.frame_y), g(lights.frame_z),

@@ -27,7 +27,6 @@ grow-and-retry. That costs one host read per iteration (see merge_prep).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.vec3 import V3
@@ -35,7 +34,7 @@ from ..core.vecmath import EPS_COSINE, EPS_PHONG, INV_PI_F
 from ..io.framebuffer import deterministic_index_add
 from . import _cuda
 from . import bsdf as bsdf_ops
-from .hashgrid import sort_compact_planes
+from .hashgrid import inv_cell_size, sort_compact_planes
 
 GRID_XY = 1024            # cells along x and y (clamped)
 GRID_Z = 512              # cells along z
@@ -197,9 +196,7 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
     big = 1e36
     mins = [torch.where(pv, psrc[c], big).min() for c in range(3)]
     maxs = [torch.where(pv, psrc[c], -big).max() for c in range(3)]
-    # 1 / (2r) rounded in f32, as the JAX package computes it.
-    inv_cell = float(np.float32(1.0) / (np.float32(misc.radius)
-                                         * np.float32(2.0)))
+    inv_cell = inv_cell_size(misc.radius)
 
     (pcx, pcy, pcz), _ = _cells_of(psrc[0], psrc[1], psrc[2], mins, inv_cell,
                                    pv)

@@ -166,15 +166,90 @@ def sweep_kernel(tables, n_tri: int, n_sph: int, org: V3, direction: V3):
 sweep_kernel.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Gradient of the closest hit: the kernel forward, a plain [N]-lane backward
+# ---------------------------------------------------------------------------
+
+
+def winner_distance(scene, org: V3, direction: V3, prim):
+    """Distance to the given primitive of each ray [N] (0 where prim is
+    -1), by the plain sweep's formulas: triangles t = n.(p0 - o) / n.d,
+    spheres the stable quadratic's nearest positive root. Differentiable in
+    the rays and the scene; masked lanes stay NaN-free (guarded divisions
+    and a strictly positive sqrt argument, as in the dense sweep)."""
+    n_tri = scene.tri_mat.shape[0]
+    hit = prim >= 0
+    tri = prim.clamp(0, n_tri - 1)
+    n = scene.tri_normal[tri]
+    denom = dot(n, direction)
+    t = dot(n, scene.tri_p0[tri] - org) / torch.where(denom == 0.0, 1.0,
+                                                       denom)
+    if scene.sph_mat.shape[0]:
+        sph = (prim - n_tri).clamp(0, scene.sph_mat.shape[0] - 1)
+        oc = org - scene.sph_center[sph]
+        a = dot(direction, direction)
+        bq = 2.0 * dot(direction, oc)
+        r = scene.sph_radius[sph]
+        c = dot(oc, oc) - r * r
+        sqrt_disc = torch.sqrt((bq * bq - 4.0 * a * c).clamp_min(1e-30))
+        q = torch.where(bq < 0.0, (-bq - sqrt_disc) * 0.5,
+                        (-bq + sqrt_disc) * 0.5)
+        t_a = q / a
+        t_b = c / torch.where(q == 0.0, 1.0, q)
+        t0 = torch.minimum(t_a, t_b)
+        t_sph = torch.where(t0 > 0.0, t0, torch.maximum(t_a, t_b))
+        t = torch.where(prim < n_tri, t, t_sph)
+    return torch.where(hit, t, 0.0)
+
+
+class _SweepKernelFn(torch.autograd.Function):
+    """The sweep kernel with a gradient: forward launches
+    csrc/intersect_sweep.cu; backward differentiates the winning
+    primitive's distance (:func:`winner_distance`) on [N] lanes. This is
+    the gradient of the dense sweep's min (the JAX package differentiates
+    its XLA sweep), which flows to the winning primitive only; the ray
+    parameters get it, the primitive index gets none."""
+
+    @staticmethod
+    def forward(ctx, scene, tables, ox, oy, oz, dx, dy, dz):
+        rays = [a.detach() for a in (ox, oy, oz, dx, dy, dz)]
+        dist, prim = sweep_kernel(tables, scene.tri_mat.shape[0],
+                                  scene.sph_mat.shape[0], V3(*rays[:3]),
+                                  V3(*rays[3:]))
+        ctx.scene = scene
+        ctx.save_for_backward(*rays, prim)
+        ctx.mark_non_differentiable(prim)
+        return dist, prim
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_prim):
+        *rays, prim = ctx.saved_tensors
+        with torch.enable_grad():
+            rays = [a.detach().requires_grad_(need) for a, need in
+                    zip(rays, ctx.needs_input_grad[2:])]
+            t = winner_distance(ctx.scene, V3(*rays[:3]), V3(*rays[3:]),
+                                prim)
+            live = [a for a in rays if a.requires_grad]
+            grads = iter(torch.autograd.grad(t, live, g_dist))
+        return (None, None, *(next(grads) if a.requires_grad else None
+                              for a in rays))
+
+
 def sweep(scene, org: V3, direction: V3):
     """Closest-hit sweep of rays of any (broadcast) shape -> (dist, prim)
-    of that shape: the plain version on CPU, the kernel on CUDA."""
+    of that shape: the plain version on CPU (differentiable through its
+    own autograd), the kernel on CUDA (through :class:`_SweepKernelFn`
+    when a ray needs a gradient)."""
     shape = torch.broadcast_shapes(*(a.shape for a in (*org, *direction)))
     flat = lambda v: V3(*(a.expand(shape).reshape(-1).contiguous()
                           for a in v))
     org, direction = flat(org), flat(direction)
     if org.x.device.type == "cpu":
         dist, prim = sweep_plain(scene, org, direction)
+    elif torch.is_grad_enabled() and any(
+            a.requires_grad for a in (*org, *direction)):
+        dist, prim = _SweepKernelFn.apply(scene, scene_tables(scene), *org,
+                                          *direction)
     else:
         dist, prim = sweep_kernel(scene_tables(scene), scene.tri_mat.shape[0],
                                   scene.sph_mat.shape[0], org, direction)

@@ -138,3 +138,90 @@ def test_render_on_card_matches_cpu(dev):
     ok = np.isclose(got, want, rtol=1e-4, atol=1e-6).all(axis=-1)
     assert ok.mean() >= 0.99
     assert abs(got.mean() / want.mean() - 1.0) <= 1e-4
+
+
+def test_sweep_autograd_matches_plain(dev):
+    """The kernel's autograd Function against the plain sweep's autograd,
+    on the card: distances to rtol 1e-6, ray gradients to rtol 1e-5."""
+    for config in SCENE_CONFIGS:
+        scene = load_cornell_box((8, 8), config).to(dev)
+        org, d = _rays(40 + config, 100_000, dev)
+        wts = torch.rand(100_000, device=dev)
+
+        def grads(use_kernel):
+            rays = [a.clone().requires_grad_() for a in (*org, *d)]
+            o, dd = V3(*rays[:3]), V3(*rays[3:])
+            dist, _ = S.sweep(scene, o, dd) if use_kernel else \
+                S.sweep_plain(scene, o, dd)
+            out = torch.where(dist < S.BIG_DIST, dist, 0.0)
+            return out, torch.autograd.grad((out * wts).sum(), rays)
+
+        before = S.sweep_kernel.launches
+        got_t, got = grads(True)
+        assert S.sweep_kernel.launches == before + 1
+        want_t, want = grads(False)
+        torch.testing.assert_close(got_t, want_t, rtol=1e-6, atol=0.0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_pt_on_card_matches_cpu(dev):
+    res = (16, 16)
+    for alg in ("el", "pt"):
+        cfg = R.RenderConfig(algorithm=alg, iterations=2, resolution=res)
+        want, _, _, want_rays = R.render(
+            load_cornell_box(res, SCENE_CONFIGS[1]), cfg)
+        before = S.sweep_kernel.launches
+        got, _, _, rays = R.render(
+            load_cornell_box(res, SCENE_CONFIGS[1]).to(dev), cfg)
+        assert S.sweep_kernel.launches > before
+        assert abs(rays / want_rays - 1.0) < 1e-3
+        got, want = got.cpu().numpy(), want.numpy()
+        ok = np.isclose(got, want, rtol=1e-4, atol=1e-6).all(axis=-1)
+        assert ok.mean() >= 0.99
+        assert abs(got.mean() / want.mean() - 1.0) <= 1e-4
+
+
+def _sparse_vertices(seed, l, n, span):
+    """Synthetic vertex table (scripts/check_kernel_tpu.py's shape of
+    case): uniform positions over ``span``, random unit directions."""
+    r = np.random.default_rng(seed)
+    unit = lambda: (lambda a: a / np.linalg.norm(a, axis=0))(
+        r.normal(size=(3, l, n)).astype(np.float32))
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return vcm.StoredVertices(
+        position=V3(*f(r.uniform(0, span, (3, l, n)))),
+        throughput=V3(*f(r.uniform(0.1, 1.0, (3, l, n)))),
+        in_dir=V3(*f(unit())), normal=V3(*f(unit())),
+        mat_id=torch.from_numpy(r.integers(0, 9, (l, n))),
+        d_vcm=f(r.uniform(0, 2, (l, n))), d_vc=torch.zeros((l, n)),
+        d_vm=f(r.uniform(0, 2, (l, n))),
+        valid=torch.from_numpy(r.random((l, n)) < 0.6),
+    )
+
+
+@pytest.mark.parametrize("span_radii", [6.0, 120.0])
+def test_pair_merge_on_card_matches_cpu_and_tile_kernel(dev, span_radii):
+    """The pair merge on the card against itself on the CPU, and the tile
+    kernel against the pair merge (rtol 3e-5 / atol 1e-7, per-query
+    summation order), on a dense and on the sparse 32x32 case."""
+    res = 32
+    n = res * res
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    misc = vcm.compute_misc(scene, 0, n, 0.05, 0.75, True, True)
+    span = misc.radius * span_radii
+    q = _sparse_vertices(1, 4, n, span)
+    lv = _sparse_vertices(2, 5, n, span)
+    to = lambda v: vcm.StoredVertices(*(
+        V3(*(c.to(dev) for c in f)) if isinstance(f, V3) else f.to(dev)
+        for f in v))
+    want = vcm.merge_stage(scene, misc, q, lv, False, 7, 0, n)
+    assert float(want.x.abs().sum()) > 0.0
+    scene_d = scene.to(dev)
+    got = vcm.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
+    before = M.merge_tiles_kernel.launches
+    tile = M.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
+    assert M.merge_tiles_kernel.launches == before + 1
+    for g, t_, w in zip(got, tile, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=3e-5, atol=1e-7)
+        torch.testing.assert_close(t_, g, rtol=3e-5, atol=1e-7)

@@ -31,7 +31,12 @@ def test_every_module_imports_without_jax():
     mods = _all_modules()
     assert {"smallvcm_tpu_torch.ops.merge", "smallvcm_tpu_torch.ops.sweep",
             "smallvcm_tpu_torch.algorithms.vcm", "smallvcm_tpu_torch.cli",
-            "smallvcm_tpu_torch.convert"} <= set(mods)
+            "smallvcm_tpu_torch.convert", "smallvcm_tpu_torch.ops.hashgrid",
+            "smallvcm_tpu_torch.algorithms.eyelight",
+            "smallvcm_tpu_torch.algorithms.pathtracer",
+            "smallvcm_tpu_torch.checkpoint", "smallvcm_tpu_torch.diff",
+            "smallvcm_tpu_torch.report",
+            "smallvcm_tpu_torch.io.html"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,3 +73,27 @@ def test_kernel_sources_present_and_build_is_keyed_by_source():
     assert path.parent.parent == _cuda.BUILD_DIR
     assert path.parent.name == _cuda.source_digest()
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
+
+
+def test_dense_sweep_is_never_chosen_for_a_card():
+    """trace_backend 'xla' names the kernel's plain reference: on a CUDA
+    device it raises instead of standing in for the kernel."""
+    from types import SimpleNamespace
+
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    card = SimpleNamespace(device=torch.device("cuda", 0))
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not run on a CUDA device"):
+        R.check_backends(card, R.RenderConfig(trace_backend="xla"))
+    R.check_backends(cpu, R.RenderConfig(trace_backend="xla"))
+    for be in ("auto", "pallas"):
+        R.check_backends(card, R.RenderConfig(trace_backend=be,
+                                              merge_backend="xla"))
+    with pytest.raises(ValueError, match="trace_backend"):
+        R.check_backends(cpu, R.RenderConfig(trace_backend="mosaic"))
+    with pytest.raises(ValueError, match="merge_backend"):
+        R.render_single_iteration(
+            load_cornell_box((8, 8), SCENE_CONFIGS[0]),
+            R.RenderConfig(resolution=(8, 8), merge_backend="mosaic"), 0)
