@@ -11,8 +11,9 @@ Phases (each one raises on failure; nothing is caught):
 2. build both CUDA kernels from csrc/ and report the build time;
 3. the ray-sweep kernel against its plain PyTorch version on 262,144
    random rays in scene 0;
-4. the merge kernel against its plain version on the merge tables of one
-   real 512x512 scene-0 VCM iteration;
+4. the merge kernel against its plain version on every query of the merge
+   tables of one real 512x512 scene-0 VCM iteration, a bitwise second
+   launch, its candidate-pair counts and its bound;
 5. the golden image (tests/data/torch_golden_vcm_s0_32.npz, rendered by
    the JAX package) against the port's render on the card, and a bitwise
    repeat of that render;
@@ -26,7 +27,7 @@ Phases (each one raises on failure; nothing is caught):
 8. lt, ppm, bpm and bpt at 512x512, 2 iterations each, through the CLI:
    ms/iteration and image mean against the reference;
 9. VCM 512x512 through the pair-expansion merge (``merge_backend="xla"``)
-   against the tile kernel's render: means, pixels, merge launches; VCM
+   against the cell kernel's render: means, pixels, merge launches; VCM
    with the TEA generator; ``trace_backend="xla"`` refused on the card;
 10. checkpoint/resume through the CLI: -i 2 then -i 4 resumed gives the
     BMP bytes of an uninterrupted -i 4;
@@ -37,8 +38,9 @@ Phases (each one raises on failure; nothing is caught):
 12. ``--report -i 1 --resolution 64 64`` on the card: 28 BMPs and
     index.html.
 
-The last two lines are a JSON object with per-kernel numbers and the
-result line ``{"ok": true, "device": {...}}``. It exits non-zero, with
+The last three lines are the card's name and power limit, a JSON object
+with per-kernel numbers (time, plain time, bound, launches per path) and
+the result line ``{"ok": true, "device": {...}}``. It exits non-zero, with
 no result, when there is no CUDA device or when the package is not
 beside this script.
 """
@@ -68,6 +70,25 @@ RES = 512
 GRAD_RES = 512       # full-size gradient step (pt and vcm, 1 iteration)
 SEED = 1234
 
+# A kernel's bound is the larger of its bytes over the card's memory rate
+# and its operations over the card's f32 rate (H100 SXM, NVIDIA's data
+# sheet, at 700 W; the kernels do f32 arithmetic outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per ray and primitive in csrc/intersect_sweep.cu (adds,
+# multiplies, one divide or square root).
+SWEEP_OPS_TRI = 62
+SWEEP_OPS_SPH = 32
+# csrc/merge_cells.cu: a candidate's r^2 and path-length test; a passing
+# pair's BSDF, MIS weight and accumulation (exp and log count one each),
+# which reads 25 more query fields (3-27: frame, lobes, pdf and MIS
+# factors, colours, exponent) and 9 more photon fields (in_dir,
+# throughput, d_vcm, d_vm, continuation).
+MERGE_OPS_CANDIDATE = 9
+MERGE_OPS_PASS = 71
+MERGE_QUERY_FIELDS = 25
+MERGE_PHOTON_FIELDS = 9
+
 
 def log(*a):
     print(*a, flush=True)
@@ -85,6 +106,13 @@ def time_cuda(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: int, n_ops: int):
+    """(least milliseconds the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def card_line() -> str:
@@ -138,9 +166,54 @@ def check_sweep(torch, dev):
     ms = time_cuda(torch, lambda: S.sweep_kernel(tables, n_tri, n_sph, org,
                                                   dirn), 50)
     plain_ms = time_cuda(torch, lambda: S.sweep_plain(scene, org, dirn), 10)
-    log(f"[sweep] {n} rays: max|dist err|={err:.3g} prim mismatches "
-        f"(ties)={n_mism}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # Rays in (6 f32), dist (f32) and prim (int64) out, the tables once.
+    n_bytes = n * (6 * 4 + 4 + 8) + sum(t.numel() * t.element_size()
+                                        for t in tables)
+    n_ops = n * (SWEEP_OPS_TRI * n_tri + SWEEP_OPS_SPH * n_sph)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"[sweep] {n} rays x ({n_tri} triangles, {n_sph} spheres): "
+        f"max|dist err|={err:.3g} prim mismatches (ties)={n_mism}  kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.4f} ms; bound {1e3 * b_ms:.2f} us "
+        f"by {b_by} ({n_bytes} B, {n_ops} ops), kernel at "
+        f"{100 * b_ms / ms:.1f}% of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def merge_work(torch, M, tabs, r2, max_pl, min_pl):
+    """What the cell walk's inputs ask of it: candidate pairs, pairs within
+    r, pairs that pass the r^2 test and the path-length window, and the
+    bytes and operations the bound counts (each needed input byte read
+    once: the ranges; a candidate's position and path length, of query and
+    photon; the other fields a passing pair uses; the output)."""
+    qpos, ppos, ranges = tabs.qpos, tabs.ppos, tabs.ranges
+    n_q, n_p = qpos.shape[0], ppos.shape[0]
+    q_cand = torch.zeros(n_q, dtype=torch.bool, device=qpos.device)
+    q_pass, p_cand, p_pass = q_cand.clone(), q_cand.new_zeros(n_p), \
+        q_cand.new_zeros(n_p)
+    cand = near = passing = 0
+    for qs, ps in M.candidate_pairs(ranges):
+        d2 = sum((qpos[qs, c] - ppos[ps, c]) ** 2 for c in range(3))
+        tlen = qpos[qs, 3] + ppos[ps, 3]
+        in_r = d2 <= r2
+        ok = in_r & (tlen <= max_pl) & (tlen >= min_pl)
+        cand += qs.numel()
+        near += int(in_r.sum())
+        passing += int(ok.sum())
+        q_cand[qs] = True
+        p_cand[ps] = True
+        q_pass[qs[ok]] = True
+        p_pass[ps[ok]] = True
+    per_q = (ranges[M.ROWS:] - ranges[:M.ROWS]).sum(0)
+    n_bytes = 4 * (2 * M.ROWS * n_q + 3 * n_q
+                   + 4 * int(q_cand.sum())
+                   + MERGE_QUERY_FIELDS * int(q_pass.sum())
+                   + 4 * int(p_cand.sum())
+                   + MERGE_PHOTON_FIELDS * int(p_pass.sum()))
+    n_ops = MERGE_OPS_CANDIDATE * cand + MERGE_OPS_PASS * passing
+    return dict(candidates=cand, in_radius=near, passing=passing,
+                max_per_query=int(per_q.max()),
+                mean_per_query=cand / n_q, bytes=n_bytes, ops=n_ops)
 
 
 def check_merge(torch, dev):
@@ -158,36 +231,34 @@ def check_merge(torch, dev):
                                          True, True, False)
     _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, RES, SEED,
                                       10, 0, True, True, False)
-    qtab, runs, ptab, _q_path, n_q = M.merge_prep(scene, misc, queries, verts,
-                                                  n)
+    tabs = M.merge_prep(scene, misc, queries, verts, n)
+    n_q, n_p = tabs.qtab.shape[0], tabs.ptab.shape[0]
     kw = dict(max_path_length=10, min_path_length=0, ppm=False)
-    args = (qtab, runs, ptab, misc.radius_sqr, misc.mis_vc_weight)
-    out = M.merge_tiles_kernel(*args, **kw)
-
-    n_tiles = runs.shape[0]
-    busy = torch.nonzero(runs[:, 0] > 0).flatten()
-    if busy.numel() < 64:
-        raise AssertionError(f"merge: only {busy.numel()} non-empty tiles")
-    sel = busy[torch.linspace(0, busy.numel() - 1, 96, device=dev).long()
-               .unique()]
-    q3 = qtab.reshape(M.QF, n_tiles, M.QTILE)
-    sub = q3[:, sel].reshape(M.QF, -1).contiguous()
-    want = M.merge_tiles_plain(sub, runs[sel].contiguous(), ptab,
-                               *args[3:], **kw)
-    got = out.reshape(3, n_tiles, M.QTILE)[:, sel].reshape(3, -1)
+    args = (*tabs[:5], misc.radius_sqr, misc.mis_vc_weight)
+    out = M.merge_cells_kernel(*args, **kw)
+    again = M.merge_cells_kernel(*args, **kw)
+    want = M.merge_cells_plain(*args, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    err = float((got - want).abs().max())
-    ms = time_cuda(torch, lambda: M.merge_tiles_kernel(*args, **kw), 10)
-    t0 = time.perf_counter()
-    M.merge_tiles_plain(*args, **kw, chunk=256)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    pairs = int(runs[:, 0].long().sum()) * M.QTILE * M.SLAB
-    log(f"[merge] {n_q} queries in {n_tiles} tiles, {ptab.shape[1]} photon "
-        f"slots, {pairs} candidate pairs; {sel.numel()} tiles checked: "
-        f"max|err|={err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if not torch.equal(out, again):
+        raise AssertionError("merge: a second launch is not bitwise equal")
+    if float(want.abs().sum()) <= 0.0:
+        raise AssertionError("merge: no query found a photon")
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-6)
+    err = float((out - want).abs().max())
+    ms = time_cuda(torch, lambda: M.merge_cells_kernel(*args, **kw), 50)
+    plain_ms = time_cuda(torch, lambda: M.merge_cells_plain(*args, **kw), 3)
+    w = merge_work(torch, M, tabs, misc.radius_sqr, 10, 0)
+    b_ms, b_by = bound_ms(w["bytes"], w["ops"])
+    log(f"[merge] {n_q} queries, {n_p} photons; candidate pairs "
+        f"{w['candidates']} (max {w['max_per_query']}, mean "
+        f"{w['mean_per_query']:.3f} per query), within r {w['in_radius']}, "
+        f"passing r and window {w['passing']}; all queries checked: "
+        f"max|err|={err:.3g}, second launch bitwise equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound {1e3 * b_ms:.2f} us "
+        f"by {b_by} ({w['bytes']} B, {w['ops']} ops), kernel at "
+        f"{100 * b_ms / ms:.1f}% of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def check_golden(torch, dev, path=GOLDEN):
@@ -254,12 +325,12 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
 
 def reset_counts(M, S):
     S.sweep_kernel.launches = 0
-    M.merge_tiles_kernel.launches = 0
+    M.merge_cells_kernel.launches = 0
 
 
 def read_counts(M, S) -> dict:
     return dict(intersect_sweep=S.sweep_kernel.launches,
-                merge_tiles=M.merge_tiles_kernel.launches)
+                merge_cells=M.merge_cells_kernel.launches)
 
 
 def steady(iters):
@@ -328,7 +399,7 @@ def check_simple_paths(torch):
         ref = PARITY_MEAN[alg]
         if abs(mean / ref - 1) > tol:
             raise AssertionError(f"{alg}: image mean {mean} vs {ref}")
-        if launches["intersect_sweep"] <= 0 or launches["merge_tiles"]:
+        if launches["intersect_sweep"] <= 0 or launches["merge_cells"]:
             raise AssertionError(f"{alg}: launches {launches}")
         if not same or [i[1] for i in iters] != [i[1] for i in iters2]:
             raise AssertionError(f"{alg}: second run not bitwise equal")
@@ -356,7 +427,7 @@ def check_family_paths(torch):
         ref = PARITY_MEAN[alg]
         merges = alg in ("ppm", "bpm")
         if abs(mean / ref - 1) > 0.05 or launches["intersect_sweep"] <= 0 \
-                or (launches["merge_tiles"] > 0) != merges:
+                or (launches["merge_cells"] > 0) != merges:
             raise AssertionError(f"{alg}: mean {mean} vs {ref}, launches "
                                  f"{launches}")
         log(f"[{alg}] {RES}x{RES} x2 via cli.main: first "
@@ -368,7 +439,7 @@ def check_family_paths(torch):
 
 
 def check_merge_backends(torch, dev):
-    """Phase 9: VCM through the pair merge vs the tile kernel; TEA RNG."""
+    """Phase 9: VCM through the pair merge vs the cell kernel; TEA RNG."""
     import numpy as np
 
     from smallvcm_tpu_torch import render as R
@@ -378,23 +449,23 @@ def check_merge_backends(torch, dev):
 
     scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
     runs = {}
-    for name, kw in (("tile", {}), ("xla", dict(merge_backend="xla")),
+    for name, kw in (("cells", {}), ("xla", dict(merge_backend="xla")),
                      ("tea", dict(rng_kind="tea"))):
         cfg = R.RenderConfig(algorithm="vcm", iterations=2,
                              resolution=(RES, RES), **kw)
         reset_counts(M, S)
         img, secs, _, rays = R.render(scene, cfg)
         runs[name] = (img.cpu().numpy(), secs, read_counts(M, S))
-    tile, xla, tea = (runs[k][0] for k in ("tile", "xla", "tea"))
-    rel_mean = abs(float(xla.mean()) / float(tile.mean()) - 1.0)
-    close = np.isclose(xla, tile, rtol=1e-3, atol=1e-6).all(axis=-1).mean()
+    cells, xla, tea = (runs[k][0] for k in ("cells", "xla", "tea"))
+    rel_mean = abs(float(xla.mean()) / float(cells.mean()) - 1.0)
+    close = np.isclose(xla, cells, rtol=1e-3, atol=1e-6).all(axis=-1).mean()
     if rel_mean > 1e-4 or close < 0.99:
         raise AssertionError(f"xla merge: mean rel {rel_mean}, pixels "
                              f"{close}")
-    if runs["xla"][2]["merge_tiles"] != 0 or \
-            runs["tile"][2]["merge_tiles"] <= 0:
+    if runs["xla"][2]["merge_cells"] != 0 or \
+            runs["cells"][2]["merge_cells"] <= 0:
         raise AssertionError(f"merge launches {runs['xla'][2]} / "
-                             f"{runs['tile'][2]}")
+                             f"{runs['cells'][2]}")
     # The dense plain sweep never stands in for the kernel on a card.
     try:
         R.render(scene, R.RenderConfig(iterations=1, resolution=(RES, RES),
@@ -407,10 +478,10 @@ def check_merge_backends(torch, dev):
     if abs(tea_rel) > 0.05 or not np.isfinite(tea).all():
         raise AssertionError(f"tea: mean {tea.mean()}")
     ms = {k: 1e3 * v[1] / 2 for k, v in runs.items()}
-    log(f"[merge-backends] vcm {RES}x{RES} x2: tile {ms['tile']:.1f} "
+    log(f"[merge-backends] vcm {RES}x{RES} x2: cell kernel {ms['cells']:.1f} "
         f"ms/iteration, pair merge (xla) {ms['xla']:.1f} ms/iteration; "
         f"mean rel {rel_mean:.2e}, pixels within rtol 1e-3 {close:.4f}; "
-        f"launches tile {runs['tile'][2]} xla {runs['xla'][2]}; tea mean "
+        f"launches cells {runs['cells'][2]} xla {runs['xla'][2]}; tea mean "
         f"{tea.mean():.6f} ({100 * tea_rel:+.2f}% vs {REFERENCE_MEAN}); "
         f"trace_backend 'xla' refused on the card")
     return dict(ms=ms, launches={k: v[2] for k, v in runs.items()})
@@ -500,7 +571,7 @@ def check_gradients(torch, dev):
             raise AssertionError(f"grad {alg}: non-finite leaf")
         if float(g.light_intensity.x.abs().max()) <= 0.0:
             raise AssertionError(f"grad {alg}: zero light-intensity grad")
-        if launches["intersect_sweep"] <= 0 or launches["merge_tiles"]:
+        if launches["intersect_sweep"] <= 0 or launches["merge_cells"]:
             raise AssertionError(f"grad {alg}: launches {launches}")
         log(f"[grad] {alg} {GRAD_RES}x{GRAD_RES} x1 forward+backward: "
             f"{times[0]:.1f} ms cold, {ms:.1f} ms warm, peak {peak:.2f} "
@@ -628,11 +699,11 @@ def main() -> int:
         **{f"grad_{alg}": r["launches"][name] for alg, r in grads.items()},
     }
     kernels = [
-        dict(name="merge_tiles", route="cuda",
-             source="smallvcm_tpu_torch/csrc/merge_tiles.cu",
+        dict(name="merge_cells", route="cuda",
+             source="smallvcm_tpu_torch/csrc/merge_cells.cu",
              replaces="smallvcm_tpu/ops/pallas_merge.py:170",
-             launches=launches["merge_tiles"],
-             launches_by_path=by_path("merge_tiles"), **merge_r),
+             launches=launches["merge_cells"],
+             launches_by_path=by_path("merge_cells"), **merge_r),
         dict(name="intersect_sweep", route="cuda",
              source="smallvcm_tpu_torch/csrc/intersect_sweep.cu",
              replaces="smallvcm_tpu/ops/pallas_intersect.py:46",

@@ -13,7 +13,7 @@ over component-planar tensors. One iteration is
      same-index light-vertex connections with the dVCM/dVC/dVM MIS
      recursion per lane, and record merge queries;
   3. the deferred merge, additive and walk-independent, so deferring it
-     is equivalent to the reference's inline loop: the tile merge
+     is equivalent to the reference's inline loop: the cell merge
      (ops/merge.py, the CUDA kernel on a card) or the differentiable
      pair-expansion :func:`merge_stage`;
   4. framebuffer accumulation on each path's own pixel.
@@ -39,7 +39,7 @@ from ..io.framebuffer import (add_color_at_pix, deterministic_index_add,
 from ..ops import bsdf as bsdf_ops
 from ..ops import hashgrid as grid_ops
 from ..ops import lights as light_ops
-from ..ops import merge as tile_merge
+from ..ops import merge as cell_merge
 from ..ops.intersect import intersect, occluded
 from ..scene.camera import check_raster, generate_ray, world_to_raster
 from ..scene.scene import SceneData
@@ -732,17 +732,11 @@ def _camera_stage(
     return color, queries, rays
 
 
-# Pair-expansion merge: chunks hold at most this many candidate pairs
-# (about 2 GB of int64/f32 pair arrays), as the JAX package's render loop
-# bounds its pair arrays at 16M rows (render.py:419-424).
-MAX_PAIRS = 1 << 24
-
-
 def merge_stage(
     scene: SceneData, misc: VcmMisc, queries: StoredVertices,
     light_verts: StoredVertices, ppm: bool, max_path_length: int,
     min_path_length: int, n_paths: int, num_cells: int | None = None,
-    max_pairs: int = MAX_PAIRS,
+    max_pairs: int = grid_ops.MAX_PAIRS,
 ) -> V3:
     """Vertex merging by exact (query, photon) pair expansion -> color_add
     V3 [n_paths]: the per-path merge radiance, scaled by the camera
@@ -795,60 +789,48 @@ def merge_stage(
     qpos = [flat(c).detach()[idx_q] for c in queries.position]
     starts8, counts8 = grid_ops.query_cell_ranges(grid, num_cells, V3(*qpos))
 
-    # Query-range chunks of at most max_pairs candidates (one host read).
-    cum = torch.cumsum(counts8.sum(1), 0)
-    n_chunks = -(-int(cum[-1]) // max_pairs)
-    ends = torch.searchsorted(
-        cum, torch.arange(1, n_chunks, device=dev) * max_pairs, right=True)
-    ends = torch.cat([ends, torch.full((1,), n_q, device=dev)])
-    cum0 = torch.cat([torch.zeros((1,), dtype=cum.dtype, device=dev), cum])
-    bounds = torch.stack([ends, cum0[ends]]).tolist()
-
     # ---- 3+4. Expand, filter, evaluate, sum per query. ---------------------
     mats = scene.materials
     acc = torch.zeros((n_q, 3), dtype=torch.float32, device=dev)
-    q0, c0 = 0, 0
-    for q1, c1 in zip(*bounds):
-        if c1 > c0:
-            qc_idx, php, pair_ok, _, _ = grid_ops.expand_pairs(
-                starts8[q0:q1], counts8[q0:q1], c1 - c0)
-            qs = torch.div(qc_idx, 8, rounding_mode="floor") + q0
-            dx, dy, dz = (p[php] - q[qs] for p, q in zip(ppos, qpos))
-            tlen = p_len[php] + q_len[qs]
-            pair_ok = (pair_ok & (dx * dx + dy * dy + dz * dz
-                                  <= misc.radius_sqr)
-                       & (tlen <= max_path_length)
-                       & (tlen >= min_path_length))
-            sel = torch.nonzero(pair_ok).flatten()
-            qs = qs[sel]
-            q_src = idx_q[qs]
-            p_src = order[php[sel]]
-            ones = torch.ones_like(qs, dtype=torch.bool)
-            cam_b = bsdf_ops.setup(
-                mats, gather(queries.in_dir, q_src),
-                gather(queries.normal, q_src), flat(queries.mat_id)[q_src],
-                ones)
-            ph_in = gather(light_verts.in_dir, p_src)
-            ph_b = bsdf_ops.setup(
-                mats, ph_in, gather(light_verts.normal, p_src),
-                flat(light_verts.mat_id)[p_src], ones)
-            factor, _, dir_pdf_w, rev_pdf_w = bsdf_ops.evaluate(
-                mats, cam_b, -ph_in)
-            dir_pdf_w = dir_pdf_w * cam_b.cont_prob
-            rev_pdf_w = rev_pdf_w * ph_b.cont_prob
-            if ppm:
-                mis = torch.ones_like(dir_pdf_w)
-            else:
-                w_light = (flat(light_verts.d_vcm)[p_src] * misc.mis_vc_weight
-                           + flat(light_verts.d_vm)[p_src] * _mis(dir_pdf_w))
-                w_camera = (flat(queries.d_vcm)[q_src] * misc.mis_vc_weight
-                            + flat(queries.d_vm)[q_src] * _mis(rev_pdf_w))
-                mis = 1.0 / (w_light + 1.0 + w_camera)
-            contrib = v3_where(
-                max_gt_zero(factor),
-                factor * gather(light_verts.throughput, p_src) * mis, 0.0)
-            acc = acc + deterministic_index_add(n_q, qs, contrib.to_array())
-        q0, c0 = q1, c1
+    for q0, q1, c0, c1 in grid_ops.query_chunks(counts8.sum(1), max_pairs):
+        qc_idx, php, pair_ok, _, _ = grid_ops.expand_pairs(
+            starts8[q0:q1], counts8[q0:q1], c1 - c0)
+        qs = torch.div(qc_idx, 8, rounding_mode="floor") + q0
+        dx, dy, dz = (p[php] - q[qs] for p, q in zip(ppos, qpos))
+        tlen = p_len[php] + q_len[qs]
+        pair_ok = (pair_ok & (dx * dx + dy * dy + dz * dz
+                              <= misc.radius_sqr)
+                   & (tlen <= max_path_length)
+                   & (tlen >= min_path_length))
+        sel = torch.nonzero(pair_ok).flatten()
+        qs = qs[sel]
+        q_src = idx_q[qs]
+        p_src = order[php[sel]]
+        ones = torch.ones_like(qs, dtype=torch.bool)
+        cam_b = bsdf_ops.setup(
+            mats, gather(queries.in_dir, q_src),
+            gather(queries.normal, q_src), flat(queries.mat_id)[q_src],
+            ones)
+        ph_in = gather(light_verts.in_dir, p_src)
+        ph_b = bsdf_ops.setup(
+            mats, ph_in, gather(light_verts.normal, p_src),
+            flat(light_verts.mat_id)[p_src], ones)
+        factor, _, dir_pdf_w, rev_pdf_w = bsdf_ops.evaluate(
+            mats, cam_b, -ph_in)
+        dir_pdf_w = dir_pdf_w * cam_b.cont_prob
+        rev_pdf_w = rev_pdf_w * ph_b.cont_prob
+        if ppm:
+            mis = torch.ones_like(dir_pdf_w)
+        else:
+            w_light = (flat(light_verts.d_vcm)[p_src] * misc.mis_vc_weight
+                       + flat(light_verts.d_vm)[p_src] * _mis(dir_pdf_w))
+            w_camera = (flat(queries.d_vcm)[q_src] * misc.mis_vc_weight
+                        + flat(queries.d_vm)[q_src] * _mis(rev_pdf_w))
+            mis = 1.0 / (w_light + 1.0 + w_camera)
+        contrib = v3_where(
+            max_gt_zero(factor),
+            factor * gather(light_verts.throughput, p_src) * mis, 0.0)
+        acc = acc + deterministic_index_add(n_q, qs, contrib.to_array())
 
     # Scale by the camera throughput and the vm normalization; route each
     # query to its path.
@@ -881,10 +863,11 @@ def render_iteration(
     """One VCM-family iteration over every pixel of the frame on the
     scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor).
 
-    ``merge_backend``: "auto" and "pallas" take the tile merge
+    ``merge_backend``: "auto" and "pallas" take the cell merge
     (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
-    CPU), the JAX package's Pallas design; "xla" takes the differentiable
-    pair-expansion :func:`merge_stage`, the JAX package's XLA merge.
+    CPU), the port of the JAX package's Pallas merge; "xla" takes the
+    differentiable pair-expansion :func:`merge_stage`, the JAX package's
+    XLA merge.
 
     The ray count is path segments plus enabled shadow/connection rays,
     the reference-comparable work metric (bench.py's count)."""
@@ -915,7 +898,7 @@ def render_iteration(
     # ---- Stage 3: deferred merging.
     if use_vm:
         merge = merge_stage if merge_backend == "xla" else \
-            tile_merge.merge_stage
+            cell_merge.merge_stage
         color = color + merge(
             scene, misc, queries, verts, ppm, max_path_length,
             min_path_length, n,

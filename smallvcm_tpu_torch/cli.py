@@ -80,7 +80,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="counter-based generator; 'tea' is the reference's "
                         "LEGACY_RNG mixing function (its old_rng flavor)")
     p.add_argument("--merge-backend", default="auto", choices=MERGE_BACKENDS,
-                   help="photon merge: auto/pallas = the tile merge (the "
+                   help="photon merge: auto/pallas = the cell merge (the "
                         "CUDA kernel on a card, its plain version on the "
                         "CPU), xla = the differentiable pair-expansion "
                         "merge")

@@ -10,7 +10,7 @@ constants and the survivors' 1/probability weights make the estimator's
 gradient unbiased. Continuous sampling transforms (the Phong lobe) give
 reparameterised gradients. Merging algorithms use the pair-expansion merge
 (``merge_backend="xla"``, as the JAX package's ``render_params`` does): the
-tile kernel is forward-only. On a card the closest-hit sweep is the kernel
+merge kernel is forward-only. On a card the closest-hit sweep is the kernel
 with its autograd backward (ops/sweep.py::_SweepKernelFn).
 """
 

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are bound with ``ctypes``: one
-``nvcc`` call compiles every source under ``csrc/`` into one shared
-library for ``sm_90a``. The build happens at first use, into
+``nvcc`` per source under ``csrc/``, all started together, compiles it for
+``sm_90a``, and one more links the objects into one shared library. The
+build happens at first use, into
 ``smallvcm_tpu_torch/_build/<hash>/`` (listed in .gitignore), keyed by a
 hash of the sources and flags, so a checkout builds from its own sources
 and a changed source never loads a stale library.
@@ -31,7 +32,7 @@ LIB_NAME = "libsvcm_kernels.so"
 # each kernel's registers and shared memory in build.log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,9 +45,9 @@ SIGNATURES = {
     # n_rays, stream
     "svcm_intersect_sweep": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _P),
-    # qtab, runs, ptab, out, n_tiles, query_cap, photon_cap, r2, vc_weight,
+    # qpos, qtab, ranges, ppos, ptab, out, n_q, r2, vc_weight,
     # max_path_length, min_path_length, ppm, stream
-    "svcm_merge_tiles": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
+    "svcm_merge_cells": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,
                          _P),
 }
 
@@ -80,23 +81,37 @@ def library_path() -> Path:
     return BUILD_DIR / source_digest() / LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands concurrently -> [(cmd, returncode, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hash-keyed library unless it exists."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = os.getpid()
+    tmp = so.with_suffix(f".{tag}.tmp")
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [so.parent / f"{p.stem}.{tag}.o" for p in cu]
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(cu, objs)])
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+    log = "".join(" ".join(c) + "\n" + out for c, _, out in results)
+    (so.parent / "build.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if any(rc != 0 for _, rc, _ in results):
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
     return so
 

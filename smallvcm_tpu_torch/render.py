@@ -59,7 +59,7 @@ class RenderConfig:
     min_path_length: int = 0
     resolution: tuple = (512, 512)
     rng_kind: str = "threefry"  # or "tea" (the reference's old_rng flavor)
-    # Photon merge: "auto"/"pallas" = the tile merge (the Hopper kernel on
+    # Photon merge: "auto"/"pallas" = the cell merge (the Hopper kernel on
     # CUDA, its plain version on the CPU); "xla" = the differentiable
     # pair-expansion merge (algorithms/vcm.py::merge_stage).
     merge_backend: str = "auto"

@@ -102,24 +102,23 @@ def _merge_tables(dev, ppm):
         use_vc, True, False)
     _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, res, 1234,
                                       10, 0, use_vc, True, ppm)
-    qtab, runs, ptab, _, _ = M.merge_prep(scene, misc, queries, verts, n)
-    return qtab, runs, ptab, misc
+    return M.merge_prep(scene, misc, queries, verts, n), misc
 
 
 @pytest.mark.parametrize("ppm", [False, True])
 def test_merge_kernel_matches_plain(dev, ppm):
-    qtab, runs, ptab, misc = _merge_tables(dev, ppm)
-    assert int((runs[:, 0] > 0).sum()) > 0
-    args = (qtab, runs, ptab, misc.radius_sqr, misc.mis_vc_weight)
+    tabs, misc = _merge_tables(dev, ppm)
+    assert int((tabs.ranges[M.ROWS:] > tabs.ranges[:M.ROWS]).sum()) > 0
+    args = (*tabs[:5], misc.radius_sqr, misc.mis_vc_weight)
     kw = dict(max_path_length=10, min_path_length=0, ppm=ppm)
-    before = M.merge_tiles_kernel.launches
-    got = M.merge_tiles(*args, **kw)
-    want = M.merge_tiles_plain(*args, **kw)
+    before = M.merge_cells_kernel.launches
+    got = M.merge_cells(*args, **kw)
+    want = M.merge_cells_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert M.merge_tiles_kernel.launches == before + 1
+    assert M.merge_cells_kernel.launches == before + 1
     assert float(want.abs().sum()) > 0.0
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    again = M.merge_tiles_kernel(*args, **kw)
+    again = M.merge_cells_kernel(*args, **kw)
     assert torch.equal(got, again)  # no atomics: bitwise repeatable
 
 
@@ -201,8 +200,8 @@ def _sparse_vertices(seed, l, n, span):
 
 
 @pytest.mark.parametrize("span_radii", [6.0, 120.0])
-def test_pair_merge_on_card_matches_cpu_and_tile_kernel(dev, span_radii):
-    """The pair merge on the card against itself on the CPU, and the tile
+def test_pair_merge_on_card_matches_cpu_and_cell_kernel(dev, span_radii):
+    """The pair merge on the card against itself on the CPU, and the cell
     kernel against the pair merge (rtol 3e-5 / atol 1e-7, per-query
     summation order), on a dense and on the sparse 32x32 case."""
     res = 32
@@ -219,9 +218,9 @@ def test_pair_merge_on_card_matches_cpu_and_tile_kernel(dev, span_radii):
     assert float(want.x.abs().sum()) > 0.0
     scene_d = scene.to(dev)
     got = vcm.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
-    before = M.merge_tiles_kernel.launches
-    tile = M.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
-    assert M.merge_tiles_kernel.launches == before + 1
-    for g, t_, w in zip(got, tile, want):
+    before = M.merge_cells_kernel.launches
+    cells = M.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
+    assert M.merge_cells_kernel.launches == before + 1
+    for g, t_, w in zip(got, cells, want):
         torch.testing.assert_close(g.cpu(), w, rtol=3e-5, atol=1e-7)
         torch.testing.assert_close(t_, g, rtol=3e-5, atol=1e-7)

@@ -64,7 +64,7 @@ def test_cuda_device_without_a_card_raises():
 
 def test_kernel_sources_present_and_build_is_keyed_by_source():
     names = {p.name for p in _cuda.CSRC_DIR.glob("*.cu")}
-    assert names == {"merge_tiles.cu", "intersect_sweep.cu"}
+    assert names == {"merge_cells.cu", "intersect_sweep.cu"}
     for p in _cuda.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert "replaces the tpu kernel" in text.lower()

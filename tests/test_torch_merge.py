@@ -4,8 +4,11 @@ The merge is held against the Pallas merge ``merge_stage_pallas`` run in
 interpret mode (itself pinned to the XLA merge by test_pallas_merge.py) on
 that file's synthetic vertex distributions, at its bound: rtol 3e-5,
 atol 1e-7 (per-query sums are taken in another order). On the CPU the
-port evaluates its plain tile version; the CUDA kernel is compared with
-it on a card, in test_torch_cuda.py.
+port evaluates the plain version of its cell walk; the CUDA kernel is
+compared with it on a card, in test_torch_cuda.py. The cell walk's photon
+ranges are held against brute force: every photon within r of a query is
+listed exactly once, and the range lengths count the photons of the
+query's 2x2x2 probe cells.
 """
 
 import jax
@@ -22,6 +25,7 @@ from smallvcm_tpu.ops import pallas_merge as JPM
 from smallvcm_tpu.scene.scene import SCENE_CONFIGS
 from smallvcm_tpu.scene.scene import load_cornell_box as jload
 from smallvcm_tpu_torch.algorithms import vcm as tvcm
+from smallvcm_tpu_torch.core.vec3 import V3
 from smallvcm_tpu_torch.io import framebuffer as tfb
 from smallvcm_tpu_torch.ops import hashgrid as tgrid
 from smallvcm_tpu_torch.ops import merge as TM
@@ -87,33 +91,59 @@ def test_merge_stage_matches_pallas_merge(ppm, seed, span_radii):
     close(got, want, rtol=3e-5, atol=1e-7)
 
 
+def _photon_src(ptab, light_verts):
+    """Flat source index of each photon slot, found by its position."""
+    pos = np.stack([np.asarray(c).reshape(-1) for c in light_verts.position],
+                   axis=1)
+    where = {tuple(p): i for i, p in enumerate(pos.tolist())}
+    return np.array([where[tuple(p)] for p in np.asarray(ptab)[:3].T.tolist()])
+
+
 def test_merge_tables_match_pallas_prep():
-    """qtab / ptab / runs are the Pallas prep's tables, cap padding aside."""
+    """qtab / ptab hold the Pallas prep's rows, permuted by the cell sort
+    (matched by source index), and the plain cell walk on them equals the
+    Pallas kernel's per-query sums on the Pallas tables."""
     js, ts, misc, queries, light_verts = _case(3, 6.0)
-    (jq, jruns, jp), _, n_q, ovf, _ = JPM.merge_prep(
+    (jq, jruns, jp), jq_path, n_q, ovf, stats = JPM.merge_prep(
         js, misc, queries, light_verts, 384, 256, N)
     assert int(ovf) == 0
-    qtab, runs, ptab, q_path, tn_q = TM.merge_prep(
-        ts, _port_misc(misc), _port_vertices(queries),
-        _port_vertices(light_verts), N)
-    assert tn_q == int(n_q)
-    jq_planar = np.asarray(jq).transpose(2, 0, 1).reshape(TM.QF, -1)
-    close(qtab, jq_planar[:, :qtab.shape[1]], rtol=1e-5, atol=1e-6)
-    cap = ptab.shape[1]
-    close(ptab, np.asarray(jp)[:, :cap], rtol=1e-5, atol=1e-6)
-    close(runs, np.asarray(jruns)[:, :TM.RUNCOLS])
+    tabs = TM.merge_prep(ts, _port_misc(misc), _port_vertices(queries),
+                         _port_vertices(light_verts), N)
+    qtab, ranges, ptab, q_path = tabs.qtab, tabs.ranges, tabs.ptab, \
+        tabs.q_path
+    tn_q, n_p = qtab.shape[0], int(stats[1])
+    assert tn_q == int(n_q) and ptab.shape[0] == n_p
+    assert ranges.shape == (2 * TM.ROWS, tn_q)
+    assert ranges.dtype == torch.int32
+    # The walk's position tables repeat the rows' position and length.
+    close(tabs.qpos, qtab[:, [0, 1, 2, 28]], rtol=0, atol=0)
+    close(tabs.ppos, ptab[:, [0, 1, 2, 12]], rtol=0, atol=0)
 
-    # The plain tile evaluation on the JAX prep's own tables equals the
-    # Pallas kernel's per-query sums.
+    jq_planar = np.asarray(jq).transpose(2, 0, 1).reshape(TM.QF, -1)[:, :tn_q]
+    src = lambda tab, path: (np.asarray(tab[28]).astype(np.int64) - 1) * N \
+        + np.asarray(path)[:tn_q]
+    qtab_f, ptab_f = qtab.T, ptab.T    # field-major, as the Pallas tables
+    j_src, t_src = src(jq_planar, jq_path), src(qtab_f, q_path)
+    jo, to = np.argsort(j_src), np.argsort(t_src)
+    np.testing.assert_array_equal(j_src[jo], t_src[to])
+    close(qtab_f[:, to], jq_planar[:, jo], rtol=1e-5, atol=1e-6)
+
+    jp_live = np.asarray(jp)[:, :n_p]
+    jps = _photon_src(jp_live, light_verts)
+    tps = _photon_src(ptab_f, light_verts)
+    jpo, tpo = np.argsort(jps), np.argsort(tps)
+    np.testing.assert_array_equal(jps[jpo], tps[tpo])
+    close(ptab_f[:, tpo], jp_live[:, jpo], rtol=1e-5, atol=1e-6)
+
     scal = JPM.make_scal(float(misc.radius_sqr), float(misc.mis_vc_weight))
     want = JPM.run_tile_kernel(scal, jq, jruns, jp, max_path_length=7,
                                min_path_length=0, ppm=False, interpret=True)
-    got = TM.merge_tiles(
-        t(jq_planar), t(np.asarray(jruns)[:, :TM.RUNCOLS]), t(jp),
-        float(misc.radius_sqr), float(misc.mis_vc_weight),
-        max_path_length=7, min_path_length=0, ppm=False,
-    )
-    close(got, np.asarray(want)[:3], rtol=3e-5, atol=1e-7)
+    want = np.asarray(want)[:3, :tn_q]
+    got = TM.merge_cells(*tabs[:5], float(misc.radius_sqr),
+                         float(misc.mis_vc_weight), max_path_length=7,
+                         min_path_length=0, ppm=False)
+    assert float(got.abs().sum()) > 0.0
+    close(got[:, to], want[:, jo], rtol=3e-5, atol=1e-7)
 
 
 def test_merge_stage_empty_and_kernel_wrapper_refuses_cpu():
@@ -123,11 +153,132 @@ def test_merge_stage_empty_and_kernel_wrapper_refuses_cpu():
     got = TM.merge_stage(ts, _port_misc(misc), _port_vertices(queries), dead,
                          False, 7, 0, N)
     assert all(float(c.abs().sum()) == 0.0 for c in got)
-    with pytest.raises(ValueError):
-        TM.merge_tiles_kernel(torch.zeros(TM.QF, TM.QTILE),
-                              torch.zeros(1, TM.RUNCOLS, dtype=torch.int32),
-                              torch.zeros(TM.PF, TM.SLAB), 0.1, 0.0,
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TM.merge_cells_kernel(*_kernel_tables().values(), 0.1, 0.0,
                               max_path_length=7, min_path_length=0, ppm=False)
+
+
+def _kernel_tables():
+    """Well-formed CPU tables of 4 queries and 3 photons."""
+    return dict(qpos=torch.zeros(4, 4), qtab=torch.zeros(4, TM.QF),
+                ranges=torch.zeros(2 * TM.ROWS, 4, dtype=torch.int32),
+                ppos=torch.zeros(3, 4), ptab=torch.zeros(3, TM.PF))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({}, "needs CUDA"),
+    ({"qpos": torch.zeros(4, 3)}, "qpos"),
+    ({"qtab": torch.zeros(4, TM.QF, dtype=torch.float64)}, "float32"),
+    ({"ranges": torch.zeros(2 * TM.ROWS, 4, dtype=torch.int64)}, "int32"),
+    ({"ranges": torch.zeros(TM.ROWS, 4, dtype=torch.int32)}, "ranges"),
+    ({"ptab": torch.zeros(TM.PF, 3).T}, "contiguous"),
+    ({"ptab": torch.zeros(3 * TM.PF + 1)[1:].reshape(3, TM.PF)}, "aligned"),
+    ({"qtab": torch.zeros(4, TM.QF, requires_grad=True)}, "forward-only"),
+])
+def test_cell_kernel_wrapper_refuses(bad, match):
+    """The wrapper raises on what the kernel does not take; on a CPU tensor
+    it raises rather than run the plain version."""
+    tabs = {**_kernel_tables(), **bad}
+    with pytest.raises(ValueError, match=match):
+        TM.merge_cells_kernel(*tabs.values(), 0.1, 0.0, max_path_length=7,
+                              min_path_length=0, ppm=False)
+
+
+def _np_vertices(rng, pos):
+    """Port StoredVertices [L, N] at the given positions [3, L, N], with
+    random directions, payload and validity (numpy, from a seed)."""
+    shape = pos.shape[1:]
+    unit = lambda: (lambda a: a / np.linalg.norm(a, axis=0))(
+        rng.normal(size=(3, *shape)).astype(np.float32))
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return tvcm.StoredVertices(
+        position=V3(*f(pos)),
+        throughput=V3(*f(rng.uniform(0.1, 1, pos.shape))),
+        in_dir=V3(*f(unit())), normal=V3(*f(unit())),
+        mat_id=torch.from_numpy(rng.integers(0, 9, shape)),
+        d_vcm=f(rng.uniform(0, 2, shape)), d_vc=torch.zeros(shape),
+        d_vm=f(rng.uniform(0, 2, shape)),
+        valid=torch.from_numpy(rng.random(shape) < 0.7),
+    )
+
+
+def _range_case(name):
+    """Merge tables of one synthetic case -> (tables, radius).
+
+    random: uniform in a cube of 6 radii (most queries find photons);
+    edge: queries on and just outside the faces and corners of the photon
+    bbox, where the probe's neighbour cell clamps onto the query's own;
+    wide: photons and queries spread over 3000 radii in x (1500 cells,
+    wider than GRID_XY), so a third of them crowd into the clamped last
+    x cell."""
+    res = 16
+    n = res * res
+    ts = tload((res, res), SCENE_CONFIGS[1])
+    misc = tvcm.compute_misc(ts, 0, n, 0.05, 0.75, True, True)
+    r = misc.radius
+    rng = np.random.default_rng(["random", "edge", "wide"].index(name))
+    if name == "wide":
+        lo, hi = np.zeros((3, 1, 1)), np.array([3000.0, 4.0, 4.0])[:, None,
+                                                                   None] * r
+    else:
+        lo, hi = np.zeros((3, 1, 1)), np.full((3, 1, 1), 6.0 * r)
+    ppos = lo + (hi - lo) * rng.random((3, 5, n))
+    qpos = lo + (hi - lo) * rng.random((3, 4, n))
+    if name == "edge":
+        # Snap each query coordinate to a bbox face, a hair inside it, or
+        # up to r outside it (still inside the padded bbox).
+        pmin = ppos.reshape(3, -1).min(1)[:, None, None]
+        pmax = ppos.reshape(3, -1).max(1)[:, None, None]
+        pick = rng.integers(0, 5, qpos.shape)
+        off = rng.uniform(0.0, 0.99 * r, qpos.shape)
+        qpos = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                         [pmin - off, pmin, pmax, pmax + off], qpos)
+    tables = TM.merge_prep(ts, misc, _np_vertices(rng, qpos),
+                           _np_vertices(rng, ppos), n)
+    return tables, r
+
+
+@pytest.mark.parametrize("name", ["random", "edge", "wide"])
+def test_cell_ranges_list_each_photon_in_radius_once(name):
+    """Brute force over every (query, photon) pair of the tables: the
+    ranges list each pair at most once, and every pair within r."""
+    t, r = _range_case(name)
+    qtab, ranges, ptab = t.qtab, t.ranges, t.ptab
+    n_q, n_p = qtab.shape[0], ptab.shape[0]
+    pairs = torch.cat([q * n_p + p for q, p in TM.candidate_pairs(ranges)])
+    listed = torch.bincount(pairs, minlength=n_q * n_p)
+    assert int(listed.max()) == 1
+    d = [qtab[:, None, c] - ptab[None, :, c] for c in range(3)]
+    near = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            <= float(np.float32(r) * np.float32(r))).reshape(-1)
+    assert int(near.sum()) > 20
+    assert bool((listed[near] == 1).all())
+
+
+@pytest.mark.parametrize("name", ["random", "edge", "wide"])
+def test_cell_ranges_count_the_probe_cells(name):
+    """Each query's summed range lengths equal a brute-force count of the
+    photons in its 2x2x2 probe cells (clamped to the grid, each distinct
+    cell once); out-of-bbox queries probe nothing."""
+    t, r = _range_case(name)
+    qtab, ranges, ptab = t.qtab, t.ranges, t.ptab
+    inv = np.float32(1.0) / (np.float32(r) * np.float32(2.0))
+    pp = ptab[:, :3].T.numpy()
+    mins = pp.min(axis=1, keepdims=True)
+    grid = np.array([[TM.GRID_XY], [TM.GRID_XY], [TM.GRID_Z]])
+    pc = np.clip(np.floor((pp - mins) * inv), 0, grid - 1)
+    qp = qtab[:, :3].T.numpy()
+    rel = (qp - mins) * inv
+    qc = np.clip(np.floor(rel), 0, grid - 1)
+    side = np.where(rel - np.floor(rel) < 0.5, -1, 1)
+    first = np.clip(qc + np.minimum(side, 0), 0, grid - 1)
+    last = np.clip(qc + np.maximum(side, 0), 0, grid - 1)
+    inside = ((pc[:, None, :] >= first[:, :, None])
+              & (pc[:, None, :] <= last[:, :, None])).all(axis=0)
+    want = np.where(qp[0] < 1e18, inside.sum(axis=1), 0)
+    got = (ranges[TM.ROWS:] - ranges[:TM.ROWS]).sum(0).numpy()
+    assert got.sum() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("cap", [5, 300, 400])

@@ -3,7 +3,7 @@
 * The hash grid (build, query ranges, pair expansion, compaction) equals
   the JAX package's exactly on the same inputs, and its candidate pairs
   cover the brute-force r-neighbourhood.
-* The port's pair merge (``algorithms/vcm.py::merge_stage``) and its tile
+* The port's pair merge (``algorithms/vcm.py::merge_stage``) and its cell
   merge (``ops/merge.py::merge_stage``, the plain version of the CUDA
   kernel on the CPU) are held against the JAX XLA ``vcm.merge_stage``,
   which test_merge_stage.py pins to a dense all-pairs oracle, at rtol 3e-5
