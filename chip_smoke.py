@@ -9,8 +9,14 @@ Phases (each one raises on failure; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
 2. build both CUDA kernels from csrc/ and report the build time;
-3. the ray-sweep kernel against its plain PyTorch version on 262,144
-   random rays in scene 0;
+3. the ray sweeps against their plain PyTorch versions, bit for bit: the
+   closest-hit entry on 262,144 random rays in scene 0 (time, bound and
+   the issue ceiling without FMA); then one 512x512 scene-0 VCM iteration
+   with every intersect and occluded call recorded: the closest-hit entry
+   on every bounce and the any-hit entry on every shadow-ray call, with
+   rays, active fraction and kernel ms per call site, a 2,097,152-ray
+   connection-sized launch, and the sweeps' device ms and the kernel
+   launches of one iteration from torch.profiler;
 4. the merge kernel against its plain version on every query of the merge
    tables of one real 512x512 scene-0 VCM iteration, a bitwise second
    launch, its candidate-pair counts and its bound;
@@ -76,9 +82,16 @@ SEED = 1234
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per ray and primitive in csrc/intersect_sweep.cu (adds,
-# multiplies, one divide or square root).
-SWEEP_OPS_TRI = 62
-SWEEP_OPS_SPH = 32
+# multiplies, one divide or square root; compares and selects are not
+# counted): a triangle's edge vectors, three signed volumes and n.d take
+# 56 on every ray, its numerator and division 6 more only where the ray's
+# line crosses it (inside and n.d != 0); a sphere's quadratic up to the
+# discriminant takes 25, the square root, the root and two divisions 5
+# more only where the discriminant is >= 0.
+SWEEP_OPS_TRI = 56
+SWEEP_OPS_TRI_CROSS = 6
+SWEEP_OPS_SPH = 25
+SWEEP_OPS_SPH_ROOT = 5
 # csrc/merge_cells.cu: a candidate's r^2 and path-length test; a passing
 # pair's BSDF, MIS weight and accumulation (exp and log count one each),
 # which reads 25 more query fields (3-27: frame, lobes, pdf and MIS
@@ -95,11 +108,21 @@ def log(*a):
 
 
 def time_cuda(torch, fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` launches (warm)."""
+    """Mean device milliseconds of ``fn`` over ``reps`` launches (warm).
+
+    The device first spins for about twice the host time of the
+    repetitions, so the launches queue up behind it and run back to back:
+    the events time the device work, not the host's Python and launch cost
+    between the calls."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s * reps))  # cycles, <= 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -126,58 +149,278 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def check_sweep(torch, dev):
+def random_rays(torch, dev, n, seed):
+    """Phase 3's random rays: origins uniform in the box, unit directions."""
     from smallvcm_tpu_torch.core.vec3 import V3
-    from smallvcm_tpu_torch.ops import sweep as S
-    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
 
-    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
-    n = RES * RES
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(seed)
     lo = torch.tensor([-1.27, -1.25, -1.28], device=dev)
     hi = torch.tensor([1.28, 1.30, 1.28], device=dev)
     o = lo[:, None] + (hi - lo)[:, None] * torch.rand(
         (3, n), generator=g, device=dev)
     d = torch.randn((3, n), generator=g, device=dev)
     d = d / d.norm(dim=0, keepdim=True)
-    org, dirn = V3(*o.contiguous()), V3(*d.contiguous())
-    tables = S.scene_tables(scene)
-    n_tri, n_sph = scene.tri_mat.shape[0], scene.sph_mat.shape[0]
+    return V3(*o.contiguous()), V3(*d.contiguous())
 
-    dk, pk = S.sweep_kernel(tables, n_tri, n_sph, org, dirn)
+
+def check_closest(torch, S, scene, org, dirn, tag: str):
+    """The closest-hit kernel against sweep_plain on these rays: distances
+    bit for bit, primitive ids equal except where the two nearest
+    distances tie within 1 ulp -> (max |dist err|, prim mismatches)."""
+    dk, pk = S.sweep_kernel(scene, org, dirn)
     dp, pp = S.sweep_plain(scene, org, dirn)
     torch.cuda.synchronize()
-    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0.0)
+    err = float((dk - dp).abs().max()) if dk.numel() else 0.0
+    if not torch.equal(dk, dp):
+        raise AssertionError(f"{tag}: closest-hit distances differ from "
+                             f"sweep_plain (max |err| {err})")
     mism = pk != pp
     n_mism = int(mism.sum())
     if n_mism:
-        # Allowed only where the two nearest distances tie within 1 ulp.
         all_t = torch.cat([S.tri_distances(scene, org, dirn),
                            S.sphere_distances(scene, org, dirn)], dim=1)
         t2 = torch.topk(all_t, 2, dim=1, largest=False).values
         ulp = torch.nextafter(t2[:, 0], torch.full_like(t2[:, 0], 3e38)) \
             - t2[:, 0]
-        tie = (t2[:, 1] - t2[:, 0]) <= ulp
-        if not bool(tie[mism].all()):
+        if not bool(((t2[:, 1] - t2[:, 0]) <= ulp)[mism].all()):
             raise AssertionError(
-                f"sweep: {n_mism} primitive mismatches, not all ties")
-    hit = dp < S.BIG_DIST
-    err = float((dk - dp)[hit].abs().max())
-    ms = time_cuda(torch, lambda: S.sweep_kernel(tables, n_tri, n_sph, org,
-                                                  dirn), 50)
+                f"{tag}: {n_mism} primitive mismatches, not all ties")
+    return err, n_mism
+
+
+def sweep_ops(torch, scene, org, dirn):
+    """Operations of the kernels' deferred form per (ray, primitive) on
+    these rays -> [R, T + S] int64: which lines cross a triangle and which
+    spheres have a non-negative discriminant, by the plain version's
+    formulas (ops/sweep.py::tri_distances, sphere_distances)."""
+    from smallvcm_tpu_torch.core.vec3 import cross, dot
+
+    o, d = org.expand(1), dirn.expand(1)
+    ao, bo, co = (p.expand(0) - o for p in (scene.tri_p0, scene.tri_p1,
+                                            scene.tri_p2))
+    v0, v1, v2 = (dot(cross(a, b), d) for a, b in ((co, bo), (bo, ao),
+                                                    (ao, co)))
+    inside = ((v0 < 0.0) & (v1 < 0.0) & (v2 < 0.0)) | (
+        (v0 >= 0.0) & (v1 >= 0.0) & (v2 >= 0.0))
+    crosses = inside & (dot(scene.tri_normal.expand(0), d) != 0.0)
+    oc = o - scene.sph_center.expand(0)
+    r = scene.sph_radius[None, :]
+    a, bq, c = dot(d, d), 2.0 * dot(d, oc), dot(oc, oc) - r * r
+    root = bq * bq - 4.0 * a * c >= 0.0
+    return torch.cat([SWEEP_OPS_TRI + SWEEP_OPS_TRI_CROSS * crosses.long(),
+                      SWEEP_OPS_SPH + SWEEP_OPS_SPH_ROOT * root.long()], 1)
+
+
+def closest_work(torch, S, scene, org, dirn):
+    """(bytes, operations) the closest-hit bound counts for these rays:
+    rays in (6 f32), dist (f32) and prim (int64) out, the scene block
+    once; every primitive's operations on every ray."""
+    n = org.x.shape[0]
+    return (n * (6 * 4 + 4 + 8) + 4 * S.BLOCK_FLOATS,
+            int(sweep_ops(torch, scene, org, dirn).sum()))
+
+
+def check_sweep(torch, dev):
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
+    n = RES * RES
+    org, dirn = random_rays(torch, dev, n, SEED)
+    n_tri, n_sph = scene.tri_mat.shape[0], scene.sph_mat.shape[0]
+    err, n_mism = check_closest(torch, S, scene, org, dirn, "sweep")
+    ms = time_cuda(torch, lambda: S.sweep_kernel(scene, org, dirn), 50)
     plain_ms = time_cuda(torch, lambda: S.sweep_plain(scene, org, dirn), 10)
-    # Rays in (6 f32), dist (f32) and prim (int64) out, the tables once.
-    n_bytes = n * (6 * 4 + 4 + 8) + sum(t.numel() * t.element_size()
-                                        for t in tables)
-    n_ops = n * (SWEEP_OPS_TRI * n_tri + SWEEP_OPS_SPH * n_sph)
+    n_bytes, n_ops = closest_work(torch, S, scene, org, dirn)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
+    issue_ms = 1e3 * n_ops / (F32_OPS_PER_S / 2)
     log(f"[sweep] {n} rays x ({n_tri} triangles, {n_sph} spheres): "
         f"max|dist err|={err:.3g} prim mismatches (ties)={n_mism}  kernel "
         f"{ms:.4f} ms  plain {plain_ms:.4f} ms; bound {1e3 * b_ms:.2f} us "
-        f"by {b_by} ({n_bytes} B, {n_ops} ops), kernel at "
-        f"{100 * b_ms / ms:.1f}% of it")
+        f"by {b_by} ({n_bytes} B, {n_ops} ops = {n_ops / n:.1f} a ray), "
+        f"kernel at "
+        f"{100 * b_ms / ms:.1f}% of it; issue ceiling without FMA "
+        f"{1e3 * issue_ms:.2f} us, kernel at {100 * issue_ms / ms:.1f}%")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def record_iteration(torch, scene, cfg):
+    """Render one iteration of ``cfg`` while recording the arguments of
+    every ``intersect`` and ``occluded`` call made by algorithms/vcm.py ->
+    {"intersect": [(call site, args)], "occluded": [...]}."""
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.algorithms import vcm
+
+    calls = {"intersect": [], "occluded": []}
+    real = {name: getattr(vcm, name) for name in calls}
+
+    def recorder(name):
+        def rec(scene, *args):
+            calls[name].append((sys._getframe(1).f_code.co_name, args))
+            return real[name](scene, *args)
+        return rec
+
+    try:
+        for name in calls:
+            setattr(vcm, name, recorder(name))
+        R.render(scene, cfg)
+    finally:
+        for name, fn in real.items():
+            setattr(vcm, name, fn)
+    torch.cuda.synchronize()
+    return calls
+
+
+def profile_iteration(torch, scene, cfg):
+    """torch.profiler over one warm render of ``cfg`` -> (device ms by
+    kernel name, kernel launches, device ms in all)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallvcm_tpu_torch import render as R
+
+    R.render(scene, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        R.render(scene, cfg)
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        launches += not e.name.startswith(("Memcpy", "Memset"))
+    return by_name, launches, sum(by_name.values())
+
+
+def occlusion_work(torch, S, scene, p, d, dist, active):
+    """(bytes, operations) the any-hit bound counts for one call: the mask
+    and the answer of every lane; direction, dist and point of the active
+    lanes (each distinct point once); per active ray the origin and tmax (7
+    operations) and the primitives its loop tests before the first blocker,
+    taken from the plain version's distances, each at its deferred-form
+    count (sweep_ops)."""
+    from smallvcm_tpu_torch.core.vec3 import V3
+
+    m, n_point = dist.shape[0], p.x.shape[0]
+    idx = torch.arange(m, device=dist.device)[active]
+    n_act = idx.numel()
+    n_pts = int(torch.unique(idx % n_point).numel())
+    n_bytes = 2 * m + n_act * 16 + n_pts * 12
+    n_prim = scene.tri_mat.shape[0] + scene.sph_mat.shape[0]
+    k = torch.arange(n_prim, device=dist.device)
+    n_ops = 7 * n_act
+    for part in torch.split(idx, 1 << 20):
+        dd = V3(*(a[part] for a in d))
+        org = V3(*(a[part % n_point] for a in p)) + dd * S.EPS_RAY
+        tmax = dist[part] - 2.0 * S.EPS_RAY
+        all_t = torch.cat([S.tri_distances(scene, org, dd),
+                           S.sphere_distances(scene, org, dd)], dim=1)
+        below = all_t < tmax[:, None]
+        first = torch.where(below.any(1), below.int().argmax(1), n_prim - 1)
+        first = torch.where(S.BIG_DIST < tmax, -1, first)
+        tested = k[None, :] <= first[:, None]
+        n_ops += int((sweep_ops(torch, scene, org, dd) * tested).sum())
+    return n_bytes, n_ops
+
+
+def check_occlusion(torch, dev):
+    """Phase 3, real rays: record one 512x512 scene-0 VCM iteration's
+    intersect and occluded calls; hold the closest-hit kernel against
+    sweep_plain on every bounce and the any-hit kernel against
+    occluded_plain on every shadow-ray call, bit for bit; time both per
+    call site; time a 2,097,152-ray connection-sized launch; profile the
+    sweeps' device time and the launches of one iteration."""
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.core.vec3 import V3
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
+    cfg = R.RenderConfig(algorithm="vcm", iterations=1, resolution=(RES, RES))
+    calls = record_iteration(torch, scene, cfg)
+
+    hit_ms = 0.0
+    for _, (org, dirn) in calls["intersect"]:
+        check_closest(torch, S, scene, org, dirn, "sweep (bounce rays)")
+        hit_ms += time_cuda(torch, lambda: S.sweep_kernel(scene, org, dirn),
+                            20)
+    n_hit = sum(c[1][0].x.numel() for c in calls["intersect"])
+
+    sites, tot = {}, dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
+    biggest = None
+    for site, args in calls["occluded"]:
+        _, p, d, dist, active = S.occlusion_operands(*args)
+        got = S.occluded_kernel(scene, p, d, dist, active)
+        want = S.occluded_plain(scene, p, d, dist, active)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"occlusion at {site}: kernel differs from "
+                                 f"occluded_plain on "
+                                 f"{int((got != want).sum())} lanes")
+        ms = time_cuda(torch, lambda: S.occluded_kernel(scene, p, d, dist,
+                                                        active), 20)
+        org = V3(*(a.repeat(dist.numel() // a.numel()) for a in p))
+        hit = time_cuda(torch, lambda: S.sweep_kernel(scene, org, d), 20)
+        plain_ms = time_cuda(torch, lambda: S.occluded_plain(
+            scene, p, d, dist, active), 1)
+        n_bytes, n_ops = occlusion_work(torch, S, scene, p, d, dist, active)
+        r = sites.setdefault(site, dict(calls=0, rays=0, active=0, ms=0.0,
+                                        closest_hit_ms=0.0))
+        r["calls"] += 1
+        r["rays"] += dist.numel()
+        r["active"] += int(active.sum())
+        r["ms"] += ms
+        r["closest_hit_ms"] += hit
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bytes"] += n_bytes
+        tot["ops"] += n_ops
+        if biggest is None or dist.numel() > biggest[2].numel():
+            biggest = (p, d, dist, active, org)
+    for site, r in sites.items():
+        log(f"[occlusion] {site}: {r['calls']} calls, {r['rays']} rays, "
+            f"active {r['active'] / r['rays']:.3f}; any-hit kernel "
+            f"{r['ms']:.4f} ms, closest-hit kernel on the same rays "
+            f"{r['closest_hit_ms']:.4f} ms")
+
+    p, d, dist, active, org = biggest
+    every = torch.ones_like(active)
+    big = dict(
+        masked=time_cuda(torch, lambda: S.occluded_kernel(
+            scene, p, d, dist, active), 20),
+        all_active=time_cuda(torch, lambda: S.occluded_kernel(
+            scene, p, d, dist, every), 20),
+        closest_hit=time_cuda(torch, lambda: S.sweep_kernel(scene, org, d),
+                              20))
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
+    log(f"[occlusion] {dist.numel()} connection rays in one launch (active "
+        f"{float(active.float().mean()):.3f}): any-hit {big['masked']:.4f} "
+        f"ms, every lane active {big['all_active']:.4f} ms, closest hit "
+        f"{big['closest_hit']:.4f} ms")
+    log(f"[occlusion] {len(calls['occluded'])} calls of one iteration, every "
+        f"lane equal to occluded_plain: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms; bound {1e3 * b_ms:.2f} us by {b_by} "
+        f"({tot['bytes']} B, {tot['ops']} ops), kernel at "
+        f"{100 * b_ms / tot['ms']:.1f}% of it; closest hit on the "
+        f"{len(calls['intersect'])} bounces ({n_hit} rays, distances bit "
+        f"for bit): {hit_ms:.4f} ms")
+
+    by_name, launches, device_ms = profile_iteration(torch, scene, cfg)
+    sweeps = {k: v for k, v in by_name.items() if "sweep_kernel" in k}
+    if not sweeps:
+        raise AssertionError("profiler: no sweep kernel on the device")
+    log(f"[profile] vcm {RES}x{RES} one iteration: sweep device "
+        f"{sum(sweeps.values()):.4f} ms ({sweeps}), {launches} kernel "
+        f"launches, {device_ms:.2f} device ms")
+    return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                per_site=sites, connection_launch_ms=big,
+                closest_hit_bounce_ms=hit_ms,
+                sweep_device_ms_per_iteration=sum(sweeps.values()),
+                launches_per_iteration=launches)
 
 
 def merge_work(torch, M, tabs, r2, max_pl, min_pl):
@@ -325,11 +568,13 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
 
 def reset_counts(M, S):
     S.sweep_kernel.launches = 0
+    S.occluded_kernel.launches = 0
     M.merge_cells_kernel.launches = 0
 
 
 def read_counts(M, S) -> dict:
     return dict(intersect_sweep=S.sweep_kernel.launches,
+                occluded_sweep=S.occluded_kernel.launches,
                 merge_cells=M.merge_cells_kernel.launches)
 
 
@@ -399,7 +644,8 @@ def check_simple_paths(torch):
         ref = PARITY_MEAN[alg]
         if abs(mean / ref - 1) > tol:
             raise AssertionError(f"{alg}: image mean {mean} vs {ref}")
-        if launches["intersect_sweep"] <= 0 or launches["merge_cells"]:
+        if launches["intersect_sweep"] <= 0 or launches["merge_cells"] \
+                or (launches["occluded_sweep"] > 0) != (alg == "pt"):
             raise AssertionError(f"{alg}: launches {launches}")
         if not same or [i[1] for i in iters] != [i[1] for i in iters2]:
             raise AssertionError(f"{alg}: second run not bitwise equal")
@@ -583,17 +829,12 @@ def check_gradients(torch, dev):
     # (c) the Function's gradient vs the plain sweep's autograd.
     scene0 = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
     n = RES * RES
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    lo = torch.tensor([-1.27, -1.25, -1.28], device=dev)
-    hi = torch.tensor([1.28, 1.30, 1.28], device=dev)
-    o = lo[:, None] + (hi - lo)[:, None] * torch.rand(
-        (3, n), generator=gen, device=dev)
-    d = torch.randn((3, n), generator=gen, device=dev)
-    d = d / d.norm(dim=0, keepdim=True)
-    wts = torch.rand(n, generator=gen, device=dev)
+    o, d = random_rays(torch, dev, n, SEED + 1)
+    wts = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev)
 
     def ray_grads(kernel):
-        rays = [a.contiguous().clone().requires_grad_() for a in (*o, *d)]
+        rays = [a.clone().requires_grad_() for a in (*o, *d)]
         org, dirn = V3(*rays[:3]), V3(*rays[3:])
         dist, _ = S.sweep(scene0, org, dirn) if kernel else \
             S.sweep_plain(scene0, org, dirn)
@@ -657,7 +898,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s -> {_cuda.library_path()}")
     ptxas = (_cuda.library_path().parent / "build.log")
     for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             log("  ptxas: " + line.strip())
 
     phase_t = time.perf_counter()
@@ -669,9 +911,11 @@ def main() -> int:
         phase_t = now
 
     sweep_r = check_sweep(torch, dev)
+    occl_r = check_occlusion(torch, dev)
+    phase_done("phase 3 (sweeps)")
     merge_r = check_merge(torch, dev)
     check_golden(torch, dev)
-    phase_done("phases 3-5")
+    phase_done("phases 4-5")
     launches, _ms_iter, _rays_s = check_main_path(torch)
     phase_done("phase 6 (vcm)")
     simple = check_simple_paths(torch)
@@ -709,6 +953,11 @@ def main() -> int:
              replaces="smallvcm_tpu/ops/pallas_intersect.py:46",
              launches=launches["intersect_sweep"],
              launches_by_path=by_path("intersect_sweep"), **sweep_r),
+        dict(name="occluded_sweep", route="cuda",
+             source="smallvcm_tpu_torch/csrc/intersect_sweep.cu",
+             replaces="smallvcm_tpu/ops/pallas_intersect.py:46",
+             launches=launches["occluded_sweep"],
+             launches_by_path=by_path("occluded_sweep"), **occl_r),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

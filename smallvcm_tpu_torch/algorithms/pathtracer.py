@@ -184,7 +184,8 @@ def render_iteration(
         )
         if path_length + 1 < min_path_length:
             nee_ok = torch.zeros_like(nee_ok)
-        shadowed = occluded(scene, hit_point, ill.dir_to_light, ill.distance)
+        shadowed = occluded(scene, hit_point, ill.dir_to_light, ill.distance,
+                            nee_ok)
         color = color + v3_where(nee_ok & ~shadowed, state.weight * contrib,
                                  0.0)
         rays = rays + nee_ok.sum()  # shadow rays

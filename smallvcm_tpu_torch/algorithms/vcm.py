@@ -232,7 +232,7 @@ def connect_to_camera(
     contrib = state.throughput * factor * scale
 
     ok = enabled_mask & in_front & on_screen & nonzero & max_gt_zero(contrib)
-    shadowed = occluded(scene, hit_point, dir_to_cam, distance)
+    shadowed = occluded(scene, hit_point, dir_to_cam, distance, ok)
     ok = ok & ~shadowed
     return rx, ry, v3_where(ok, contrib, 0.0), ok
 
@@ -474,9 +474,11 @@ def get_light_radiance_weighted(
 
 def direct_illumination(
     scene: SceneData, misc: VcmMisc, state: SubPathState, hit_point: V3,
-    b: bsdf_ops.BsdfState, u3,
+    b: bsdf_ops.BsdfState, u3, active,
 ) -> V3:
-    """DirectIllumination (vertexcm.hxx:663-738): NEE contribution."""
+    """DirectIllumination (vertexcm.hxx:663-738): NEE contribution.
+    ``active`` is the caller's mask on the result: shadow rays are traced
+    only where it holds (elsewhere the caller discards the value)."""
     light_count = scene.lights.kind.shape[0]
     pick_prob = 1.0 / light_count
 
@@ -516,7 +518,8 @@ def direct_illumination(
     )
 
     ok = ok & max_gt_zero(contrib)
-    shadowed = occluded(scene, hit_point, ill.dir_to_light, ill.distance)
+    shadowed = occluded(scene, hit_point, ill.dir_to_light, ill.distance,
+                        ok & active)
     return v3_where(ok & ~shadowed, contrib, 0.0)
 
 
@@ -576,7 +579,7 @@ def connect_vertices(
 
     contrib = cam_factor * light_factor * (mis_weight * geometry_term)
     ok = ok & max_gt_zero(contrib) & lv_valid
-    shadowed = occluded(scene, cam_hit, direction, distance)
+    shadowed = occluded(scene, cam_hit, direction, distance, ok)
     return v3_where(ok & ~shadowed, contrib, 0.0)
 
 
@@ -670,10 +673,11 @@ def _camera_stage(
                 rng.make_stream(iteration, rng.STAGE_CAMERA_NEE, i), pix, 3,
                 rng_kind,
             )
-            nee = direct_illumination(scene, misc, state, hit_point, b, u3)
             nee_on = alive & ~b.is_delta
             if path_length + 1 < min_path_length:
                 nee_on = torch.zeros_like(nee_on)
+            nee = direct_illumination(scene, misc, state, hit_point, b, u3,
+                                      nee_on)
             color = color + v3_where(nee_on, state.throughput * nee, 0.0)
             rays = rays + nee_on.sum()
 

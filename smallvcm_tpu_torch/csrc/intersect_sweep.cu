@@ -1,49 +1,132 @@
-// Closest-hit ray sweep over every triangle, then every sphere.
+// Ray sweeps over every triangle, then every sphere: a closest-hit entry
+// (svcm_intersect_sweep) and a masked any-hit entry for shadow rays
+// (svcm_occluded_sweep).
 //
 // Replaces the TPU kernel smallvcm_tpu/ops/pallas_intersect.py::_kernel
-// (driven by _sweep / intersect_pallas). Same loop order, same guards, same
-// tie rule: a strict t < best keeps the lowest primitive index.
+// (driven by _sweep / intersect_pallas; the JAX package's occluded() is a
+// closest-hit sweep followed by best_t < tmax). Same loop order, same
+// guards, same tie rule: a strict t < best keeps the lowest primitive
+// index.
 //
-// Design: one thread per ray; the scene tables (SmallVCM has ~20 triangles
-// and <= 2 spheres) are staged once per block in shared memory and read as
-// broadcasts, so each ray costs 24 bytes in and 12 bytes out and the sweep
-// is bound by the per-ray arithmetic (~50 FLOP per triangle) rather than
-// by memory. Built with -fmad=false so every product and sum rounds as in
-// the plain PyTorch version (ops/sweep.py::sweep_plain), which is what
-// makes exact primitive agreement possible on grazing rays.
+// What bounds it on this card: instruction issue. A ray costs 24-28 bytes
+// in and 1-12 bytes out, but ~60 f32 operations per triangle, and it is
+// built with -fmad=false so that every product and sum rounds as in the
+// plain PyTorch version (ops/sweep.py::sweep_plain), one IEEE operation per
+// torch operation. That contract is what makes primitive choices on
+// grazing rays agree exactly with the plain version and with the JAX
+// package on the CPU; it also halves the card's f32 rate (no FMA), so the
+// arithmetic floor is ~2x the 67 TFLOP/s bound.
 //
-// Tables (planar, f32): tri [10, T] = p0 xyz | p1 xyz | p2 xyz | pad,
-// tri_n [4, T] = normal xyz | material, sph [6, max(S,1)] = center xyz |
-// radius | material | valid. Outputs: dist [N] f32 (1e36 on a miss),
-// prim [N] int64 (-1 on a miss).
+// What the design does about it:
+// - The scene lives in the constant bank. The host packs it once per
+//   scene (ops/sweep.py::pack_scene) into one f32 block, 12 floats per
+//   triangle (p0, p1, p2, normal) and 4 per sphere (centre, radius), at a
+//   fixed capacity of kMaxTri triangles and kMaxSph spheres; the C entry
+//   copies it into a struct passed by value as a __grid_constant__ kernel
+//   parameter. The loops are unrolled to the capacity with a warp-uniform
+//   break, so every scene field is a constant-bank operand of the
+//   arithmetic: no shared-memory staging, no __syncthreads, no loads.
+// - The division is deferred. The three signed volumes and the inside
+//   test come first; t = n.(p0 - o) / n.d is formed only under
+//   inside && n.d != 0, where it can matter (a ray's line crosses ~2 of a
+//   closed box's triangles). Spheres take their square root and two
+//   divisions only where the discriminant is non-negative. Results are
+//   bit for bit those of the branch-free form.
+// - Shadow rays take the any-hit entry: origin offset and tmax are formed
+//   in the kernel (one IEEE op each, as the torch ops round), a ray stops
+//   at its first primitive with 0 < t < tmax, and inactive lanes write
+//   false without testing anything. The block first compacts its active
+//   lanes (warp ballots and a prefix count in shared memory), so only
+//   ceil(active / 32) warps of a block do the work. The shadow-ray origin
+//   may be broadcast: point i of the sweep is point[i % n_point].
+//
+// Scene block (f32, kBlockFloats): tri[kMaxTri][12] = p0 xyz | p1 xyz |
+// p2 xyz | normal xyz, then sph[kMaxSph][4] = centre xyz | radius.
+// Closest hit: dist [N] f32 (1e36 on a miss), prim [N] int64 (-1 on a
+// miss). Any hit: out [M] uint8 (1 = blocked), active [M] uint8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+constexpr int kMaxTri = 32;
+constexpr int kMaxSph = 4;
+constexpr int kTriFloats = 12;
+constexpr int kSphFloats = 4;
+constexpr int kBlockFloats = kMaxTri * kTriFloats + kMaxSph * kSphFloats;
 constexpr float kBigDist = 1e36f;
+// ops/intersect.py: origin + direction * EPS_RAY, dist - 2 * EPS_RAY, with
+// the Python doubles rounded to f32 as torch rounds a scalar operand.
+constexpr float kEpsRay = (float)1e-3;
+constexpr float kTwoEpsRay = (float)(2.0 * 1e-3);
 
-__global__ void intersect_sweep_kernel(
-    const float* __restrict__ tri, const float* __restrict__ tri_n,
-    const float* __restrict__ sph, int n_tri, int n_sph,
-    const float* __restrict__ ox_p, const float* __restrict__ oy_p,
-    const float* __restrict__ oz_p, const float* __restrict__ dx_p,
-    const float* __restrict__ dy_p, const float* __restrict__ dz_p,
-    float* __restrict__ dist_out, int64_t* __restrict__ prim_out, int n) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;                  // [9][n_tri] (pad row dropped)
-  float* s_nrm = s_tri + 9 * n_tri;     // [3][n_tri]
-  float* s_sph = s_nrm + 3 * n_tri;     // [4][n_sph]
-  for (int e = threadIdx.x; e < 9 * n_tri; e += blockDim.x) s_tri[e] = tri[e];
-  for (int e = threadIdx.x; e < 3 * n_tri; e += blockDim.x) s_nrm[e] = tri_n[e];
-  for (int e = threadIdx.x; e < 4 * n_sph; e += blockDim.x) {
-    const int row = e / n_sph, col = e % n_sph;
-    s_sph[e] = sph[row * n_sph + col];
-  }
-  __syncthreads();
+struct Scene {
+  float tri[kMaxTri * kTriFloats];
+  float sph[kMaxSph * kSphFloats];
+  int n_tri;
+  int n_sph;
+};
 
+// Distance along the ray to triangle k if the ray's line crosses it and
+// n.d != 0, else a negative value (never a hit). Op order as
+// ops/sweep.py::tri_distances.
+__device__ __forceinline__ float tri_t(const Scene& s, int k, float ox,
+                                       float oy, float oz, float dx,
+                                       float dy, float dz) {
+  const float* p = s.tri + k * kTriFloats;  // constant-bank operands
+  const float aox = p[0] - ox, aoy = p[1] - oy, aoz = p[2] - oz;
+  const float box = p[3] - ox, boy = p[4] - oy, boz = p[5] - oz;
+  const float cox = p[6] - ox, coy = p[7] - oy, coz = p[8] - oz;
+
+  // v0 = cross(co, bo).d ; v1 = cross(bo, ao).d ; v2 = cross(ao, co).d
+  const float v0d = (coy * boz - coz * boy) * dx +
+                    (coz * box - cox * boz) * dy +
+                    (cox * boy - coy * box) * dz;
+  const float v1d = (boy * aoz - boz * aoy) * dx +
+                    (boz * aox - box * aoz) * dy +
+                    (box * aoy - boy * aox) * dz;
+  const float v2d = (aoy * coz - aoz * coy) * dx +
+                    (aoz * cox - aox * coz) * dy +
+                    (aox * coy - aoy * cox) * dz;
+  const bool inside = (v0d < 0.f && v1d < 0.f && v2d < 0.f) ||
+                      (v0d >= 0.f && v1d >= 0.f && v2d >= 0.f);
+  const float denom = p[9] * dx + p[10] * dy + p[11] * dz;
+  if (inside && denom != 0.f)
+    return (p[9] * aox + p[10] * aoy + p[11] * aoz) / denom;
+  return -1.f;
+}
+
+// Nearest positive root of sphere k, kBigDist when there is none. Op order
+// as ops/sweep.py::sphere_distances.
+__device__ __forceinline__ float sph_t(const Scene& s, int k, float ox,
+                                       float oy, float oz, float dx,
+                                       float dy, float dz) {
+  const float* q = s.sph + k * kSphFloats;
+  const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float bq = 2.f * (dx * ocx + dy * ocy + dz * ocz);
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
+  const float disc = bq * bq - 4.f * a * c;
+  if (!(disc >= 0.f)) return kBigDist;
+  const float sq = sqrtf(fmaxf(disc, 1e-30f));
+  const float qq = bq < 0.f ? (-bq - sq) * 0.5f : (-bq + sq) * 0.5f;
+  const float t_a = qq / a;
+  const float t_b = c / (qq == 0.f ? 1.f : qq);
+  const float t0 = fminf(t_a, t_b);
+  const float t1 = fmaxf(t_a, t_b);
+  return t0 > 0.f ? t0 : (t1 > 0.f ? t1 : kBigDist);
+}
+
+__global__ void __launch_bounds__(kBlock) intersect_sweep_kernel(
+    const __grid_constant__ Scene s, const float* __restrict__ ox_p,
+    const float* __restrict__ oy_p, const float* __restrict__ oz_p,
+    const float* __restrict__ dx_p, const float* __restrict__ dy_p,
+    const float* __restrict__ dz_p, float* __restrict__ dist_out,
+    int64_t* __restrict__ prim_out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float ox = ox_p[i], oy = oy_p[i], oz = oz_p[i];
@@ -51,82 +134,121 @@ __global__ void intersect_sweep_kernel(
 
   float best_t = kBigDist;
   int best_p = -1;
-
-  for (int k = 0; k < n_tri; ++k) {
-    const float p0x = s_tri[0 * n_tri + k], p0y = s_tri[1 * n_tri + k],
-                p0z = s_tri[2 * n_tri + k];
-    const float p1x = s_tri[3 * n_tri + k], p1y = s_tri[4 * n_tri + k],
-                p1z = s_tri[5 * n_tri + k];
-    const float p2x = s_tri[6 * n_tri + k], p2y = s_tri[7 * n_tri + k],
-                p2z = s_tri[8 * n_tri + k];
-    const float nx = s_nrm[0 * n_tri + k], ny = s_nrm[1 * n_tri + k],
-                nz = s_nrm[2 * n_tri + k];
-
-    const float aox = p0x - ox, aoy = p0y - oy, aoz = p0z - oz;
-    const float box = p1x - ox, boy = p1y - oy, boz = p1z - oz;
-    const float cox = p2x - ox, coy = p2y - oy, coz = p2z - oz;
-
-    // v0 = cross(co, bo).d ; v1 = cross(bo, ao).d ; v2 = cross(ao, co).d
-    const float v0d = (coy * boz - coz * boy) * dx +
-                      (coz * box - cox * boz) * dy +
-                      (cox * boy - coy * box) * dz;
-    const float v1d = (boy * aoz - boz * aoy) * dx +
-                      (boz * aox - box * aoz) * dy +
-                      (box * aoy - boy * aox) * dz;
-    const float v2d = (aoy * coz - aoz * coy) * dx +
-                      (aoz * cox - aox * coz) * dy +
-                      (aox * coy - aoy * cox) * dz;
-
-    const bool inside = (v0d < 0.f && v1d < 0.f && v2d < 0.f) ||
-                        (v0d >= 0.f && v1d >= 0.f && v2d >= 0.f);
-    const float denom = nx * dx + ny * dy + nz * dz;
-    const float t = (nx * aox + ny * aoy + nz * aoz) /
-                    (denom == 0.f ? 1.f : denom);
-    if (inside && denom != 0.f && t > 0.f && t < best_t) {
+#pragma unroll
+  for (int k = 0; k < kMaxTri; ++k) {
+    if (k >= s.n_tri) break;
+    const float t = tri_t(s, k, ox, oy, oz, dx, dy, dz);
+    if (t > 0.f && t < best_t) {
       best_t = t;
       best_p = k;
     }
   }
-
-  for (int k = 0; k < n_sph; ++k) {
-    const float cx = s_sph[0 * n_sph + k], cy = s_sph[1 * n_sph + k],
-                cz = s_sph[2 * n_sph + k], radius = s_sph[3 * n_sph + k];
-    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    const float a = dx * dx + dy * dy + dz * dz;
-    const float bq = 2.f * (dx * ocx + dy * ocy + dz * ocz);
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - radius * radius;
-
-    const float disc = bq * bq - 4.f * a * c;
-    const bool valid = disc >= 0.f;
-    const float sq = sqrtf(fmaxf(disc, 1e-30f));
-    const float qq = bq < 0.f ? (-bq - sq) * 0.5f : (-bq + sq) * 0.5f;
-    const float t_a = qq / a;
-    const float t_b = c / (qq == 0.f ? 1.f : qq);
-    const float t0 = fminf(t_a, t_b);
-    const float t1 = fmaxf(t_a, t_b);
-    const float t = (valid && t0 > 0.f) ? t0
-                    : ((valid && t1 > 0.f) ? t1 : kBigDist);
+#pragma unroll
+  for (int k = 0; k < kMaxSph; ++k) {
+    if (k >= s.n_sph) break;
+    const float t = sph_t(s, k, ox, oy, oz, dx, dy, dz);
     if (t < best_t) {
       best_t = t;
-      best_p = n_tri + k;
+      best_p = s.n_tri + k;
     }
   }
-
   dist_out[i] = best_t;
   prim_out[i] = best_p;
 }
 
+__global__ void __launch_bounds__(kBlock) occluded_sweep_kernel(
+    const __grid_constant__ Scene s, const float* __restrict__ px_p,
+    const float* __restrict__ py_p, const float* __restrict__ pz_p,
+    int n_point, const float* __restrict__ dx_p,
+    const float* __restrict__ dy_p, const float* __restrict__ dz_p,
+    const float* __restrict__ dist_p, const uint8_t* __restrict__ active,
+    uint8_t* __restrict__ out, int m) {
+  __shared__ int s_count[kWarps];
+  __shared__ int s_lane[kBlock];
+
+  // Compact the block's active lanes into s_lane[0, total).
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = i < m && active[i] != 0;
+  if (i < m && !live) out[i] = 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    base += w < warp ? s_count[w] : 0;
+    total += s_count[w];
+  }
+  if (live) s_lane[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  if (threadIdx.x >= total) return;
+
+  const int j = s_lane[threadIdx.x];
+  const int jp = j < n_point ? j : j % n_point;
+  const float dx = dx_p[j], dy = dy_p[j], dz = dz_p[j];
+  const float ox = px_p[jp] + dx * kEpsRay;
+  const float oy = py_p[jp] + dy * kEpsRay;
+  const float oz = pz_p[jp] + dz * kEpsRay;
+  const float tmax = dist_p[j] - kTwoEpsRay;
+
+  // min_k t_k < tmax, where a missed primitive's t_k is kBigDist.
+  bool blocked = kBigDist < tmax;
+#pragma unroll
+  for (int k = 0; k < kMaxTri; ++k) {
+    if (k >= s.n_tri || blocked) break;
+    const float t = tri_t(s, k, ox, oy, oz, dx, dy, dz);
+    blocked = t > 0.f && t < tmax;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxSph; ++k) {
+    if (k >= s.n_sph || blocked) break;
+    blocked = sph_t(s, k, ox, oy, oz, dx, dy, dz) < tmax;
+  }
+  out[j] = blocked ? 1 : 0;
+}
+
+// Copy the host block into the kernel's by-value scene; false if the
+// counts do not fit.
+bool load_scene(Scene* s, const float* block, int n_tri, int n_sph) {
+  if (n_tri < 1 || n_tri > kMaxTri || n_sph < 0 || n_sph > kMaxSph)
+    return false;
+  memcpy(s->tri, block, sizeof(s->tri));
+  memcpy(s->sph, block + kMaxTri * kTriFloats, sizeof(s->sph));
+  s->n_tri = n_tri;
+  s->n_sph = n_sph;
+  return true;
+}
+
 }  // namespace
 
+static_assert(sizeof(Scene) == sizeof(float) * kBlockFloats + 2 * sizeof(int),
+              "scene block layout");
+
 extern "C" int svcm_intersect_sweep(
-    const float* tri, const float* tri_n, const float* sph, int n_tri,
-    int n_sph, const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, float* dist,
-    int64_t* prim, int n, void* stream) {
+    const float* block, int n_tri, int n_sph, const float* ox,
+    const float* oy, const float* oz, const float* dx, const float* dy,
+    const float* dz, float* dist, int64_t* prim, int n, void* stream) {
+  Scene s;
+  if (!load_scene(&s, block, n_tri, n_sph)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
-  const size_t shmem = sizeof(float) * (12 * n_tri + 4 * n_sph);
-  intersect_sweep_kernel<<<grid, kBlock, shmem, (cudaStream_t)stream>>>(
-      tri, tri_n, sph, n_tri, n_sph, ox, oy, oz, dx, dy, dz, dist, prim, n);
+  intersect_sweep_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      s, ox, oy, oz, dx, dy, dz, dist, prim, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int svcm_occluded_sweep(
+    const float* block, int n_tri, int n_sph, const float* px,
+    const float* py, const float* pz, int n_point, const float* dx,
+    const float* dy, const float* dz, const float* dist,
+    const uint8_t* active, uint8_t* out, int m, void* stream) {
+  Scene s;
+  if (!load_scene(&s, block, n_tri, n_sph)) return (int)cudaErrorInvalidValue;
+  if (m <= 0) return 0;
+  if (n_point < 1 || active == nullptr) return (int)cudaErrorInvalidValue;
+  const int grid = (m + kBlock - 1) / kBlock;
+  occluded_sweep_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      s, px, py, pz, n_point, dx, dy, dz, dist, active, out, m);
   return (int)cudaGetLastError();
 }

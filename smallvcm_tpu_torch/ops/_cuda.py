@@ -41,10 +41,14 @@ _F = ctypes.c_float
 
 # C signatures of the entry points: name -> argtypes (restype is int).
 SIGNATURES = {
-    # tri, tri_n, sph, n_tri, n_sph, ox, oy, oz, dx, dy, dz, dist, prim,
+    # scene block (host), n_tri, n_sph, ox, oy, oz, dx, dy, dz, dist, prim,
     # n_rays, stream
-    "svcm_intersect_sweep": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _I, _P),
+    "svcm_intersect_sweep": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _P),
+    # scene block (host), n_tri, n_sph, px, py, pz, n_point, dx, dy, dz,
+    # dist, active, out, n_rays, stream
+    "svcm_occluded_sweep": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _I, _P),
     # qpos, qtab, ranges, ppos, ptab, out, n_q, r2, vc_weight,
     # max_path_length, min_path_length, ppm, stream
     "svcm_merge_cells": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,

@@ -2,7 +2,8 @@
 
 Port of ``smallvcm_tpu/ops/intersect.py``. The closest-hit sweep itself is
 :func:`smallvcm_tpu_torch.ops.sweep.sweep`: the plain dense [N, P] sweep for
-CPU tensors, the Hopper kernel (csrc/intersect_sweep.cu) for CUDA tensors.
+CPU tensors, the Hopper kernel (csrc/intersect_sweep.cu) for CUDA tensors;
+:func:`occluded` takes the same file's any-hit entry on a card.
 Hit attributes (material, normal, light id) are resolved here from the
 winning primitive index with small-table gathers.
 """
@@ -14,9 +15,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.vec3 import V3, normalize, v3_where
-from ..core.vecmath import EPS_RAY
 from ..scene.scene import SceneData
-from .sweep import BIG_DIST, sweep
+from .sweep import (BIG_DIST, occluded_kernel, occluded_plain,
+                    occlusion_operands, sweep)
 
 
 class Hit(NamedTuple):
@@ -63,15 +64,19 @@ def resolve_hit(scene: SceneData, org: V3, direction: V3,
                normal=normal)
 
 
-def occluded(scene: SceneData, point: V3, direction: V3, dist) -> torch.Tensor:
+def occluded(scene: SceneData, point: V3, direction: V3, dist,
+             active=None) -> torch.Tensor:
     """Shadow-ray test replicating scene.hxx:72-85 exactly: origin offset by
     EPS_RAY along the direction, max distance shortened by 2*EPS_RAY.
 
     ``nearest hit < tmax`` is the same predicate as the XLA sweep's
-    ``any(t < tmax)`` over primitives, so one closest-hit sweep serves.
+    ``any(t < tmax)`` over primitives. ``active`` (bool, None = every lane)
+    is the caller's mask: the answer is ``active & blocked``, and the
+    kernel tests nothing on an inactive lane. Operands broadcast; a point
+    that is only broadcast along leading dimensions is not materialised.
     A boolean has no gradient, so the rays go in detached."""
-    org = point + direction * EPS_RAY
-    tmax = dist - 2.0 * EPS_RAY
-    best_t, _ = sweep(scene, V3(*(a.detach() for a in org)),
-                      V3(*(a.detach() for a in direction)))
-    return best_t < tmax
+    if active is None:
+        active = torch.ones((), dtype=torch.bool, device=dist.device)
+    shape, *flat = occlusion_operands(point, direction, dist, active)
+    fn = occluded_plain if dist.device.type == "cpu" else occluded_kernel
+    return fn(scene, *flat).reshape(shape)

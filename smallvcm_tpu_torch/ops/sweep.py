@@ -1,4 +1,5 @@
-"""Closest-hit ray sweep: scene tables, the Hopper kernel and its plain version.
+"""Ray sweeps: the packed scene block, the Hopper kernels and their plain
+versions (closest hit, and any hit for shadow rays).
 
 Port of ``smallvcm_tpu/ops/pallas_intersect.py``. Every ray tests every
 primitive (SmallVCM has no acceleration structure, geometry.hxx:55-104):
@@ -9,45 +10,87 @@ t = n.(p0 - o) / n.d, then spheres with the stable f32 quadratic. A strict
 
 :func:`sweep` takes the plain PyTorch version for CPU tensors and launches
 ``csrc/intersect_sweep.cu`` for CUDA tensors; it never falls back from the
-kernel. Occlusion reuses the same sweep through a ``dist < tmax`` compare.
+kernel. Occlusion (:func:`occluded_plain`, :func:`occluded_kernel`) is
+the same sweep's ``min_k t_k < tmax`` on the active lanes, which the
+kernel computes as an any-hit test that stops at the first blocker.
 """
 
 from __future__ import annotations
 
+import weakref
+from typing import NamedTuple
+
 import torch
 
 from ..core.vec3 import V3, cross, dot
+from ..core.vecmath import EPS_RAY
 from . import _cuda
 
 BIG_DIST = 1e36
 
 
-def scene_tables(scene):
-    """Pack primitives into planar f32 tables (the kernel's operands).
+# Capacity and layout of the packed scene block (csrc/intersect_sweep.cu:
+# kMaxTri, kMaxSph, kTriFloats, kSphFloats): 12 floats per triangle (p0
+# xyz | p1 xyz | p2 xyz | normal xyz), then 4 per sphere (centre xyz |
+# radius). SmallVCM's four scenes have at most 20 triangles and 2 spheres.
+MAX_TRI = 32
+MAX_SPH = 4
+TRI_FLOATS = 12
+SPH_FLOATS = 4
+BLOCK_FLOATS = MAX_TRI * TRI_FLOATS + MAX_SPH * SPH_FLOATS
 
-    tri [10, T]: p0 xyz | p1 xyz | p2 xyz | pad; tri_n [4, T]: normal xyz |
-    material; sph [6, max(S, 1)]: center xyz | radius | material | valid.
-    """
-    tri = torch.stack([
-        scene.tri_p0.x, scene.tri_p0.y, scene.tri_p0.z,
-        scene.tri_p1.x, scene.tri_p1.y, scene.tri_p1.z,
-        scene.tri_p2.x, scene.tri_p2.y, scene.tri_p2.z,
-        torch.zeros_like(scene.tri_p0.x),
-    ])
-    tri_n = torch.stack([
-        scene.tri_normal.x, scene.tri_normal.y, scene.tri_normal.z,
-        scene.tri_mat.to(torch.float32),
-    ])
-    if scene.sph_mat.shape[0]:
-        sph = torch.stack([
-            scene.sph_center.x, scene.sph_center.y, scene.sph_center.z,
-            scene.sph_radius,
-            scene.sph_mat.to(torch.float32),
-            torch.ones_like(scene.sph_radius),
-        ])
-    else:
-        sph = torch.zeros((6, 1), dtype=torch.float32, device=scene.device)
-    return tri, tri_n, sph
+
+class SceneBlock(NamedTuple):
+    data: torch.Tensor  # [BLOCK_FLOATS] f32 on the host
+    n_tri: int
+    n_sph: int
+
+
+def pack_scene(scene) -> SceneBlock:
+    """Pack the primitives into the kernels' host-side scene block (zeros
+    past the counts); raises ValueError above the block's capacity."""
+    n_tri, n_sph = scene.tri_mat.shape[0], scene.sph_mat.shape[0]
+    _cuda.require(1 <= n_tri <= MAX_TRI and n_sph <= MAX_SPH,
+                  f"sweep kernels take 1-{MAX_TRI} triangles and at most "
+                  f"{MAX_SPH} spheres (scene capacity), not {n_tri} and "
+                  f"{n_sph}")
+    tri = torch.stack([*scene.tri_p0, *scene.tri_p1, *scene.tri_p2,
+                       *scene.tri_normal], dim=1)
+    sph = torch.stack([*scene.sph_center, scene.sph_radius], dim=1)
+    data = torch.zeros(BLOCK_FLOATS, dtype=torch.float32)
+    data[:n_tri * TRI_FLOATS] = tri.detach().reshape(-1).cpu()
+    off = MAX_TRI * TRI_FLOATS
+    data[off:off + n_sph * SPH_FLOATS] = sph.detach().reshape(-1).cpu()
+    return SceneBlock(data, n_tri, n_sph)
+
+
+def _geometry(scene):
+    """The tensors :func:`pack_scene` reads."""
+    return (*scene.tri_p0, *scene.tri_p1, *scene.tri_p2, *scene.tri_normal,
+            *scene.sph_center, scene.sph_radius)
+
+
+# id of the first geometry tensor -> (weak references to all of them,
+# packed block); the entry goes when that tensor does.
+_BLOCKS: dict = {}
+
+
+def scene_block(scene) -> SceneBlock:
+    """The packed block of the scene's geometry, built once per set of
+    geometry tensors: a SceneData that shares them (a
+    ``dataclasses.replace`` of materials or lights, as
+    ``diff.apply_params`` makes each iteration) reuses it without a host
+    copy; a new geometry tensor packs anew."""
+    geo = _geometry(scene)
+    key = id(geo[0])
+    kept = _BLOCKS.get(key)
+    if kept is not None and all(r() is g for r, g in zip(kept[0], geo)):
+        return kept[1]
+    block = pack_scene(scene)
+    if kept is None:
+        weakref.finalize(geo[0], _BLOCKS.pop, key, None)
+    _BLOCKS[key] = (tuple(map(weakref.ref, geo)), block)
+    return block
 
 
 # ---------------------------------------------------------------------------
@@ -127,25 +170,28 @@ def sweep_plain(scene, org: V3, direction: V3):
 # ---------------------------------------------------------------------------
 
 
-def sweep_kernel(tables, n_tri: int, n_sph: int, org: V3, direction: V3):
-    """Launch the CUDA sweep -> (dist [N] f32, prim [N] int64, -1 on a miss)."""
-    tri, tri_n, sph = tables
+def _check_operands(name: str, tensors, sizes, dev) -> None:
+    """The wrappers' checks: f32, contiguous, forward-only, one CUDA
+    device, each tensor of its [size]."""
+    req = _cuda.require
+    req(dev.type == "cuda", f"{name} needs CUDA tensors")
+    for t, size in zip(tensors, sizes):
+        req(t.device == dev, f"{name}: all tensors on one device")
+        req(t.dtype == torch.float32, f"{name}: float32 tensors only")
+        req(t.is_contiguous(), f"{name}: contiguous tensors only")
+        req(not t.requires_grad, f"{name} is forward-only")
+        req(t.shape == (size,), f"{name}: operands are [{size}] tensors")
+    req(max(sizes, default=0) < 2 ** 31, f"{name}: too many rays")
+
+
+def sweep_kernel(scene, org: V3, direction: V3):
+    """Launch the CUDA closest-hit sweep -> (dist [N] f32, prim [N] int64,
+    -1 on a miss). Raises ValueError above the scene block's capacity."""
+    block = scene_block(scene)
     rays = (*org, *direction)
     n = rays[0].shape[0]
     dev = rays[0].device
-    req = _cuda.require
-    req(dev.type == "cuda", "sweep_kernel needs CUDA tensors")
-    for t in (tri, tri_n, sph, *rays):
-        req(t.device == dev, "sweep_kernel: all tensors on one device")
-        req(t.dtype == torch.float32, "sweep_kernel: float32 tensors only")
-        req(t.is_contiguous(), "sweep_kernel: contiguous tensors only")
-        req(not t.requires_grad, "sweep_kernel is forward-only")
-    for r in rays:
-        req(r.shape == (n,), "sweep_kernel: rays are six [N] tensors")
-    req(tri.shape == (10, n_tri) and tri_n.shape == (4, n_tri),
-        "sweep_kernel: bad triangle tables")
-    req(sph.shape == (6, max(n_sph, 1)), "sweep_kernel: bad sphere table")
-    req(n_tri >= 1 and n < 2 ** 31, "sweep_kernel: bad sizes")
+    _check_operands("sweep_kernel", rays, [n] * 6, dev)
 
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int64, device=dev)
@@ -154,7 +200,7 @@ def sweep_kernel(tables, n_tri: int, n_sph: int, org: V3, direction: V3):
     lib = _cuda.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.svcm_intersect_sweep(
-        tri.data_ptr(), tri_n.data_ptr(), sph.data_ptr(), n_tri, n_sph,
+        block.data.data_ptr(), block.n_tri, block.n_sph,
         *(r.data_ptr() for r in rays), dist.data_ptr(), prim.data_ptr(), n,
         stream,
     )
@@ -164,6 +210,79 @@ def sweep_kernel(tables, n_tri: int, n_sph: int, org: V3, direction: V3):
 
 
 sweep_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Occlusion (shadow rays): any hit before tmax, on the active lanes only
+# ---------------------------------------------------------------------------
+
+
+def occlusion_operands(point: V3, direction: V3, dist, active):
+    """Flatten occlusion operands of any broadcast shape -> (shape, point V3
+    of [P], direction V3 of [M], dist [M], active [M] bool).
+
+    Ray i's point is ``point[i % P]``: leading dimensions along which the
+    point is only broadcast (an expanded view, or size 1) are dropped
+    rather than materialised, so a camera vertex [N] shared by a window of
+    [w, N] connections stays [N]."""
+    shape = torch.broadcast_shapes(
+        *(a.shape for a in (*point, *direction, dist, active)))
+    flat = lambda a: a.detach().expand(shape).reshape(-1).contiguous()
+    pe = [a.detach().expand(shape) for a in point]
+    lead = 0
+    while lead < len(shape) and shape[lead] > 0 and all(
+            a.stride(lead) == 0 or shape[lead] == 1 for a in pe):
+        lead += 1
+    point = V3(*(a[(0,) * lead].reshape(-1).contiguous() for a in pe))
+    return shape, point, V3(*map(flat, direction)), flat(dist), flat(active)
+
+
+def occluded_plain(scene, point: V3, direction: V3, dist, active):
+    """Plain version of :func:`occluded_kernel` on flat operands (point [P],
+    the rest [M]; ray i's point is ``point[i % P]``): the closest hit of
+    the offset ray is nearer than tmax, and the lane is active."""
+    m = dist.shape[0]
+    reps = m // point.x.shape[0] if m else 0
+    point = V3(*(a.repeat(reps) for a in point))
+    org = point + direction * EPS_RAY
+    tmax = dist - 2.0 * EPS_RAY
+    return active & (sweep_plain(scene, org, direction)[0] < tmax)
+
+
+def occluded_kernel(scene, point: V3, direction: V3, dist, active):
+    """Launch the CUDA any-hit sweep -> bool [M]: ray i from
+    ``point[i % P] + direction[i] * EPS_RAY`` meets a primitive before
+    ``dist[i] - 2 * EPS_RAY``; false, untested, where ``active`` is false.
+    Raises ValueError above the scene block's capacity."""
+    block = scene_block(scene)
+    n_point, m = point.x.shape[0], dist.shape[0]
+    dev = dist.device
+    _check_operands("occluded_kernel", (*point, *direction, dist),
+                    [n_point] * 3 + [m] * 4, dev)
+    req = _cuda.require
+    req(n_point >= 1 and m % n_point == 0,
+        "occluded_kernel: the ray count is not a multiple of the points'")
+    req(active.device == dev and active.dtype == torch.bool
+        and active.shape == (m,) and active.is_contiguous(),
+        "occluded_kernel: active is a contiguous bool [M] on the device")
+
+    out = torch.empty((m,), dtype=torch.bool, device=dev)
+    if m == 0:
+        return out
+    lib = _cuda.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.svcm_occluded_sweep(
+        block.data.data_ptr(), block.n_tri, block.n_sph,
+        *(a.data_ptr() for a in point), n_point,
+        *(a.data_ptr() for a in direction), dist.data_ptr(),
+        active.data_ptr(), out.data_ptr(), m, stream,
+    )
+    _cuda.check(status, "svcm_occluded_sweep")
+    occluded_kernel.launches += 1
+    return out
+
+
+occluded_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +330,9 @@ class _SweepKernelFn(torch.autograd.Function):
     parameters get it, the primitive index gets none."""
 
     @staticmethod
-    def forward(ctx, scene, tables, ox, oy, oz, dx, dy, dz):
+    def forward(ctx, scene, ox, oy, oz, dx, dy, dz):
         rays = [a.detach() for a in (ox, oy, oz, dx, dy, dz)]
-        dist, prim = sweep_kernel(tables, scene.tri_mat.shape[0],
-                                  scene.sph_mat.shape[0], V3(*rays[:3]),
-                                  V3(*rays[3:]))
+        dist, prim = sweep_kernel(scene, V3(*rays[:3]), V3(*rays[3:]))
         ctx.scene = scene
         ctx.save_for_backward(*rays, prim)
         ctx.mark_non_differentiable(prim)
@@ -226,13 +343,13 @@ class _SweepKernelFn(torch.autograd.Function):
         *rays, prim = ctx.saved_tensors
         with torch.enable_grad():
             rays = [a.detach().requires_grad_(need) for a, need in
-                    zip(rays, ctx.needs_input_grad[2:])]
+                    zip(rays, ctx.needs_input_grad[1:])]
             t = winner_distance(ctx.scene, V3(*rays[:3]), V3(*rays[3:]),
                                 prim)
             live = [a for a in rays if a.requires_grad]
             grads = iter(torch.autograd.grad(t, live, g_dist))
-        return (None, None, *(next(grads) if a.requires_grad else None
-                              for a in rays))
+        return (None, *(next(grads) if a.requires_grad else None
+                        for a in rays))
 
 
 def sweep(scene, org: V3, direction: V3):
@@ -248,9 +365,7 @@ def sweep(scene, org: V3, direction: V3):
         dist, prim = sweep_plain(scene, org, direction)
     elif torch.is_grad_enabled() and any(
             a.requires_grad for a in (*org, *direction)):
-        dist, prim = _SweepKernelFn.apply(scene, scene_tables(scene), *org,
-                                          *direction)
+        dist, prim = _SweepKernelFn.apply(scene, *org, *direction)
     else:
-        dist, prim = sweep_kernel(scene_tables(scene), scene.tri_mat.shape[0],
-                                  scene.sph_mat.shape[0], org, direction)
+        dist, prim = sweep_kernel(scene, org, direction)
     return dist.reshape(shape), prim.reshape(shape)

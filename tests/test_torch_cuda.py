@@ -6,9 +6,10 @@ port is installed, without the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the sweep's distances to rtol 1e-6 (both sides round each
-product and sum alike; the kernel is built with -fmad=false) and its
-primitive ids equal except on exact ties; the merge's per-query sums to
+Tolerances: the sweeps exactly: closest-hit distances and occlusion
+answers bit for bit (both sides round each product and sum alike; the
+kernels are built with -fmad=false), primitive ids equal except on exact
+ties; the merge's per-query sums to
 rtol 1e-4 / atol 1e-6 (the kernel sums a query's photons in another
 order); a whole render on the card against the same render on the CPU
 with the slice test's bound (rtol 1e-4 on >= 99% of pixels, mean to
@@ -55,12 +56,11 @@ def test_sweep_kernel_matches_plain(dev, config):
     scene = load_cornell_box((8, 8), config).to(dev)
     org, d = _rays(config, 100_000, dev)
     before = S.sweep_kernel.launches
-    dk, pk = S.sweep_kernel(S.scene_tables(scene), scene.tri_mat.shape[0],
-                            scene.sph_mat.shape[0], org, d)
+    dk, pk = S.sweep_kernel(scene, org, d)
     dp, pp = S.sweep_plain(scene, org, d)
     torch.cuda.synchronize()
     assert S.sweep_kernel.launches == before + 1
-    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0.0)
+    assert torch.equal(dk, dp)
     mism = pk != pp
     if bool(mism.any()):
         # Only where the two nearest distances are equal.
@@ -70,6 +70,40 @@ def test_sweep_kernel_matches_plain(dev, config):
         assert bool((t2[mism, 0] == t2[mism, 1]).all())
 
 
+@pytest.mark.parametrize("config", SCENE_CONFIGS)
+def test_occluded_kernel_matches_plain(dev, config):
+    """The any-hit entry against occluded_plain, bit for bit, with 0%, 35%
+    and 100% of the lanes active and with no mask; and with the point
+    broadcast over a window of 4 as connect_vertices passes it."""
+    from smallvcm_tpu_torch.ops import intersect as I
+
+    scene = load_cornell_box((8, 8), config).to(dev)
+    n = 100_000
+    org, d = _rays(60 + config, n, dev)
+    r = np.random.default_rng(config)
+    dist = torch.from_numpy(r.uniform(0.0, 3.0, n).astype(np.float32)).to(dev)
+    u = torch.from_numpy(r.random(n)).to(dev)
+    for active in (u < 0.0, u < 0.35, u < 1.0):
+        before = S.occluded_kernel.launches
+        got = S.occluded_kernel(scene, org, d, dist, active)
+        want = S.occluded_plain(scene, org, d, dist, active)
+        torch.cuda.synchronize()
+        assert S.occluded_kernel.launches == before + 1
+        assert got.dtype == torch.bool and torch.equal(got, want)
+    assert bool(want.any()) and not bool(want.all())
+    assert torch.equal(I.occluded(scene, org, d, dist), want)  # no mask
+
+    w, m = 4, n // 4
+    point = V3(*(c[:m] for c in org))
+    view = V3(*(c[None].expand(w, m) for c in point))
+    dw, distw = V3(*(c.reshape(w, m) for c in d)), dist.reshape(w, m)
+    act = (u < 0.35).reshape(w, m)
+    got = I.occluded(scene, view, dw, distw, act)
+    full = S.occluded_plain(scene, V3(*(c.repeat(w) for c in point)), d,
+                            dist, act.reshape(-1))
+    assert torch.equal(got.reshape(-1), full)
+
+
 def test_sweep_dispatch_and_wrapper_checks(dev):
     scene = load_cornell_box((8, 8), SCENE_CONFIGS[0]).to(dev)
     org, d = _rays(9, 300, dev)
@@ -77,15 +111,20 @@ def test_sweep_dispatch_and_wrapper_checks(dev):
     dist, prim = S.sweep(scene, V3(*(c[None].expand(2, 300) for c in org)), d)
     assert dist.shape == prim.shape == (2, 300) and dist.is_cuda
     assert S.sweep_kernel.launches == before + 1
-    tables = S.scene_tables(scene)
-    n_tri, n_sph = scene.tri_mat.shape[0], scene.sph_mat.shape[0]
     with pytest.raises(ValueError, match="forward-only"):
-        S.sweep_kernel(tables, n_tri, n_sph,
-                       V3(org.x.clone().requires_grad_(), org.y, org.z), d)
+        S.sweep_kernel(scene, V3(org.x.clone().requires_grad_(), org.y,
+                                 org.z), d)
     with pytest.raises(ValueError, match="float32"):
-        S.sweep_kernel(tables, n_tri, n_sph, V3(*(c.double() for c in org)),
-                       d)
+        S.sweep_kernel(scene, V3(*(c.double() for c in org)), d)
     assert S.sweep_kernel.launches == before + 1
+    occ = S.occluded_kernel.launches
+    dist = torch.full((300,), 0.5, device=dev)
+    with pytest.raises(ValueError, match="bool"):
+        S.occluded_kernel(scene, org, d, dist, (dist > 0.0).float())
+    with pytest.raises(ValueError, match="multiple"):
+        S.occluded_kernel(scene, V3(*(c[:7] for c in org)), d, dist,
+                          dist > 0.0)
+    assert S.occluded_kernel.launches == occ
 
 
 def _merge_tables(dev, ppm):

@@ -73,9 +73,12 @@ def test_sweep_takes_broadcast_shapes():
 def test_kernel_wrapper_refuses_cpu_tensors():
     ts = tload((8, 8), SCENE_CONFIGS[0])
     org, d = _rays(5, 16)
-    before = tsweep.sweep_kernel.launches
-    with pytest.raises(ValueError):
-        tsweep.sweep_kernel(tsweep.scene_tables(ts), ts.tri_mat.shape[0],
-                            ts.sph_mat.shape[0], tv(org), tv(d))
-    assert tsweep.sweep_kernel.launches == before
+    dist, active = torch.ones(16), torch.ones(16, dtype=torch.bool)
+    before = (tsweep.sweep_kernel.launches, tsweep.occluded_kernel.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep.sweep_kernel(ts, tv(org), tv(d))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsweep.occluded_kernel(ts, tv(org), tv(d), dist, active)
+    assert (tsweep.sweep_kernel.launches,
+            tsweep.occluded_kernel.launches) == before
 
