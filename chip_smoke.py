@@ -42,7 +42,18 @@ Phases (each one raises on failure; nothing is caught):
     peak memory and sweep launches; the sweep kernel's autograd Function
     against the plain sweep's autograd on 262,144 rays;
 12. ``--report -i 1 --resolution 64 64`` on the card: 28 BMPs and
-    index.html.
+    index.html;
+13. sharding: two gloo ranks sharing cuda:0 (``multihost.spawn``, a
+    file:// rendezvous) render VCM 512x512 with the all-gather and with
+    the ring photon exchange and pt, 2 iterations each, against the
+    single-process renders (pt bit for bit, VCM within rtol 1e-4 / atol
+    1e-6), with every rank's kernel launch counts, ms per iteration and
+    the exchange's bytes and wall ms; one sharded gradient step (vcm with
+    the all-gather, pt) at 128x128 against ``loss_and_grad``; where two
+    cards are visible, ``--devices 2`` (NCCL) against ``--devices 1``;
+    the native codec's bytes against the numpy writers' for the VCM
+    image; ``--isolate on`` with one injected fault gives the BMP bytes of
+    an uninterrupted run.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -56,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -75,6 +87,11 @@ PARITY_MEAN = dict(el=0.52085, pt=0.08275, lt=0.08488, ppm=0.10747,
 RES = 512
 GRAD_RES = 512       # full-size gradient step (pt and vcm, 1 iteration)
 SEED = 1234
+SHARD_RANKS = 2
+SHARD_GRAD_RES = 128
+# Phase 13's sharded renders: (name, algorithm, photon exchange).
+SHARD_CASES = (("vcm_allgather", "vcm", "allgather"),
+               ("vcm_ring", "vcm", "ring"), ("pt", "pt", "allgather"))
 
 # A kernel's bound is the larger of its bytes over the card's memory rate
 # and its operations over the card's f32 rate (H100 SXM, NVIDIA's data
@@ -544,12 +561,12 @@ _ITER = re.compile(r"iter (\d+): luminance=\S+ mean=(\S+) rays=(\d+) "
 
 def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
             extra=(), quiet: bool = False, rendered: int | None = None):
-    """cli.main on scene 0 at RES x RES on the card -> the per-iteration
+    """cli.main on scene 0 at RES x RES on one card -> the per-iteration
     (index, mean, rays, dt) tuples of its -v lines (``rendered`` of them,
     default ``n_iter``; fewer when a checkpoint resumes the run)."""
     argv = ["-s", "0", "-a", alg, "-i", str(n_iter), "--resolution",
-            str(RES), str(RES), "-o", out_path, "--device", "cuda", "-v",
-            *extra]
+            str(RES), str(RES), "-o", out_path, "--device", "cuda",
+            "--devices", "1", "-v", *extra]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
@@ -873,6 +890,270 @@ def check_report(torch):
         f"{REPORT_JOBS} at a time)")
 
 
+def _timed_ms(torch, fn, reps: int = 5) -> float:
+    """Mean wall ms of ``fn`` with the card synchronised around each call
+    (an exchange's time, host staging included)."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return 1e3 * total / reps
+
+
+def _sharded_rank(device: str, res: int, grad_res: int) -> dict:
+    """Phase 13 in each rank: the sharded renders and gradient steps, with
+    this rank's launch counts, and the exchanges timed at the renders'
+    shapes."""
+    import torch
+
+    from smallvcm_tpu_torch import diff
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.parallel import comm, multihost
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    group = multihost.global_group()
+    dev = multihost.rank_device(device)
+    out = dict(backend=torch.distributed.get_backend(group), device=str(dev))
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
+    # A fresh process loads PyTorch's CUDA modules at first use: one
+    # untimed iteration first.
+    R.render(scene, R.RenderConfig(algorithm="vcm", resolution=(res, res),
+                                   group=group))
+    for name, alg, exchange in SHARD_CASES:
+        cfg = R.RenderConfig(algorithm=alg, iterations=2,
+                             resolution=(res, res), vm_exchange=exchange,
+                             group=group)
+        reset_counts(M, S)
+        comm.all_gather_columns.bytes = comm.ring_shift.bytes = 0
+        img, secs, done, rays = R.render(scene, cfg)
+        out[name] = dict(
+            img=img.cpu(), ms=1e3 * secs / done, rays=rays,
+            launches=read_counts(M, S),
+            exchange_bytes=(comm.all_gather_columns.bytes
+                            + comm.ring_shift.bytes) // done)
+    # The exchanges of one iteration, timed alone at the renders' shapes:
+    # the packed light-vertex table [17, maxL = 9, paths of one rank] and
+    # the frame.
+    table = torch.rand((17, 9, res * res // comm.world_size(group)),
+                       device=dev)
+    frame = torch.rand((res, res, 3), device=dev)
+    out["exchange_ms"] = dict(
+        allgather=_timed_ms(torch, lambda: comm.all_gather_columns(table,
+                                                                   group)),
+        ring=_timed_ms(torch, lambda: comm.ring_shift(table, group)),
+        framebuffer=_timed_ms(torch, lambda: comm.framebuffer_sum(frame,
+                                                                  group)))
+    gscene = load_cornell_box((grad_res, grad_res), SCENE_CONFIGS[0],
+                              device=dev)
+    target = torch.full((grad_res, grad_res, 3), 0.1, device=dev)
+    for alg in ("vcm", "pt"):
+        reset_counts(M, S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = diff.sharded_loss_and_grad(
+            group, gscene, diff.extract_params(gscene), target, 0, alg,
+            grad_res, grad_res)
+        torch.cuda.synchronize()
+        out[f"grad_{alg}"] = dict(
+            ms=1e3 * (time.perf_counter() - t0), loss=float(loss),
+            leaves=[x.cpu() for x in diff._leaves(g)],
+            launches=read_counts(M, S))
+    return out
+
+
+def _isolated_fault(torch, tmp: str) -> str:
+    """``--isolate on`` with one fault injected at iteration 2 of a 64x64
+    VCM run on the card against the same run uninterrupted."""
+    import os
+
+    from smallvcm_tpu_torch import cli
+
+    args = ["-s", "0", "-a", "vcm", "-i", "4", "--resolution", "64", "64",
+            "--device", "cuda", "--devices", "1"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(args + ["-o", f"{tmp}/ref.bmp"]) != 0:
+            raise AssertionError("isolate: the uninterrupted run failed")
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               SMALLVCM_TEST_FAULT_AT="2", SMALLVCM_TEST_FAULT_TIMES="1",
+               SMALLVCM_TEST_FAULT_COUNTER=f"{tmp}/faults")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "smallvcm_tpu_torch.cli", *args,
+         "--isolate", "on", "--checkpoint", f"{tmp}/ckpt.npz",
+         "--checkpoint-every", "1", "-o", f"{tmp}/out.bmp"],
+        env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or "respawning from checkpoint" not in \
+            proc.stdout or Path(f"{tmp}/faults").read_text() != "1":
+        raise AssertionError(f"isolate: rc {proc.returncode}\n"
+                             + proc.stdout[-2000:] + proc.stderr[-2000:])
+    if Path(f"{tmp}/out.bmp").read_bytes() != \
+            Path(f"{tmp}/ref.bmp").read_bytes():
+        raise AssertionError("isolate: the respawned run's BMP differs")
+    return (f"--isolate on, one fault injected at iteration 2 of 4 (64x64 "
+            f"vcm on the card): respawned from the checkpoint, BMP bytes "
+            f"equal to the uninterrupted run's, {secs:.1f} s")
+
+
+def _single_references(torch, dev) -> dict:
+    """The single-process renders (2 iterations) and gradient steps that
+    phase 13's sharded runs are held against."""
+    from smallvcm_tpu_torch import diff
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    ref = {}
+    for alg in ("vcm", "pt"):
+        cfg = R.RenderConfig(algorithm=alg, iterations=2,
+                             resolution=(RES, RES))
+        img, secs, done, _ = R.render(scene, cfg)
+        ref[alg] = (img.cpu(), 1e3 * secs / done)
+    gscene = load_cornell_box((SHARD_GRAD_RES, SHARD_GRAD_RES),
+                              SCENE_CONFIGS[0], device=dev)
+    target = torch.full((SHARD_GRAD_RES, SHARD_GRAD_RES, 3), 0.1,
+                        device=dev)
+    for alg in ("vcm", "pt"):
+        loss, g = diff.loss_and_grad(gscene, diff.extract_params(gscene),
+                                     target, 0, alg, SHARD_GRAD_RES,
+                                     SHARD_GRAD_RES)
+        ref[f"grad_{alg}"] = (float(loss), [x.cpu() for x in diff._leaves(g)])
+    return ref
+
+
+def _check_ranks(torch, ranks, ref, spawn_s: float) -> dict:
+    """Hold every rank's phase-13 results against the single-process ones
+    (pt bit for bit, VCM rtol 1e-4 / atol 1e-6, gradients rtol 2e-3 /
+    atol 1e-5; every kernel of the path launched on every rank) ->
+    launches by path, a list by rank."""
+    w, backend = len(ranks), ranks[0]["backend"]
+    where = sorted({o["device"] for o in ranks})
+    launches = {}
+    for name, alg, exchange in SHARD_CASES:
+        want = ref[alg][0]
+        for r, out in enumerate(ranks):
+            got = out[name]
+            if not torch.equal(got["img"], ranks[0][name]["img"]):
+                raise AssertionError(f"sharded {name}: ranks disagree")
+            if alg == "pt" and not torch.equal(got["img"], want):
+                raise AssertionError("sharded pt: not bit for bit")
+            torch.testing.assert_close(got["img"], want, rtol=1e-4,
+                                       atol=1e-6)
+            n = got["launches"]
+            if n["intersect_sweep"] <= 0 or n["occluded_sweep"] <= 0 or \
+                    (n["merge_cells"] > 0) != (alg == "vcm"):
+                raise AssertionError(f"sharded {name} rank {r}: launches {n}")
+        err = float((ranks[0][name]["img"] - want).abs().max())
+        launches[f"sharded_{name}"] = [o[name]["launches"] for o in ranks]
+        log(f"[sharded] {name} {RES}x{RES} x2 on {w} ranks ({backend}, "
+            f"{where}): {[round(o[name]['ms'], 1) for o in ranks]} "
+            f"ms/iteration (single process {ref[alg][1]:.1f}); max |err| "
+            f"vs single {err:.3g}{' (bit for bit)' if err == 0 else ''}; "
+            f"exchange {ranks[0][name]['exchange_bytes']} B/iteration a "
+            f"rank; launches by rank {launches[f'sharded_{name}']}")
+    log(f"[sharded] {backend}: exchange wall ms a call on rank 0"
+        f"{' (staged through host memory)' if backend == 'gloo' else ''}: "
+        f"{ranks[0]['exchange_ms']}; the spawn and the ranks' work took "
+        f"{spawn_s:.1f} s")
+    for alg in ("vcm", "pt"):
+        loss, leaves = ref[f"grad_{alg}"]
+        for r, out in enumerate(ranks):
+            got = out[f"grad_{alg}"]
+            for a, b in zip(got["leaves"], leaves, strict=True):
+                torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-5)
+            n = got["launches"]
+            if n["intersect_sweep"] <= 0 or n["occluded_sweep"] <= 0 or \
+                    n["merge_cells"]:
+                raise AssertionError(f"sharded grad {alg} rank {r}: "
+                                     f"launches {n}")
+        launches[f"sharded_grad_{alg}"] = [o[f"grad_{alg}"]["launches"]
+                                           for o in ranks]
+        log(f"[sharded-grad] {alg} {SHARD_GRAD_RES}x{SHARD_GRAD_RES} x1 on "
+            f"{w} ranks ({backend}): every leaf within rtol 2e-3 / atol "
+            f"1e-5 of loss_and_grad; loss "
+            f"{ranks[0][f'grad_{alg}']['loss']:.6g} vs {loss:.6g}; "
+            f"{[round(o[f'grad_{alg}']['ms'], 1) for o in ranks]} ms a "
+            f"step (first call); launches by rank "
+            f"{launches[f'sharded_grad_{alg}']}")
+    return launches
+
+
+def check_nccl(torch, ref) -> dict:
+    """Phase 13 with one card a rank (NCCL), where two or more are
+    visible: ``--devices 2`` through the CLI against ``--devices 1``, then
+    the sharded renders and gradient steps on every visible card."""
+    from smallvcm_tpu_torch import cli
+    from smallvcm_tpu_torch.parallel import multihost
+
+    w = torch.cuda.device_count()
+    args = ["-s", "0", "-a", "vcm", "-i", "2", "--resolution", str(RES),
+            str(RES), "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            for k in (1, 2):
+                if cli.main(args + ["--devices", str(k), "-o",
+                                    f"{tmp}/d{k}.bmp"]) != 0:
+                    raise AssertionError(f"--devices {k} failed")
+        a, b = (Path(f"{tmp}/d{k}.bmp").read_bytes() for k in (1, 2))
+    if a != b:
+        off = sum(x != y for x, y in zip(a, b))
+        raise AssertionError(f"--devices 2 (NCCL): BMP bytes differ from "
+                             f"--devices 1 ({off} of {len(a)} bytes)")
+    log(f"[nccl] cli --devices 2 (one card a rank) vs --devices 1, vcm "
+        f"{RES}x{RES} x2: BMP bytes equal ({len(a)} bytes)")
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(w, "cuda", _sharded_rank, "cuda", RES,
+                            SHARD_GRAD_RES)
+    return _check_ranks(torch, ranks, ref, time.perf_counter() - t0)
+
+
+def check_sharded(torch, dev, rank_device: str = "cuda:0"):
+    """Phase 13: sharded renders and gradients on two gloo ranks sharing
+    ``rank_device``, NCCL where two cards are visible, the native codec
+    and the supervisor."""
+    from smallvcm_tpu_torch.io import framebuffer as fbio
+    from smallvcm_tpu_torch.io import native_codec
+    from smallvcm_tpu_torch.parallel import multihost
+
+    ref = _single_references(torch, dev)
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(SHARD_RANKS, rank_device, _sharded_rank,
+                            rank_device, RES, SHARD_GRAD_RES)
+    launches = _check_ranks(torch, ranks, ref, time.perf_counter() - t0)
+    if torch.cuda.device_count() >= 2:
+        nccl = check_nccl(torch, ref)
+        launches.update({f"nccl_{k}": v for k, v in nccl.items()})
+    else:
+        log(f"[nccl] not run: {torch.cuda.device_count()} card visible; "
+            f"--devices 2 with NCCL needs two")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img = ref["vcm"][0].numpy()
+        for fmt, kw in (("bmp", (2.2,)), ("hdr", ()), ("pfm", ()),
+                        ("ppm", (2.2,))):
+            if not getattr(native_codec, f"save_{fmt}")(
+                    img, f"{tmp}/n.{fmt}", *kw):
+                raise AssertionError(f"native codec: {fmt} not written")
+            os.environ["SMALLVCM_TPU_NO_NATIVE"] = "1"
+            try:
+                getattr(fbio, f"save_{fmt}")(img, f"{tmp}/p.{fmt}", *kw)
+            finally:
+                del os.environ["SMALLVCM_TPU_NO_NATIVE"]
+            if Path(f"{tmp}/n.{fmt}").read_bytes() != \
+                    Path(f"{tmp}/p.{fmt}").read_bytes():
+                raise AssertionError(f"native codec: {fmt} bytes differ")
+        log(f"[codec] native bmp/hdr/pfm/ppm bytes equal the numpy "
+            f"writers' for the vcm {RES}x{RES} image")
+        log("[isolate] " + _isolated_fault(torch, tmp))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -932,6 +1213,8 @@ def main() -> int:
     phase_done("phase 11 (gradients)")
     check_report(torch)
     phase_done("phase 12 (report)")
+    sharded = check_sharded(torch, dev)
+    phase_done("phase 13 (sharding, codec, supervisor)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -941,6 +1224,8 @@ def main() -> int:
         "vcm_tea": backends["launches"]["tea"][name],
         "checkpoint_resume": ckpt_launches[name],
         **{f"grad_{alg}": r["launches"][name] for alg, r in grads.items()},
+        **{path: [n[name] for n in by_rank]
+           for path, by_rank in sharded.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

@@ -21,15 +21,26 @@ def render_iteration(
     scene: SceneData, iteration: int, res_x: int, res_y: int,
     base_seed: int = 1234, rng_kind: str = "threefry",
 ):
-    """One eye-light pass -> (image [resY, resX, 3], ray_count).
+    """One eye-light pass -> (image [resY, resX, 3], ray_count):
+    :func:`render_core` over ``arange(res_x * res_y)``."""
+    pix = torch.arange(res_x * res_y, dtype=torch.int64, device=scene.device)
+    return render_core(scene, iteration, pix, res_x, res_y, base_seed,
+                       rng_kind)
+
+
+def render_core(
+    scene: SceneData, iteration: int, pix, res_x: int, res_y: int,
+    base_seed: int = 1234, rng_kind: str = "threefry",
+):
+    """One eye-light pass over the global pixel ids ``pix`` -> (full-frame
+    image [resY, resX, 3] holding those pixels, ray_count).
 
     Reference quirk preserved: iteration 1 (the second pass;
     smallvcm.cxx:100 starts at 0) samples pixel centres, every other
     iteration jitters (eyelight.hxx:59-60). One primary ray per pixel.
     """
     dev = scene.device
-    n = res_x * res_y
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
     x = torch.remainder(pix, res_x).to(torch.float32)
     y = torch.div(pix, res_x, rounding_mode="floor").to(torch.float32)
 

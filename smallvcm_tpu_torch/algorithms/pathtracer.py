@@ -56,14 +56,33 @@ def render_iteration(
     min_path_length: int = 0,
     rng_kind: str = "threefry",
 ):
-    """One PT pass over every pixel -> (image [resY, resX, 3], ray_count).
+    """One PT pass over every pixel -> (image [resY, resX, 3], ray_count):
+    :func:`render_core` over ``arange(res_x * res_y)``."""
+    pix = torch.arange(res_x * res_y, dtype=torch.int64, device=scene.device)
+    return render_core(scene, iteration, pix, res_x, res_y, base_seed,
+                       max_path_length, min_path_length, rng_kind)
 
-    RNG streams key off global pixel ids, as in the JAX package. The ray
+
+def render_core(
+    scene: SceneData,
+    iteration: int,
+    pix,
+    res_x: int,
+    res_y: int,
+    base_seed: int = 1234,
+    max_path_length: int = 10,
+    min_path_length: int = 0,
+    rng_kind: str = "threefry",
+):
+    """One PT pass over the global pixel ids ``pix`` -> (full-frame image
+    [resY, resX, 3] holding those pixels, ray_count).
+
+    RNG streams key off global pixel ids, as in the JAX package, so any
+    partition of the pixels over processes renders the same paths. The ray
     count is path segments plus the shadow rays of enabled NEE connections
     (the VCM family's count)."""
     dev = scene.device
-    n = res_x * res_y
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
     x = torch.remainder(pix, res_x).to(torch.float32)
     y = torch.div(pix, res_x, rounding_mode="floor").to(torch.float32)
 

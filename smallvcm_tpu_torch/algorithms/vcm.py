@@ -41,6 +41,7 @@ from ..ops import hashgrid as grid_ops
 from ..ops import lights as light_ops
 from ..ops import merge as cell_merge
 from ..ops.intersect import intersect, occluded
+from ..parallel import comm
 from ..scene.camera import check_raster, generate_ray, world_to_raster
 from ..scene.scene import SceneData
 
@@ -740,11 +741,17 @@ def merge_stage(
     scene: SceneData, misc: VcmMisc, queries: StoredVertices,
     light_verts: StoredVertices, ppm: bool, max_path_length: int,
     min_path_length: int, n_paths: int, num_cells: int | None = None,
-    max_pairs: int = grid_ops.MAX_PAIRS,
-) -> V3:
+    max_pairs: int = grid_ops.MAX_PAIRS, with_stats: bool = False,
+):
     """Vertex merging by exact (query, photon) pair expansion -> color_add
     V3 [n_paths]: the per-path merge radiance, scaled by the camera
-    throughput and the vm normalization.
+    throughput and the vm normalization. With ``with_stats``, returns
+    ``(color_add, stats)``, stats = int64 [candidate pairs, live photons,
+    live queries] as the JAX merge counts them.
+
+    ``n_paths`` is the number of query columns (the output length); the
+    photon table may have more columns (the sharded all-gather), and each
+    photon's path length comes from its own table's column count.
 
     Port of the JAX package's XLA merge (RangeQuery::Process,
     vertexcm.hxx:130-169): photons are hashed into cells of 2r
@@ -776,8 +783,10 @@ def merge_stage(
     qvalid = flat(queries.valid)
     n_p, n_q = (int(v) for v in torch.stack([pvalid.sum(),
                                              qvalid.sum()]).tolist())
+    live = torch.tensor([n_p, n_q], dtype=torch.int64, device=dev)
     if n_p == 0 or n_q == 0:
-        return V3(zero, zero, zero)
+        z = V3(zero, zero, zero)
+        return (z, torch.cat([live.new_zeros(1), live])) if with_stats else z
 
     # ---- 1. Photons: the cell-hashed grid (positions detached). ----------
     grid = grid_ops.build(V3(*(flat(c).detach() for c in light_verts.position)),
@@ -841,10 +850,153 @@ def merge_stage(
     thr = gather(queries.throughput, idx_q).to_array()
     acc = acc * thr * misc.vm_normalization
     z = deterministic_index_add(n_paths, q_path, acc)
-    return V3(z[:, 0], z[:, 1], z[:, 2])
+    z = V3(z[:, 0], z[:, 1], z[:, 2])
+    return (z, torch.cat([counts8.sum().reshape(1), live])) if with_stats \
+        else z
 
 
 MERGE_BACKENDS = ("auto", "pallas", "xla")
+VM_EXCHANGES = ("allgather", "ring")
+
+
+def pack_vertices(v: StoredVertices) -> torch.Tensor:
+    """StoredVertices -> one [17, L, N] f32 table for the cross-rank photon
+    exchange, so one collective moves every field: the 15 float fields,
+    then mat_id and valid (small integers and 0/1, exact in f32).
+    Differentiable in the float fields."""
+    return torch.stack([*v.position, *v.throughput, *v.in_dir, *v.normal,
+                        v.d_vcm, v.d_vc, v.d_vm,
+                        v.mat_id.to(torch.float32), v.valid.to(torch.float32)])
+
+
+def unpack_vertices(t: torch.Tensor) -> StoredVertices:
+    """Inverse of :func:`pack_vertices` (views of ``t``)."""
+    return StoredVertices(
+        position=V3(t[0], t[1], t[2]), throughput=V3(t[3], t[4], t[5]),
+        in_dir=V3(t[6], t[7], t[8]), normal=V3(t[9], t[10], t[11]),
+        d_vcm=t[12], d_vc=t[13], d_vm=t[14], mat_id=t[15].long(),
+        valid=t[16] > 0.0,
+    )
+
+
+def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
+           min_path_length: int, n_paths_global: int, merge_backend: str,
+           vm_exchange: str, group):
+    """The deferred merge of this process's queries -> (color_add V3 [n],
+    stats int64 [3]).
+
+    Single process: against its own photons. With ``group``, against every
+    rank's: "allgather" gathers the packed tables in rank order, so the
+    merge sees the single-process table element for element; "ring" keeps
+    them resident and passes each rank's table on to rank + 1 between
+    hops, W merges and W - 1 shifts (merging is additive over photons;
+    pairs are summed over hops, photon and query counts maxed, as the JAX
+    package does). The hash grid of the pair merge keeps the global size,
+    8 cells per path (JAX vcm.py:1321)."""
+    n = queries.valid.shape[1]
+    if merge_backend == "xla":
+        merge = lambda lv: merge_stage(
+            scene, misc, queries, lv, ppm, max_path_length, min_path_length,
+            n, num_cells=8 * n_paths_global, with_stats=True)
+    else:
+        merge = lambda lv: cell_merge.merge_stage(
+            scene, misc, queries, lv, ppm, max_path_length, min_path_length,
+            n, with_stats=True)
+    if group is None:
+        return merge(verts)
+    if vm_exchange == "allgather":
+        return merge(unpack_vertices(
+            comm.all_gather_columns(pack_vertices(verts), group)))
+    color, stats = merge(verts)
+    visiting = pack_vertices(verts)
+    for _ in range(comm.world_size(group) - 1):
+        visiting = comm.ring_shift(visiting, group)
+        c, st = merge(unpack_vertices(visiting))
+        color = color + c
+        stats = torch.stack([stats[0] + st[0], torch.maximum(stats[1], st[1]),
+                             torch.maximum(stats[2], st[2])])
+    return color, stats
+
+
+def render_iteration_core(
+    scene: SceneData,
+    iteration: int,
+    pix,
+    res_x: int,
+    res_y: int,
+    n_paths_global: int,
+    base_seed: int = 1234,
+    max_path_length: int = 10,
+    min_path_length: int = 0,
+    radius_factor: float = 0.003,
+    radius_alpha: float = 0.75,
+    use_vc: bool = True,
+    use_vm: bool = True,
+    light_trace_only: bool = False,
+    ppm: bool = False,
+    rng_kind: str = "threefry",
+    merge_backend: str = "auto",
+    vm_exchange: str = "allgather",
+    group=None,
+):
+    """One VCM-family iteration over the path ids ``pix`` -> (this
+    process's image [resY, resX, 3] f32, ray_count, merge stats int64
+    [candidate pairs, live photons, live queries]).
+
+    ``pix`` holds *global* path/pixel ids: RNG streams and the camera pixel
+    mapping depend only on them, so any partition of
+    ``arange(n_paths_global)`` over processes reproduces the
+    single-process paths. The MIS constants use the *global* light path
+    count (vertexcm.hxx:303-308). With ``group`` (a torch.distributed
+    process group, parallel/sharding.py) the merge sees every rank's
+    photons through ``vm_exchange`` (see :func:`_merge`); light-tracing
+    splats land anywhere in the full frame, so the image is this process's
+    share, summed over ranks by the caller.
+
+    ``merge_backend``: "auto" and "pallas" take the cell merge
+    (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
+    CPU), the port of the JAX package's Pallas merge; "xla" takes the
+    differentiable pair-expansion :func:`merge_stage`, the JAX package's
+    XLA merge.
+
+    The ray count is path segments plus enabled shadow/connection rays,
+    the reference-comparable work metric (bench.py's count)."""
+    if merge_backend not in MERGE_BACKENDS:
+        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
+                         f"not {merge_backend!r}")
+    if vm_exchange not in VM_EXCHANGES:
+        raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
+                         f"not {vm_exchange!r}")
+    dev = scene.device
+    misc = compute_misc(scene, iteration, n_paths_global, radius_factor,
+                        radius_alpha, use_vc, use_vm)
+    fb = new_fb_planes(res_x, res_y, dev)
+    stats = torch.zeros((3,), dtype=torch.int64, device=dev)
+
+    # ---- Stage 1: light sub-paths.
+    verts, fb, ray_count = trace_light_paths(
+        scene, misc, pix, iteration, fb, base_seed, max_path_length,
+        min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
+    )
+    if light_trace_only:
+        return fb.to_array(), ray_count, stats
+
+    # ---- Stage 2: camera sub-paths.
+    color, queries, cam_rays = _camera_stage(
+        scene, misc, verts, pix, iteration, res_x, base_seed,
+        max_path_length, min_path_length, use_vc, use_vm, ppm, rng_kind,
+    )
+
+    # ---- Stage 3: deferred merging.
+    if use_vm:
+        mc, stats = _merge(scene, misc, queries, verts, ppm, max_path_length,
+                           min_path_length, n_paths_global, merge_backend,
+                           vm_exchange, group)
+        color = color + mc
+
+    # Camera contributions always land on the path's own pixel.
+    fb = add_color_at_pix(fb, pix, color)
+    return fb.to_array(), ray_count + cam_rays, stats
 
 
 def render_iteration(
@@ -865,49 +1017,12 @@ def render_iteration(
     merge_backend: str = "auto",
 ):
     """One VCM-family iteration over every pixel of the frame on the
-    scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor).
-
-    ``merge_backend``: "auto" and "pallas" take the cell merge
-    (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
-    CPU), the port of the JAX package's Pallas merge; "xla" takes the
-    differentiable pair-expansion :func:`merge_stage`, the JAX package's
-    XLA merge.
-
-    The ray count is path segments plus enabled shadow/connection rays,
-    the reference-comparable work metric (bench.py's count)."""
-    if merge_backend not in MERGE_BACKENDS:
-        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
-                         f"not {merge_backend!r}")
-    dev = scene.device
+    scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor):
+    :func:`render_iteration_core` over ``arange(res_x * res_y)``."""
     n = res_x * res_y
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
-    misc = compute_misc(scene, iteration, n, radius_factor, radius_alpha,
-                        use_vc, use_vm)
-    fb = new_fb_planes(res_x, res_y, dev)
-
-    # ---- Stage 1: light sub-paths.
-    verts, fb, ray_count = trace_light_paths(
-        scene, misc, pix, iteration, fb, base_seed, max_path_length,
-        min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
-    )
-    if light_trace_only:
-        return fb.to_array(), ray_count
-
-    # ---- Stage 2: camera sub-paths.
-    color, queries, cam_rays = _camera_stage(
-        scene, misc, verts, pix, iteration, res_x, base_seed,
-        max_path_length, min_path_length, use_vc, use_vm, ppm, rng_kind,
-    )
-
-    # ---- Stage 3: deferred merging.
-    if use_vm:
-        merge = merge_stage if merge_backend == "xla" else \
-            cell_merge.merge_stage
-        color = color + merge(
-            scene, misc, queries, verts, ppm, max_path_length,
-            min_path_length, n,
-        )
-
-    # Camera contributions always land on the path's own pixel.
-    fb = add_color_at_pix(fb, pix, color)
-    return fb.to_array(), ray_count + cam_rays
+    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+    img, rays, _ = render_iteration_core(
+        scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
+        min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
+        light_trace_only, ppm, rng_kind, merge_backend)
+    return img, rays

@@ -66,8 +66,11 @@ def render_resumable(scene, cfg, checkpoint_path: str | None = None,
     run. With ``cfg.max_time > 0`` the time budget takes precedence over
     ``cfg.iterations`` (smallvcm.cxx semantics) and applies to THIS
     invocation. The checkpoint is written after every iteration that ends
-    ``checkpoint_every`` or more iterations after the last one saved.
+    ``checkpoint_every`` or more iterations after the last one saved. With
+    ``cfg.group`` every rank resumes from the same file and only the
+    coordinator (rank 0) writes it: every rank holds the same image.
     """
+    from .parallel.multihost import is_coordinator
     from .render import render
 
     accum = None
@@ -101,7 +104,8 @@ def render_resumable(scene, cfg, checkpoint_path: str | None = None,
 
     def block_cb(acc, done):
         nonlocal last_saved
-        if not checkpoint_every or not checkpoint_path:
+        if not checkpoint_every or not checkpoint_path \
+                or not is_coordinator():
             return
         if done - last_saved >= checkpoint_every:
             save_checkpoint(checkpoint_path, acc, done, cfg.base_seed,

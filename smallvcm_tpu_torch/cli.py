@@ -4,12 +4,14 @@ Port of ``smallvcm_tpu/cli.py`` (ParseCommandline, config.hxx:225-388, and
 main, smallvcm.cxx:268-326): ``-s <scene> -a <alg> -t <sec> -i <iters>
 -o <name> --report``, the resolution, seed, radius and path-length flags,
 ``--rng``, ``--merge-backend``, ``--trace-backend``, ``--block``,
-``--checkpoint``/``--checkpoint-every``, and ``--device`` (default
-``cuda``). ``-t`` takes precedence over ``-i``. Asking for a CUDA device
-where there is none is an error: the renderer never falls back to the CPU
-on its own.
+``--checkpoint``/``--checkpoint-every``, ``--devices``, ``--isolate``, and
+``--device`` (default ``cuda``). ``-t`` takes precedence over ``-i``.
+Asking for a CUDA device where there is none is an error: the renderer
+never falls back to the CPU on its own.
 
     python -m smallvcm_tpu_torch.cli -s 0 -a vcm -i 8 -o out.bmp
+    python -m smallvcm_tpu_torch.cli -a vcm -i 8 --devices 4   # 4 cards
+    torchrun --nproc-per-node 4 -m smallvcm_tpu_torch.cli -a vcm -i 8
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import sys
 
 import torch
 
+from .algorithms.vcm import MERGE_BACKENDS
+from .device import resolve_device
 from .io.framebuffer import save_image
+from .parallel import multihost
 from .render import (ALGORITHM_NAMES, ALGORITHMS, TRACE_BACKENDS,
                      RenderConfig, render, resolve_algorithm)
-from .algorithms.vcm import MERGE_BACKENDS
 from .scene.scene import (GLOSSY_FLOOR, SCENE_CONFIGS, get_scene_name,
                           load_cornell_box)
 
@@ -32,17 +36,6 @@ def build_default_filename(scene_config: int, algorithm: str) -> str:
     name = "g" if (scene_config & GLOSSY_FLOOR) else ""
     _, acronym = get_scene_name(scene_config)
     return f"{name}{acronym}_{algorithm}.bmp"
-
-
-def resolve_device(name: str) -> torch.device:
-    """``--device`` -> torch.device; a CUDA request without a card raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available (pass "
-            "--device cpu to render on the CPU)"
-        )
-    return dev
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -91,6 +84,18 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--block", type=int, default=0, dest="block_size",
                    help="accepted for compatibility; no effect (the port "
                         "renders one iteration per step)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard paths over this many processes (0 = every "
+                        "local card, 1 = single device; N > 1 starts N "
+                        "ranks, one card each, NCCL; with --device cuda:K "
+                        "they share card K over gloo; with --device cpu N "
+                        "gloo ranks on the CPU, and 0 means 1). Under "
+                        "torchrun the job's ranks are used instead")
+    p.add_argument("--isolate", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="supervise the render in a child process that "
+                        "respawns from a checkpoint after a CUDA or NCCL "
+                        "runtime fault (isolate.py); auto = off")
     p.add_argument("--checkpoint", default="", dest="checkpoint",
                    help="checkpoint file; resumes from it if present")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -103,21 +108,73 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _check_devices(want: int, res, n_avail: int | None = None) -> bool:
+    """The JAX CLI's refusals (smallvcm_tpu/cli.py:159-178), printed: more
+    ranks than ``n_avail`` cards (None: not counted), or a path count the
+    ranks do not divide."""
+    if n_avail is not None and want > n_avail:
+        print(f"Requested --devices {want} but only {n_avail} available")
+        return False
+    n_pix = res[0] * res[1]
+    if want > 1 and n_pix % want != 0:
+        print(f"Resolution {res[0]}x{res[1]} ({n_pix} paths) not divisible "
+              f"by {want} devices")
+        return False
+    return True
+
+
 def main(argv=None) -> int:
-    args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = make_parser().parse_args(argv)
     if args.report:
         from .report import full_report
 
         full_report(args)
         return 0
+    # Fault isolation (opt-in), decided before anything touches the card:
+    # the supervisor never owns it.
+    if args.isolate == "on":
+        from .isolate import run_supervised
+
+        return run_supervised(argv)
     if args.scene_id < 0 or args.scene_id >= len(SCENE_CONFIGS):
         print("Invalid <sceneID> argument, please see help (-h)")
         return 1
-    device = resolve_device(args.device)
 
+    # A rank of a job (torchrun, or spawned below) joins its group here.
+    fresh = multihost.global_group() is None
+    group = multihost.initialize(device=args.device)
+    if group is None:
+        device = resolve_device(args.device)
+        # "cuda" gives each rank a card of its own; "cuda:K" and "cpu" put
+        # every rank on that device, and --devices 0 then means one.
+        n_cards = (torch.cuda.device_count() if device.type == "cuda"
+                   and device.index is None else None)
+        want = args.devices or n_cards or 1
+        if not _check_devices(want, args.resolution, n_cards):
+            return 1
+        if want > 1:
+            print(f"Devices: {want} (paths sharded over {want} ranks)")
+            rcs = multihost.spawn(want, args.device, main, argv)
+            return max(rcs)
+    else:
+        device = multihost.rank_device(args.device)
+        if not _check_devices(torch.distributed.get_world_size(),
+                              args.resolution):
+            return 1
+    try:
+        return _render_main(args, device, group)
+    finally:
+        if group is not None and fresh:
+            torch.distributed.destroy_process_group()
+
+
+def _render_main(args, device, group) -> int:
+    """Render, and on the coordinator report and save the image."""
+    say = print if multihost.is_coordinator() else (lambda *a, **k: None)
     algorithm = args.algorithm or "vcm"
     scene_config = SCENE_CONFIGS[args.scene_id]
-    scene = load_cornell_box(tuple(args.resolution), scene_config).to(device)
+    scene = load_cornell_box(tuple(args.resolution), scene_config, device)
     scene_name, _ = get_scene_name(scene_config)
     cfg = RenderConfig(
         algorithm=algorithm,
@@ -133,6 +190,7 @@ def main(argv=None) -> int:
         merge_backend=args.merge_backend,
         trace_backend=args.trace_backend,
         block_size=args.block_size,
+        group=group,
     )
 
     output = args.output_name or build_default_filename(scene_config,
@@ -140,17 +198,20 @@ def main(argv=None) -> int:
     if not (output.endswith(".bmp") or output.endswith(".hdr")):
         output += ".bmp"
 
-    print(f"Scene:   {scene_name}")
-    print(f"Device:  {device}")
+    say(f"Scene:   {scene_name}")
+    say(f"Device:  {device}" + (
+        "" if group is None else
+        f" (rank 0 of {torch.distributed.get_world_size()}, backend "
+        f"{torch.distributed.get_backend()})"))
     if cfg.max_time > 0:
-        print(f"Target:  {cfg.max_time} seconds render time")
+        say(f"Target:  {cfg.max_time} seconds render time")
     else:
-        print(f"Target:  {cfg.iterations} iteration(s)")
+        say(f"Target:  {cfg.iterations} iteration(s)")
     if resolve_algorithm(scene, algorithm) != algorithm:
-        print("Switching from PPM to BPM (scene mixes specular and "
-              "non-specular materials)")
-    print(f"Running: {ALGORITHM_NAMES[algorithm]}...",
-          end="\n" if args.verbose else " ", flush=True)
+        say("Switching from PPM to BPM (scene mixes specular and "
+            "non-specular materials)")
+    say(f"Running: {ALGORITHM_NAMES[algorithm]}...",
+        end="\n" if args.verbose else " ", flush=True)
     if args.checkpoint:
         from .checkpoint import render_resumable
 
@@ -160,10 +221,11 @@ def main(argv=None) -> int:
         )
     else:
         img, elapsed, iters, rays = render(scene, cfg, verbose=args.verbose)
-    print(f"done in {elapsed:.2f} s ({iters} iterations, {rays} rays)")
+    say(f"done in {elapsed:.2f} s ({iters} iterations, {rays} rays)")
 
-    save_image(img, output)
-    print(f"Saved:   {output}")
+    if multihost.is_coordinator():
+        save_image(img, output)
+    say(f"Saved:   {output}")
     return 0
 
 

@@ -3,7 +3,8 @@
 The renderer's "weights" are the scene tensors. ``scene_from_numpy`` takes
 a JAX ``SceneData`` whose leaves were turned into numpy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and rebuilds it as the port's
-``SceneData`` on ``device``, matching NamedTuples by class name;
+``SceneData`` on ``device`` (default the card; without one they raise,
+as ``device.resolve_device`` does), matching NamedTuples by class name;
 ``params_from_numpy`` does the same for the differentiable parameters of
 ``diff.Params``. This module imports nothing of JAX: it only reads
 attributes and arrays.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .core.vec3 import V3
+from .device import resolve_device
 from .diff import Params
 from .scene.camera import CameraData
 from .scene.scene import Lights, Materials, SceneData, SceneSphere
@@ -35,18 +37,18 @@ def _convert(node, device):
     return torch.from_numpy(np.array(node, copy=True)).to(device)
 
 
-def scene_from_numpy(tree, device="cpu") -> SceneData:
+def scene_from_numpy(tree, device="cuda") -> SceneData:
     """JAX ``SceneData`` with numpy leaves -> port ``SceneData`` on device."""
-    device = torch.device(device)
+    device = resolve_device(device)
     kw = {f.name: _convert(getattr(tree, f.name), device)
           for f in dataclasses.fields(SceneData)
           if f.name != "background_idx"}
     return SceneData(**kw, background_idx=int(tree.background_idx))
 
 
-def params_from_numpy(tree, device="cpu") -> Params:
+def params_from_numpy(tree, device="cuda") -> Params:
     """JAX ``diff.Params`` with numpy leaves -> port ``Params`` on device."""
-    params = _convert(tree, torch.device(device))
+    params = _convert(tree, resolve_device(device))
     if not isinstance(params, Params):
         raise TypeError(f"expected Params, got {type(tree).__name__}")
     return params

@@ -1,6 +1,6 @@
 """Differentiable rendering: pixel gradients w.r.t. scene parameters.
 
-Port of ``smallvcm_tpu/diff.py`` (single device): path tracing, BPT
+Port of ``smallvcm_tpu/diff.py``: path tracing, BPT
 connections and photon merging are differentiable with torch autograd
 w.r.t. material reflectances, Phong exponents, IORs and light intensities.
 
@@ -12,6 +12,8 @@ reparameterised gradients. Merging algorithms use the pair-expansion merge
 (``merge_backend="xla"``, as the JAX package's ``render_params`` does): the
 merge kernel is forward-only. On a card the closest-hit sweep is the kernel
 with its autograd backward (ops/sweep.py::_SweepKernelFn).
+:func:`sharded_loss_and_grad` takes the same step with paths sharded over a
+torch.distributed group (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .core.vec3 import V3
 from .scene.scene import Materials, SceneData
@@ -147,3 +149,68 @@ def loss_and_grad(
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(grads)
+
+
+def sharded_loss_and_grad(
+    group,
+    scene: SceneData,
+    params: Params,
+    target,
+    iteration: int,
+    algorithm: str,
+    res_x: int,
+    res_y: int,
+    n_iterations: int = 1,
+    vm_exchange: str = "allgather",
+    **kw,
+):
+    """``loss_and_grad`` with paths sharded over ``group`` -> (loss, gradient
+    Params), both replicated on every rank; every rank of the group calls
+    it with the same arguments.
+
+    Port of the JAX package's ``sharded_loss_and_grad`` (mesh -> group).
+    The forward pass is the sharded render (light vertices all-gathered or
+    ring-exchanged for merging through the pair merge, the framebuffer
+    summed over ranks); each rank differentiates the replicated loss
+    through its own paths, the collectives' backward rules carry the
+    photons' gradients to the ranks that own them (parallel/comm.py), and
+    the ranks' partial parameter gradients are summed once, here. With
+    ``n_iterations > 1`` each iteration is recomputed in the backward
+    (``torch.utils.checkpoint``) in full, never stopped early, so every
+    rank re-issues the same collectives in the same order.
+    """
+    from .parallel import comm, sharding
+    from .render import _VCM_FLAGS
+
+    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+
+    def one(i, *ls):
+        s = apply_params(scene, _unflatten(ls))
+        it = iteration * n_iterations + i
+        if algorithm in ("el", "pt"):
+            img, _ = sharding.sharded_simple_iteration(
+                group, algorithm, s, it, res_x, res_y, **kw)
+            return img
+        use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[algorithm]
+        return sharding.sharded_render_iteration(
+            group, s, it, res_x, res_y, use_vc=use_vc, use_vm=use_vm,
+            light_trace_only=lt_only, ppm=ppm, vm_exchange=vm_exchange,
+            merge_backend="xla", **kw)
+
+    img = None
+    with set_checkpoint_early_stop(False):
+        for i in range(n_iterations):
+            part = (checkpoint(one, i, *leaves, use_reentrant=False)
+                    if n_iterations > 1 else one(i, *leaves))
+            img = part if img is None else img + part
+    img = img / n_iterations
+    loss = torch.mean((img - target) ** 2)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    # One collective for every leaf: the ranks' partial gradients summed.
+    total = comm.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                group)
+    parts = total.split([g.numel() for g in grads])
+    return loss.detach(), _unflatten([t.reshape(g.shape)
+                                      for t, g in zip(parts, grads)])

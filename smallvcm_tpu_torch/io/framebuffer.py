@@ -1,10 +1,11 @@
 """Accumulation framebuffer planes + PPM/PFM/BMP/HDR writers.
 
 Port of ``smallvcm_tpu/io/framebuffer.py``. Device side, the framebuffer is
-a V3 of ``[resY, resX]`` f32 planes. The file writers are the JAX
-package's numpy writers, carried over: byte formats of the reference
-(framebuffer.hxx:106-251), i.e. PPM, binary PFM, bottom-up 24bpp BMP with
-gamma, and Radiance RGBE HDR.
+a V3 of ``[resY, resX]`` f32 planes. The file writers try the native C++
+codec first (io/native_codec.py, as the JAX writers do) and otherwise run
+the JAX package's numpy writers, carried over; both write the byte formats
+of the reference (framebuffer.hxx:106-251), i.e. PPM, binary PFM,
+bottom-up 24bpp BMP with gamma, and Radiance RGBE HDR, byte for byte alike.
 
 Determinism: every scatter-add here goes through
 :func:`deterministic_index_add`. On the CPU ``index_add_`` accumulates in
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.vec3 import V3
+from . import native_codec
 
 
 @contextlib.contextmanager
@@ -126,11 +128,22 @@ def _np(fb) -> np.ndarray:
     return np.asarray(fb, np.float32)
 
 
+def _gamma255(x: np.ndarray, gamma: float) -> np.ndarray:
+    """pow(x, 1/gamma) * 255 as native/codec.cpp computes it: 1/gamma in
+    f32, the power in f64 rounded once to f32, the product in f32 (so the
+    two writers' bytes agree; numpy's f32 power and C's powf do not)."""
+    inv_g = np.float32(1.0) / np.float32(gamma)
+    return (np.power(x.astype(np.float64), np.float64(inv_g))
+            .astype(np.float32) * np.float32(255.0))
+
+
 def save_ppm(fb, filename: str, gamma: float = 1.0) -> None:
     img = _np(fb)
+    if native_codec.save_ppm(img, filename, gamma):
+        return
     res_y, res_x, _ = img.shape
-    inv_g = 1.0 / gamma
-    quant = np.clip((img ** inv_g * 255.0).astype(np.int32), 0, 255)
+    with np.errstate(invalid="ignore"):   # negative -> NaN -> 0, as in C
+        quant = np.clip(_gamma255(img, gamma).astype(np.int32), 0, 255)
     with open(filename, "w") as f:
         f.write(f"P3\n{res_x} {res_y}\n255\n")
         for y in range(res_y):
@@ -143,6 +156,8 @@ def save_ppm(fb, filename: str, gamma: float = 1.0) -> None:
 
 def save_pfm(fb, filename: str) -> None:
     img = _np(fb)
+    if native_codec.save_pfm(img, filename):
+        return
     res_y, res_x, _ = img.shape
     with open(filename, "wb") as f:
         f.write(f"PF\n{res_x} {res_y}\n-1\n".encode())
@@ -152,8 +167,9 @@ def save_pfm(fb, filename: str) -> None:
 def save_bmp(fb, filename: str, gamma: float = 1.0) -> None:
     """24bpp bottom-up BMP, byte-identical layout to framebuffer.hxx:170-215."""
     img = _np(fb)
+    if native_codec.save_bmp(img, filename, gamma):
+        return
     res_y, res_x, _ = img.shape
-    inv_g = 1.0 / gamma
     header = struct.pack(
         "<IIIIii hh IIIIII".replace(" ", ""),
         54 + res_x * res_y * 3,  # file size
@@ -169,7 +185,7 @@ def save_bmp(fb, filename: str, gamma: float = 1.0) -> None:
         2953, 2953, 0, 0,
     )
     # bottom-up rows, BGR order
-    g = np.power(np.maximum(img, 0.0), inv_g) * 255.0
+    g = _gamma255(np.maximum(img, 0.0), gamma)
     bgr = np.clip(g[::-1, :, ::-1], 0.0, 255.0).astype(np.uint8)
     with open(filename, "wb") as f:
         f.write(b"BM")
@@ -180,6 +196,8 @@ def save_bmp(fb, filename: str, gamma: float = 1.0) -> None:
 def save_hdr(fb, filename: str) -> None:
     """Radiance RGBE (framebuffer.hxx:219-251, non-RLE scanlines)."""
     img = _np(fb)
+    if native_codec.save_hdr(img, filename):
+        return
     res_y, res_x, _ = img.shape
     v = img.max(axis=2)
     mant, exp = np.frexp(v)

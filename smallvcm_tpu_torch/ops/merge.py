@@ -200,6 +200,8 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
     probed row, rows ROWS..2*ROWS-1 one past its last (empty: lo == hi),
     in ascending photon order.
     """
+    # Query columns are this process's paths; photon columns may be every
+    # rank's (the sharded all-gather), so each side keeps its own count.
     n = queries.valid.shape[1]
     n_ph = light_verts.valid.shape[1]
     dev = queries.valid.device
@@ -430,16 +432,29 @@ def merge_post(out, qtab, q_path, vm_normalization: float,
 
 def merge_stage(scene, misc, queries, light_verts, ppm: bool,
                 max_path_length: int, min_path_length: int,
-                n_paths: int) -> V3:
-    """Vertex merging over all recorded camera queries -> color_add V3."""
+                n_paths: int, with_stats: bool = False):
+    """Vertex merging over all recorded camera queries -> color_add V3
+    [n_paths]; with ``with_stats``, ``(color_add, stats)``, stats = int64
+    [candidate pairs, live photons, live queries]. ``n_paths`` is the
+    query tables' column count; the photon table may have more columns
+    (the sharded all-gather: merge_prep derives each side's path lengths
+    and owners from its own column count)."""
+    dev = queries.valid.device
     t = merge_prep(scene, misc, queries, light_verts, n_paths)
     if t is None:
-        z = torch.zeros((n_paths,), dtype=torch.float32,
-                        device=queries.valid.device)
-        return V3(z, z, z)
+        z = torch.zeros((n_paths,), dtype=torch.float32, device=dev)
+        stats = torch.stack([light_verts.valid.sum(), queries.valid.sum()])
+        z = V3(z, z, z)
+        return (z, torch.cat([stats.new_zeros(1), stats])) if with_stats \
+            else z
     out = merge_cells(
         *t[:5], misc.radius_sqr, misc.mis_vc_weight,
         max_path_length=max_path_length, min_path_length=min_path_length,
         ppm=ppm,
     )
-    return merge_post(out, t.qtab, t.q_path, misc.vm_normalization, n_paths)
+    z = merge_post(out, t.qtab, t.q_path, misc.vm_normalization, n_paths)
+    if not with_stats:
+        return z
+    pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
+    return z, torch.stack([pairs, pairs.new_tensor(t.ptab.shape[0]),
+                           pairs.new_tensor(t.qtab.shape[0])])

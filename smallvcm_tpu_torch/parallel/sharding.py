@@ -1,0 +1,120 @@
+"""Multi-process execution: paths sharded over a torch.distributed group.
+
+Port of ``smallvcm_tpu/parallel/sharding.py``. The JAX package shards the
+path/pixel batch over a 1-D ``paths`` mesh axis with ``shard_map``; here
+the "mesh" is a ``torch.distributed`` process group whose ranks each own a
+contiguous path shard: rank r renders global path ids
+``[r * n / W, (r + 1) * n / W)`` on its own device.
+
+- camera path i and light path i share a rank (the only pairing vertex
+  connection needs, vertexcm.hxx:498-526), so connections stay local;
+- for merging, light vertices are all-gathered or passed around a ring
+  (algorithms/vcm.py::_merge, parallel/comm.py);
+- each rank splats light-tracing contributions into its own full-frame
+  image, and the images are summed over ranks (comm.framebuffer_sum);
+- the counter-based RNG keys off global path ids, so the paths are the
+  single-process paths for any rank count.
+
+Unlike the JAX package, which swaps both Pallas kernels for XLA under a
+mesh, every rank runs the port's kernels on its own card: the cell merge,
+the closest-hit sweep and the any-hit sweep.
+
+The JAX package's ``training_step_spec`` has no counterpart: every rank
+holds the whole scene, so parameters are replicated by construction, and
+diff.sharded_loss_and_grad sums the ranks' parameter gradients.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..algorithms import eyelight, pathtracer, vcm
+from . import comm
+
+
+def shard_pix(n: int, group, device) -> torch.Tensor:
+    """This rank's global path ids ``[r * n / W, (r + 1) * n / W)``."""
+    w, r = comm.world_size(group), comm.rank(group)
+    if n % w != 0:
+        raise ValueError(f"path count {n} not divisible by {w} devices")
+    m = n // w
+    return torch.arange(r * m, (r + 1) * m, dtype=torch.int64, device=device)
+
+
+def sharded_render_iteration_with_stats(
+    group,
+    scene,
+    iteration: int,
+    res_x: int,
+    res_y: int,
+    base_seed: int = 1234,
+    max_path_length: int = 10,
+    min_path_length: int = 0,
+    radius_factor: float = 0.003,
+    radius_alpha: float = 0.75,
+    use_vc: bool = True,
+    use_vm: bool = True,
+    light_trace_only: bool = False,
+    ppm: bool = False,
+    vm_exchange: str = "allgather",
+    rng_kind: str = "threefry",
+    merge_backend: str = "auto",
+):
+    """One VCM-family iteration with paths sharded over ``group`` ->
+    (image [resY, resX, 3] summed over ranks, ray_count, merge stats
+    int64 [candidate pairs, live photons, live queries]), all replicated
+    on every rank; counts are summed over ranks.
+
+    ``vm_exchange`` picks the photon exchange for merging: "allgather"
+    gives every rank the whole photon table (one collective, the
+    single-process table element for element); "ring" keeps photons
+    resident and passes them around the ranks, merging one visiting table
+    at a time. Both are exact (merging is additive over photons).
+    Differentiable in the scene's parameters."""
+    n = res_x * res_y
+    pix = shard_pix(n, group, scene.device)
+    img, rays, stats = vcm.render_iteration_core(
+        scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
+        min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
+        light_trace_only, ppm, rng_kind, merge_backend, vm_exchange, group)
+    counts = comm.all_reduce_sum(torch.cat([rays.reshape(1), stats]), group)
+    return comm.framebuffer_sum(img, group), counts[0], counts[1:]
+
+
+def sharded_render_iteration(group, scene, iteration: int, res_x: int,
+                             res_y: int, **kw) -> torch.Tensor:
+    """The image of :func:`sharded_render_iteration_with_stats` (same
+    keywords), replicated on every rank."""
+    return sharded_render_iteration_with_stats(
+        group, scene, iteration, res_x, res_y, **kw)[0]
+
+
+def sharded_simple_iteration(
+    group,
+    algorithm: str,
+    scene,
+    iteration: int,
+    res_x: int,
+    res_y: int,
+    base_seed: int = 1234,
+    max_path_length: int = 10,
+    min_path_length: int = 0,
+    rng_kind: str = "threefry",
+):
+    """One eye-light ("el") or path-tracer ("pt") iteration with pixels
+    sharded over ``group`` -> (image, ray_count), replicated. Each rank
+    renders its pixels into a full-frame image; every pixel has one owner,
+    so the sum adds exact zeros and the image equals the single-process
+    image bit for bit."""
+    n = res_x * res_y
+    pix = shard_pix(n, group, scene.device)
+    if algorithm == "el":
+        img, rays = eyelight.render_core(scene, iteration, pix, res_x, res_y,
+                                         base_seed, rng_kind)
+    elif algorithm == "pt":
+        img, rays = pathtracer.render_core(
+            scene, iteration, pix, res_x, res_y, base_seed, max_path_length,
+            min_path_length, rng_kind)
+    else:
+        raise ValueError(f"algorithm must be 'el' or 'pt', not {algorithm!r}")
+    return comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)

@@ -5,18 +5,28 @@ factory, config.hxx:112-143, and ``render()`` loop, smallvcm.cxx:52-151)
 for all seven algorithms. PyTorch runs eagerly, so one iteration is one
 unit of work: no blocks of iterations, no static merge caps (the merges
 size their compaction from the live counts) and no grow-and-retry.
+
+With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
+group runs :func:`render` with the same configuration: each renders its
+path shard (parallel/sharding.py) and holds the summed image. Under a time
+budget rank 0 decides each step and broadcasts it, so every rank runs the
+same number of iterations; only rank 0 prints.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .algorithms import eyelight, pathtracer, vcm
 from .io.framebuffer import total_luminance
+from .parallel import comm, sharding
+from .parallel.multihost import is_coordinator
 from .scene.scene import SceneData
 
 ALGORITHMS = ("el", "pt", "lt", "ppm", "bpm", "bpt", "vcm")
@@ -71,6 +81,12 @@ class RenderConfig:
     # Accepted for the JAX package's CLI and configs; has no effect: the
     # eager port renders one iteration per step.
     block_size: int = 0
+    # Photon exchange between ranks for merging: "allgather" or "ring"
+    # (parallel/sharding.py); unused by a single process.
+    vm_exchange: str = "allgather"
+    # torch.distributed process group whose ranks share the paths
+    # (parallel/multihost.py); None renders every path in this process.
+    group: object = None
 
 
 def ppm_downgrade_needed(scene: SceneData) -> bool:
@@ -109,8 +125,22 @@ def check_backends(scene: SceneData, cfg: RenderConfig) -> None:
 
 def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                      iteration: int):
-    """One iteration of the resolved algorithm -> (image, ray_count)."""
+    """One iteration of the resolved algorithm -> (image, ray_count); with
+    ``cfg.group``, this rank's shard, summed over the group's ranks."""
     res_x, res_y = cfg.resolution
+    if cfg.group is not None:
+        if alg in ("el", "pt"):
+            return sharding.sharded_simple_iteration(
+                cfg.group, alg, scene, iteration, res_x, res_y,
+                cfg.base_seed, cfg.max_path_length, cfg.min_path_length,
+                cfg.rng_kind)
+        use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
+        img, rays, _ = sharding.sharded_render_iteration_with_stats(
+            cfg.group, scene, iteration, res_x, res_y, cfg.base_seed,
+            cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
+            cfg.radius_alpha, use_vc, use_vm, lt_only, ppm, cfg.vm_exchange,
+            cfg.rng_kind, cfg.merge_backend)
+        return img, rays
     if alg == "el":
         return eyelight.render_iteration(
             scene, iteration, res_x, res_y, cfg.base_seed, cfg.rng_kind)
@@ -142,6 +172,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _maybe_inject_test_fault(done: int) -> None:
+    """Test hook for the isolate.py supervisor (tests/test_torch_isolate.py).
+
+    With SMALLVCM_TEST_FAULT_AT=k set, raises a CUDA-fault-shaped error
+    once ``done`` reaches k, at most SMALLVCM_TEST_FAULT_TIMES times across
+    processes, counted in the SMALLVCM_TEST_FAULT_COUNTER file, so a
+    supervised run faults, respawns from its checkpoint, and must still
+    produce the byte-identical image (the JAX package's hook,
+    smallvcm_tpu/render.py:496-519).
+    """
+    at = os.environ.get("SMALLVCM_TEST_FAULT_AT")
+    if not at or done < int(at):
+        return
+    times = int(os.environ.get("SMALLVCM_TEST_FAULT_TIMES", "1"))
+    path = os.environ.get("SMALLVCM_TEST_FAULT_COUNTER")
+    count = 0
+    if path and os.path.exists(path):
+        count = int(Path(path).read_text() or 0)
+    if count >= times:
+        return
+    if path:
+        Path(path).write_text(str(count + 1))
+    raise RuntimeError("CUDA error: injected test fault "
+                       "(SMALLVCM_TEST_FAULT_AT)")
+
+
 def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
            accum=None, start_iter: int = 0, block_cb=None):
     """Progressive render on the scene's device.
@@ -155,7 +211,8 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     iteration (the checkpoint hook). ``rays`` is the traced ray count of
     this call. With ``verbose``, prints one line per iteration: mean
     luminance, image mean, rays and wall time (each line waits for the
-    device, so its time is the iteration's).
+    device, so its time is the iteration's). With ``cfg.group``, every
+    rank of the group must call this with the same ``cfg``.
     """
     check_backends(scene, cfg)
     res_x, res_y = cfg.resolution
@@ -165,6 +222,10 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
              if accum is None else accum.to(dev))
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     done = start_iter
+    verbose = verbose and is_coordinator()
+    # Test-only fault injection (tests/test_torch_isolate.py), resolved once.
+    fault_hook = (_maybe_inject_test_fault
+                  if os.environ.get("SMALLVCM_TEST_FAULT_AT") else None)
 
     def step():
         nonlocal accum, rays, done
@@ -182,11 +243,21 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
                   flush=True)
         if block_cb is not None:
             block_cb(accum, done)
+        if fault_hook is not None:
+            fault_hook(done)
+
+    def in_budget() -> bool:
+        # Each rank's clock would give its own iteration count and hang
+        # the collectives: rank 0's clock decides for the group.
+        go = time.perf_counter() - start < cfg.max_time
+        if cfg.group is None:
+            return go
+        return comm.broadcast_flag(go, cfg.group)
 
     _sync(dev)
     start = time.perf_counter()
     if cfg.max_time > 0:
-        while time.perf_counter() - start < cfg.max_time:
+        while in_budget():
             step()
             _sync(dev)  # the budget is wall time of finished iterations
     else:

@@ -63,6 +63,8 @@ def _render_combo(scene_id: int, alg: str, filename: str, args):
         "--radius-factor", str(args.radius_factor),
         "--radius-alpha", str(args.radius_alpha),
         "--device", args.device,
+        # One process per combination: the report runs several at once.
+        "--devices", "1",
     ]
     if args.max_time > 0:
         cmd += ["-t", str(args.max_time)]

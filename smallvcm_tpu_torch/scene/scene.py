@@ -19,6 +19,7 @@ import torch
 
 from ..core.vec3 import V3
 from ..core.vecmath import PI_F, INV_PI_F
+from ..device import resolve_device
 from .camera import CameraData, setup_camera
 
 # Light type codes.
@@ -281,8 +282,12 @@ class _SceneBuilder:
         )
 
 
-def load_cornell_box(resolution, box_mask: int = DEFAULT_MASK) -> SceneData:
-    """Procedural Cornell-box build replicating scene.hxx:132-385."""
+def load_cornell_box(resolution, box_mask: int = DEFAULT_MASK,
+                     device="cuda") -> SceneData:
+    """Procedural Cornell-box build replicating scene.hxx:132-385, on
+    ``device`` (default the card; without one it raises, as
+    ``device.resolve_device`` does)."""
+    device = resolve_device(device)
     if (box_mask & BOTH_LARGE_SPHERES) == BOTH_LARGE_SPHERES:
         print("Cannot have both large balls, using mirror\n")
         box_mask &= ~LARGE_GLASS_SPHERE
@@ -409,7 +414,7 @@ def load_cornell_box(resolution, box_mask: int = DEFAULT_MASK) -> SceneData:
     if light_background:
         b.add_background_light(np.array([135, 206, 250]) / 255.0, 1.0)
 
-    return b.finish(camera)
+    return b.finish(camera).to(device)
 
 
 def get_scene_name(box_mask: int):

@@ -33,7 +33,7 @@ RES = (16, 16)
 
 @pytest.mark.parametrize("alg", ["pt", "vcm"])
 def test_resume_is_bitwise_exact(alg, tmp_path):
-    scene = load_cornell_box(RES, SCENE_CONFIGS[1])
+    scene = load_cornell_box(RES, SCENE_CONFIGS[1], device="cpu")
     path = str(tmp_path / "state.npz")
     full, _, iters, _ = ckpt.render_resumable(
         scene, RenderConfig(algorithm=alg, iterations=4, resolution=RES))
@@ -51,7 +51,7 @@ def test_resume_is_bitwise_exact(alg, tmp_path):
 
 
 def test_time_budget_then_resume(tmp_path):
-    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0])
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device="cpu")
     path = str(tmp_path / "t.npz")
     cfg = RenderConfig(algorithm="bpt", max_time=0.5, resolution=(8, 8))
     _, elapsed, k, _ = ckpt.render_resumable(scene, cfg, checkpoint_path=path,
@@ -68,7 +68,7 @@ def test_time_budget_then_resume(tmp_path):
 
 
 def test_mismatched_checkpoint_is_refused(tmp_path):
-    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0])
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device="cpu")
     path = str(tmp_path / "m.npz")
     ckpt.render_resumable(scene, RenderConfig(algorithm="pt", iterations=1,
                                               resolution=(8, 8)),
@@ -84,8 +84,8 @@ def test_mismatched_checkpoint_is_refused(tmp_path):
 
 
 def test_checkpoints_cross_packages(tmp_path):
-    js, ts = jload(RES, SCENE_CONFIGS[1]), load_cornell_box(RES,
-                                                            SCENE_CONFIGS[1])
+    js = jload(RES, SCENE_CONFIGS[1])
+    ts = load_cornell_box(RES, SCENE_CONFIGS[1], device="cpu")
     kw = dict(algorithm="pt", resolution=RES)
 
     # JAX writes, the port resumes.
@@ -124,11 +124,10 @@ def test_shared_cli_defaults_match_jax():
             "report", "resolution", "max_path_length", "min_path_length",
             "seed", "radius_factor", "radius_alpha", "rng_kind",
             "merge_backend", "trace_backend", "block_size", "checkpoint",
-            "checkpoint_every", "verbose"} <= shared
+            "checkpoint_every", "verbose", "devices", "isolate"} <= shared
     for k in shared:
         assert mine[k] == theirs[k], k
-    # Only the multi-device and supervisor flags wait for later slices.
-    assert set(theirs) - set(mine) == {"devices", "isolate"}
+    assert set(theirs) - set(mine) == set()
     assert set(mine) - set(theirs) == {"device"}
 
 

@@ -53,7 +53,7 @@ def _rays(seed, n, dev):
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_sweep_kernel_matches_plain(dev, config):
-    scene = load_cornell_box((8, 8), config).to(dev)
+    scene = load_cornell_box((8, 8), config, device=dev)
     org, d = _rays(config, 100_000, dev)
     before = S.sweep_kernel.launches
     dk, pk = S.sweep_kernel(scene, org, d)
@@ -77,7 +77,7 @@ def test_occluded_kernel_matches_plain(dev, config):
     broadcast over a window of 4 as connect_vertices passes it."""
     from smallvcm_tpu_torch.ops import intersect as I
 
-    scene = load_cornell_box((8, 8), config).to(dev)
+    scene = load_cornell_box((8, 8), config, device=dev)
     n = 100_000
     org, d = _rays(60 + config, n, dev)
     r = np.random.default_rng(config)
@@ -105,7 +105,7 @@ def test_occluded_kernel_matches_plain(dev, config):
 
 
 def test_sweep_dispatch_and_wrapper_checks(dev):
-    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0]).to(dev)
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device=dev)
     org, d = _rays(9, 300, dev)
     before = S.sweep_kernel.launches
     dist, prim = S.sweep(scene, V3(*(c[None].expand(2, 300) for c in org)), d)
@@ -132,7 +132,7 @@ def _merge_tables(dev, ppm):
     merge radius large enough that most queries find photons."""
     res = 64
     n = res * res
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1]).to(dev)
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device=dev)
     pix = torch.arange(n, device=dev)
     use_vc = not ppm
     misc = vcm.compute_misc(scene, 0, n, 0.02, 0.75, use_vc, True)
@@ -165,8 +165,8 @@ def test_render_on_card_matches_cpu(dev):
     res = (16, 16)
     cfg = R.RenderConfig(algorithm="vcm", iterations=2, resolution=res)
     want, _, _, want_rays = R.render(
-        load_cornell_box(res, SCENE_CONFIGS[0]), cfg)
-    scene = load_cornell_box(res, SCENE_CONFIGS[0]).to(dev)
+        load_cornell_box(res, SCENE_CONFIGS[0], device="cpu"), cfg)
+    scene = load_cornell_box(res, SCENE_CONFIGS[0], device=dev)
     got, _, _, rays = R.render(scene, cfg)
     again, _, _, _ = R.render(scene, cfg)
     assert torch.equal(got, again)
@@ -182,7 +182,7 @@ def test_sweep_autograd_matches_plain(dev):
     """The kernel's autograd Function against the plain sweep's autograd,
     on the card: distances to rtol 1e-6, ray gradients to rtol 1e-5."""
     for config in SCENE_CONFIGS:
-        scene = load_cornell_box((8, 8), config).to(dev)
+        scene = load_cornell_box((8, 8), config, device=dev)
         org, d = _rays(40 + config, 100_000, dev)
         wts = torch.rand(100_000, device=dev)
 
@@ -208,10 +208,10 @@ def test_pt_on_card_matches_cpu(dev):
     for alg in ("el", "pt"):
         cfg = R.RenderConfig(algorithm=alg, iterations=2, resolution=res)
         want, _, _, want_rays = R.render(
-            load_cornell_box(res, SCENE_CONFIGS[1]), cfg)
+            load_cornell_box(res, SCENE_CONFIGS[1], device="cpu"), cfg)
         before = S.sweep_kernel.launches
         got, _, _, rays = R.render(
-            load_cornell_box(res, SCENE_CONFIGS[1]).to(dev), cfg)
+            load_cornell_box(res, SCENE_CONFIGS[1], device=dev), cfg)
         assert S.sweep_kernel.launches > before
         assert abs(rays / want_rays - 1.0) < 1e-3
         got, want = got.cpu().numpy(), want.numpy()
@@ -245,7 +245,7 @@ def test_pair_merge_on_card_matches_cpu_and_cell_kernel(dev, span_radii):
     summation order), on a dense and on the sparse 32x32 case."""
     res = 32
     n = res * res
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device="cpu")
     misc = vcm.compute_misc(scene, 0, n, 0.05, 0.75, True, True)
     span = misc.radius * span_radii
     q = _sparse_vertices(1, 4, n, span)

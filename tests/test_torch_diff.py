@@ -46,7 +46,7 @@ def _grad_leaves(scene, params, fn):
 
 
 def test_furnace_gradient_unbiased():
-    scene = load_cornell_box((32, 32), SCENE_CONFIGS[1])
+    scene = load_cornell_box((32, 32), SCENE_CONFIGS[1], device="cpu")
     n = 1 << 17
     u = rng.uniform_slots(4242, 0, torch.arange(n), 4)
     zeros = torch.zeros(n)
@@ -85,12 +85,13 @@ def gradients_match_jax(alg, res):
     jp = jdiff.extract_params(js)
     want = jax.grad(lambda p: jnp.mean(jdiff.render_params(
         js, p, 0, alg, res, res, max_path_length=6)))(jp)
-    want = convert.params_from_numpy(jax.tree.map(np.asarray, want))
+    want = convert.params_from_numpy(jax.tree.map(np.asarray, want),
+                                     device="cpu")
 
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device="cpu")
     # The port's own parameters equal the JAX package's.
     port_params = convert.params_from_numpy(
-        jax.tree.map(np.asarray, jp))
+        jax.tree.map(np.asarray, jp), device="cpu")
     for a, b in zip(diff._leaves(diff.extract_params(scene)),
                     diff._leaves(port_params)):
         assert torch.equal(a, b)
@@ -116,7 +117,7 @@ def test_merging_gradients_nonzero_and_finite():
     (the pair-expansion merge; a merge radius large enough that most
     camera vertices find photons at 16x16)."""
     res = 16
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device="cpu")
     _, g = _grad_leaves(scene, diff.extract_params(scene),
                         lambda p: diff.render_params(
                             scene, p, 0, "bpm", res, res,
@@ -129,7 +130,7 @@ def test_merging_gradients_nonzero_and_finite():
 
 def test_light_intensity_ad_equals_fd():
     res, iters = 16, 2
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device="cpu")
     params = diff.extract_params(scene)
 
     def loss(p):
@@ -157,7 +158,7 @@ def test_sweep_backward_formula_matches_plain_autograd():
     """The kernel Function's backward differentiates winner_distance; on
     the CPU it must equal the plain sweep's autograd gradient."""
     for config in SCENE_CONFIGS:
-        scene = load_cornell_box((8, 8), config)
+        scene = load_cornell_box((8, 8), config, device="cpu")
         r = np.random.default_rng(config)
         n = 20000
         o = (np.array([[-1.2], [-1.2], [-1.2]]) + 2.4 * r.random((3, n)))
@@ -184,7 +185,7 @@ def test_sweep_backward_formula_matches_plain_autograd():
 
 def test_loss_and_grad_checkpointing_is_exact():
     res = 8
-    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device="cpu")
     params = diff.extract_params(scene)
     target = torch.full((res, res, 3), 0.2)
     for alg in ("pt", "bpm"):
@@ -213,7 +214,8 @@ def test_loss_and_grad_matches_golden(alg):
                    / "torch_golden_grad_s1_32.npz")
     c = json.loads(str(data["config"]))
     res_x, res_y = c["resolution"]
-    scene = load_cornell_box((res_x, res_y), SCENE_CONFIGS[c["scene_id"]])
+    scene = load_cornell_box((res_x, res_y), SCENE_CONFIGS[c["scene_id"]],
+                             device="cpu")
     target = torch.full((res_y, res_x, 3), c["target"])
     loss, g = diff.loss_and_grad(
         scene, diff.extract_params(scene), target, c["iteration"], alg,

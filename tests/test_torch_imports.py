@@ -36,7 +36,12 @@ def test_every_module_imports_without_jax():
             "smallvcm_tpu_torch.algorithms.pathtracer",
             "smallvcm_tpu_torch.checkpoint", "smallvcm_tpu_torch.diff",
             "smallvcm_tpu_torch.report",
-            "smallvcm_tpu_torch.io.html"} <= set(mods)
+            "smallvcm_tpu_torch.io.html", "smallvcm_tpu_torch.device",
+            "smallvcm_tpu_torch.io.native_codec",
+            "smallvcm_tpu_torch.isolate",
+            "smallvcm_tpu_torch.parallel.comm",
+            "smallvcm_tpu_torch.parallel.multihost",
+            "smallvcm_tpu_torch.parallel.sharding"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -60,6 +65,31 @@ def test_cuda_device_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["-i", "1", "--resolution", "8", "8"])
     assert cli.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_build_on_the_card_by_default():
+    """load_cornell_box, scene_from_numpy and params_from_numpy default to
+    "cuda" and, without a card, raise instead of building on the CPU."""
+    import inspect
+    from types import SimpleNamespace
+
+    from smallvcm_tpu_torch import convert
+    from smallvcm_tpu_torch.scene import scene as S
+
+    for fn in (S.load_cornell_box, convert.scene_from_numpy,
+               convert.params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    scene = S.load_cornell_box((8, 8), S.SCENE_CONFIGS[0], device="cpu")
+    assert scene.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.load_cornell_box((8, 8), S.SCENE_CONFIGS[0])
+    params = SimpleNamespace()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.scene_from_numpy(params)
 
 
 def test_kernel_sources_present_and_build_is_keyed_by_source():
@@ -95,5 +125,5 @@ def test_dense_sweep_is_never_chosen_for_a_card():
         R.check_backends(cpu, R.RenderConfig(trace_backend="mosaic"))
     with pytest.raises(ValueError, match="merge_backend"):
         R.render_single_iteration(
-            load_cornell_box((8, 8), SCENE_CONFIGS[0]),
+            load_cornell_box((8, 8), SCENE_CONFIGS[0], device="cpu"),
             R.RenderConfig(resolution=(8, 8), merge_backend="mosaic"), 0)

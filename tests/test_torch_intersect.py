@@ -36,7 +36,7 @@ def _rays(seed, n):
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_intersect_matches_jax(config):
-    js, ts = jload((8, 8), config), tload((8, 8), config)
+    js, ts = jload((8, 8), config), tload((8, 8), config, device="cpu")
     org, d = _rays(config, 4000)
     want = jint.intersect(js, jv(org), jv(d))
     got = tint.intersect(ts, tv(org), tv(d))
@@ -49,7 +49,7 @@ def test_intersect_matches_jax(config):
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS[:2])
 def test_occluded_matches_jax(config):
-    js, ts = jload((8, 8), config), tload((8, 8), config)
+    js, ts = jload((8, 8), config), tload((8, 8), config, device="cpu")
     org, d = _rays(10 + config, 4000)
     dist = np.random.default_rng(config).uniform(0.0, 3.0, 4000).astype(
         np.float32)
@@ -59,7 +59,7 @@ def test_occluded_matches_jax(config):
 
 
 def test_sweep_takes_broadcast_shapes():
-    ts = tload((8, 8), SCENE_CONFIGS[0])
+    ts = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     org, d = _rays(3, 64)
     o2 = V3(*(t(c)[None, :].expand(3, 64) for c in org))
     d2 = tv(d)
@@ -71,7 +71,7 @@ def test_sweep_takes_broadcast_shapes():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    ts = tload((8, 8), SCENE_CONFIGS[0])
+    ts = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     org, d = _rays(5, 16)
     dist, active = torch.ones(16), torch.ones(16, dtype=torch.bool)
     before = (tsweep.sweep_kernel.launches, tsweep.occluded_kernel.launches)

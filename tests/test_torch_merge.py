@@ -50,8 +50,8 @@ def _port_misc(jmisc):
 
 
 def _case(seed, span_radii=30.0):
-    js, ts = jload((RES, RES), SCENE_CONFIGS[1]), tload((RES, RES),
-                                                        SCENE_CONFIGS[1])
+    js = jload((RES, RES), SCENE_CONFIGS[1])
+    ts = tload((RES, RES), SCENE_CONFIGS[1], device="cpu")
     misc = jvcm.compute_misc(js, 0, N, 0.05, 0.75, True, True)
     kq, kp = jax.random.split(jax.random.PRNGKey(seed))
     span = float(misc.radius) * span_radii
@@ -61,7 +61,7 @@ def _case(seed, span_radii=30.0):
 
 
 def test_port_misc_matches_jax():
-    js, ts = jload((RES, RES)), tload((RES, RES))
+    js, ts = jload((RES, RES)), tload((RES, RES), device="cpu")
     for it, use_vc, use_vm in [(0, True, True), (7, False, True),
                                (123, True, False)]:
         want = jvcm.compute_misc(js, it, N, 0.003, 0.75, use_vc, use_vm)
@@ -213,7 +213,7 @@ def _range_case(name):
     x cell."""
     res = 16
     n = res * res
-    ts = tload((res, res), SCENE_CONFIGS[1])
+    ts = tload((res, res), SCENE_CONFIGS[1], device="cpu")
     misc = tvcm.compute_misc(ts, 0, n, 0.05, 0.75, True, True)
     r = misc.radius
     rng = np.random.default_rng(["random", "edge", "wide"].index(name))

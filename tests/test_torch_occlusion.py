@@ -48,7 +48,7 @@ def _shadow_rays(seed, n, active_frac=0.35):
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_occluded_masked_matches_jax(config):
-    js, ts = jload((8, 8), config), tload((8, 8), config)
+    js, ts = jload((8, 8), config), tload((8, 8), config, device="cpu")
     org, d, dist, active = _shadow_rays(20 + config, 4000)
     blocked = np.asarray(jint.occluded(js, jv(org), jv(d), dist))
     assert 0 < blocked.sum() < blocked.size
@@ -58,7 +58,7 @@ def test_occluded_masked_matches_jax(config):
 
 
 def test_inactive_lanes_are_false():
-    ts = tload((8, 8), SCENE_CONFIGS[0])
+    ts = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     org, d, dist, _ = _shadow_rays(7, 2000)
     dist[:] = 10.0  # past the walls: most rays are blocked
     blocked = tint.occluded(ts, tv(org), tv(d), t(dist))
@@ -72,7 +72,7 @@ def test_inactive_lanes_are_false():
 
 @pytest.mark.parametrize("lead", ["expanded", "unsqueezed"])
 def test_broadcast_point_matches_materialized(lead):
-    ts = tload((8, 8), SCENE_CONFIGS[1])
+    ts = tload((8, 8), SCENE_CONFIGS[1], device="cpu")
     w, n = 3, 500
     org, _, _, _ = _shadow_rays(11, n)
     _, d, dist, active = _shadow_rays(12, w * n)
@@ -108,7 +108,7 @@ def test_source_block_constants_match():
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_pack_scene_puts_every_field_at_its_offset(config):
-    ts = tload((8, 8), config)
+    ts = tload((8, 8), config, device="cpu")
     block = S.pack_scene(ts)
     data = block.data
     assert data.dtype == torch.float32 and data.device.type == "cpu"
@@ -132,7 +132,7 @@ def test_pack_scene_puts_every_field_at_its_offset(config):
 
 
 def test_scene_block_is_kept_per_scene():
-    ts = tload((8, 8), SCENE_CONFIGS[0])
+    ts = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     assert S.scene_block(ts) is S.scene_block(ts)
     # A new scene with the same geometry (the gradient path's
     # apply_params) reuses the block; new geometry packs anew.
@@ -165,7 +165,8 @@ def _grow(ts, extra_tri, extra_sph):
 @pytest.mark.parametrize("extra", [(S.MAX_TRI - 20 + 1, 0),
                                    (0, S.MAX_SPH - 2 + 1)])
 def test_wrappers_refuse_scene_above_capacity(extra):
-    ts = tload((8, 8), SCENE_CONFIGS[0])  # 20 triangles, 2 spheres
+    # 20 triangles, 2 spheres
+    ts = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     fits = _grow(ts, extra[0] - 1 if extra[0] else 0,
                  extra[1] - 1 if extra[1] else 0)
     S.pack_scene(fits)  # exactly at capacity
@@ -189,7 +190,7 @@ def test_masks_leave_images_unchanged(monkeypatch, alg):
     """Each call site's mask only skips lanes its caller discards: the
     image equals, bit for bit, the one rendered with every shadow ray
     traced (the unmasked occlusion test)."""
-    scene = tload((16, 16), SCENE_CONFIGS[0])
+    scene = tload((16, 16), SCENE_CONFIGS[0], device="cpu")
     cfg = R.RenderConfig(algorithm=alg, iterations=1, resolution=(16, 16))
     masked, _, _, rays = R.render(scene, cfg)
     unmasked = lambda s, p, d, dist, active=None: tint.occluded(s, p, d, dist)

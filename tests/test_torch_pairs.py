@@ -137,8 +137,8 @@ def test_compact_indices_matches_jax(cap):
 def _case(res, seed, span_radii):
     """test_merge_stage.py's synthetic vertices at res x res paths."""
     n = res * res
-    js, ts = jload((res, res), SCENE_CONFIGS[1]), tload((res, res),
-                                                        SCENE_CONFIGS[1])
+    js = jload((res, res), SCENE_CONFIGS[1])
+    ts = tload((res, res), SCENE_CONFIGS[1], device="cpu")
     misc = jvcm.compute_misc(js, 0, n, 0.05, 0.75, True, True)
     kq, kp = jax.random.split(jax.random.PRNGKey(seed))
     span = float(misc.radius) * span_radii
@@ -211,8 +211,9 @@ def test_render_with_pair_merge_matches_jax(alg):
     cfg = R.RenderConfig(algorithm=alg, iterations=iters,
                          resolution=(res, res), merge_backend="xla",
                          radius_factor=kw.get("radius_factor", 0.003))
-    img, _, _, _ = R.render(tload((res, res), SCENE_CONFIGS[0]), cfg)
+    scene = tload((res, res), SCENE_CONFIGS[0], device="cpu")
+    img, _, _, _ = R.render(scene, cfg)
     assert_image_close(img, want, rtol=1e-4 if use_vc else 1e-3)
     tile_cfg = R.RenderConfig(**{**cfg.__dict__, "merge_backend": "auto"})
-    tile, _, _, _ = R.render(tload((res, res), SCENE_CONFIGS[0]), tile_cfg)
+    tile, _, _, _ = R.render(scene, tile_cfg)
     assert_image_close(img, tile.numpy(), rtol=1e-4)

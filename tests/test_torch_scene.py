@@ -57,27 +57,29 @@ def _assert_same_scene(port, ref):
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_scene_leaves_equal(config):
     ref = jload((24, 16), config)
-    _assert_same_scene(tload((24, 16), config), ref)
+    _assert_same_scene(tload((24, 16), config, device="cpu"), ref)
     numpy_tree = jax.tree.map(np.asarray, ref)
     _assert_same_scene(scene_from_numpy(numpy_tree, "cpu"), ref)
     assert tscene.get_scene_name(config) == get_scene_name(config)
 
 
 def test_scene_to_device_and_default_mask():
-    s = tload((8, 8))
+    s = tload((8, 8), device="cpu")
     assert isinstance(s, SceneData)
     moved = s.to("cpu")
     _assert_same_scene(moved, jload((8, 8)))
     assert moved.device == torch.device("cpu")
     # Both large spheres requested: the builder keeps the mirror (as JAX).
     both = tscene.LARGE_MIRROR_SPHERE | tscene.LARGE_GLASS_SPHERE
-    _assert_same_scene(tload((8, 8), both | tscene.LIGHT_CEILING),
+    _assert_same_scene(tload((8, 8), both | tscene.LIGHT_CEILING,
+                             device="cpu"),
                        jload((8, 8), both | tscene.LIGHT_CEILING))
 
 
 def test_camera_rays_and_raster_match():
     res = (40, 30)
-    js, ts = jload(res, SCENE_CONFIGS[0]), tload(res, SCENE_CONFIGS[0])
+    js = jload(res, SCENE_CONFIGS[0])
+    ts = tload(res, SCENE_CONFIGS[0], device="cpu")
     r = np.random.default_rng(4)
     sx = r.uniform(0, res[0], 500).astype(np.float32)
     sy = r.uniform(0, res[1], 500).astype(np.float32)

@@ -36,7 +36,7 @@ def _bsdf_inputs(seed):
 
 
 def _setups(seed, config=SCENE_CONFIGS[0]):
-    js, ts = jload((8, 8), config), tload((8, 8), config)
+    js, ts = jload((8, 8), config), tload((8, 8), config, device="cpu")
     ray_dir, normal, gen, mat, hit, u = _bsdf_inputs(seed)
     jb = jbsdf.setup(js.materials, jv(ray_dir), jv(normal),
                      jnp.asarray(mat), jnp.asarray(hit))
@@ -71,7 +71,7 @@ def test_bsdf_sample_matches(fix_is_light):
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
 def test_lights_match(config):
-    js, ts = jload((8, 8), config), tload((8, 8), config)
+    js, ts = jload((8, 8), config), tload((8, 8), config, device="cpu")
     r = np.random.default_rng(config)
     n_l = int(js.lights.kind.shape[0])
     idx = r.integers(0, n_l, N).astype(np.int32)

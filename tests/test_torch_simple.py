@@ -38,14 +38,15 @@ def test_eyelight_matches_jax(iteration):
     jitter: both forms are held against JAX."""
     want = np.asarray(jel.render_iteration(
         jload((RES, RES), SCENE_CONFIGS[1]), iteration, RES, RES))
-    got, rays = tel.render_iteration(tload((RES, RES), SCENE_CONFIGS[1]),
-                                     iteration, RES, RES)
+    got, rays = tel.render_iteration(
+        tload((RES, RES), SCENE_CONFIGS[1], device="cpu"), iteration, RES,
+        RES)
     assert int(rays) == RES * RES
     assert_image_close(got, want)
 
 
 def test_eyelight_centre_quirk():
-    scene = tload((RES, RES), SCENE_CONFIGS[0])
+    scene = tload((RES, RES), SCENE_CONFIGS[0], device="cpu")
     it1, _ = tel.render_iteration(scene, 1, RES, RES)
     it3, _ = tel.render_iteration(scene, 3, RES, RES, base_seed=99)
     again, _ = tel.render_iteration(scene, 1, RES, RES, base_seed=99)
@@ -66,7 +67,8 @@ def test_pathtracer_matches_jax(scene_id, kw):
     want = np.asarray(jpt.render_iteration(
         jload((RES, RES), SCENE_CONFIGS[scene_id]), 0, RES, RES, **kw))
     got, rays = tpt.render_iteration(
-        tload((RES, RES), SCENE_CONFIGS[scene_id]), 0, RES, RES, **kw)
+        tload((RES, RES), SCENE_CONFIGS[scene_id], device="cpu"), 0, RES,
+        RES, **kw)
     if want.mean() == 0.0:   # nothing reaches the camera in one segment
         assert float(got.abs().max()) == 0.0
     else:
@@ -76,7 +78,7 @@ def test_pathtracer_matches_jax(scene_id, kw):
 
 def test_render_el_pt_through_render_loop():
     """render() averages el/pt iterations like the other algorithms."""
-    scene = tload((8, 8), SCENE_CONFIGS[1])
+    scene = tload((8, 8), SCENE_CONFIGS[1], device="cpu")
     for alg in ("el", "pt"):
         cfg = R.RenderConfig(algorithm=alg, iterations=3, resolution=(8, 8))
         img, _, done, rays = R.render(scene, cfg)
@@ -99,5 +101,6 @@ def test_matches_golden_image(alg):
         base_seed=c["base_seed"], max_path_length=c["max_path_length"],
         min_path_length=c["min_path_length"],
     )
-    img, _, _, _ = R.render(tload(res, SCENE_CONFIGS[c["scene_id"]]), cfg)
+    img, _, _, _ = R.render(
+        tload(res, SCENE_CONFIGS[c["scene_id"]], device="cpu"), cfg)
     assert_image_close(img, data["image"])

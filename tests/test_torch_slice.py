@@ -65,7 +65,8 @@ def test_vcm_render_matches_jax(unroll, max_path_length):
     cfg = R.RenderConfig(algorithm="vcm", iterations=iters,
                          resolution=(res, res),
                          max_path_length=max_path_length)
-    img, _, done, rays = R.render(tload((res, res), SCENE_CONFIGS[0]), cfg)
+    img, _, done, rays = R.render(
+        tload((res, res), SCENE_CONFIGS[0], device="cpu"), cfg)
     assert done == iters
     assert abs(rays / want_rays - 1.0) < 1e-3
     assert_image_close(img, want)
@@ -88,8 +89,8 @@ def test_vcm_family_iteration_matches_jax(flags):
     kw = dict(use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only,
               ppm=ppm, radius_factor=0.05)
     want, _ = _jax_render(res, 1, "off", **kw)
-    got, _ = tvcm.render_iteration(tload((res, res), SCENE_CONFIGS[0]), 0,
-                                   res, res, **kw)
+    got, _ = tvcm.render_iteration(
+        tload((res, res), SCENE_CONFIGS[0], device="cpu"), 0, res, res, **kw)
     assert_image_close(got, want, rtol=1e-3)
 
 
@@ -105,15 +106,17 @@ def test_vcm_matches_golden_image():
         min_path_length=c["min_path_length"],
         radius_factor=c["radius_factor"], radius_alpha=c["radius_alpha"],
     )
-    img, _, _, _ = R.render(tload(res, SCENE_CONFIGS[c["scene_id"]]), cfg)
+    img, _, _, _ = R.render(
+        tload(res, SCENE_CONFIGS[c["scene_id"]], device="cpu"), cfg)
     assert_image_close(img, data["image"])
 
 
 def test_render_time_budget_and_ppm_downgrade():
     for config in SCENE_CONFIGS:
-        assert R.resolve_algorithm(tload((8, 8), config), "ppm") == \
+        assert R.resolve_algorithm(tload((8, 8), config, device="cpu"),
+                                   "ppm") == \
             JR.resolve_algorithm(jload((8, 8), config), "ppm")
-    scene = tload((8, 8), SCENE_CONFIGS[0])
+    scene = tload((8, 8), SCENE_CONFIGS[0], device="cpu")
     cfg = R.RenderConfig(iterations=50, max_time=0.3, resolution=(8, 8))
     img, elapsed, done, rays = R.render(scene, cfg)
     assert 1 <= done < 50 and elapsed >= 0.3 and rays > 0
