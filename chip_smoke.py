@@ -53,7 +53,14 @@ Phases (each one raises on failure; nothing is caught):
     cards are visible, ``--devices 2`` (NCCL) against ``--devices 1``;
     the native codec's bytes against the numpy writers' for the VCM
     image; ``--isolate on`` with one injected fault gives the BMP bytes of
-    an uninterrupted run.
+    an uninterrupted run;
+14. the matrix: all 4 scenes x 7 algorithms at 32x32, 2 iterations, with
+    the kernels, against the JAX images in
+    tests/data/torch_golden_matrix_32.npz under the criterion of
+    tests/test_torch_matrix.py, and the nine merging pairs of scenes 1-3
+    again through the pair merge; one line a pair (pixels, max |err|, mean,
+    launches); the golden images through ``save_hdr`` -> ``load_hdr``
+    within half an RGBE quantum.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -1154,6 +1161,86 @@ def check_sharded(torch, dev, rank_device: str = "cuda:0"):
     return launches
 
 
+def _matrix_pair(torch, dev, data, scene_id: int, alg: str, backend: str):
+    """One pair of the matrix golden rendered on ``dev`` -> (passed, summary
+    line, launches, seconds)."""
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+    from tests.test_torch_matrix import (golden_pair, matrix_verdict,
+                                         render_config)
+
+    want, c = golden_pair(data, scene_id, alg)
+    scene = load_cornell_box(tuple(c["resolution"]), SCENE_CONFIGS[scene_id],
+                             device=dev)
+    if R.resolve_algorithm(scene, alg) != c["resolved"]:
+        raise AssertionError(f"matrix s{scene_id} {alg}: resolved "
+                             f"differently from the golden")
+    reset_counts(M, S)
+    t0 = time.perf_counter()
+    img, _, _, _ = R.render(scene, render_config(c, merge_backend=backend))
+    img = img.cpu()
+    secs = time.perf_counter() - t0
+    ok, summary = matrix_verdict(img.numpy(), want, scene_id, alg)
+    return ok, summary, read_counts(M, S), secs
+
+
+def check_matrix(torch, dev) -> dict:
+    """Phase 14: all 4 scenes x 7 algorithms at 32x32 x2 on the card with
+    the kernels, held against the JAX matrix golden under
+    tests/test_torch_matrix.py's criterion; the nine merging pairs of
+    scenes 1-3 again through the pair merge; the JAX images through
+    save_hdr -> load_hdr -> launches summed over the phase's renders."""
+    import numpy as np
+
+    from smallvcm_tpu_torch.io.framebuffer import load_hdr, save_hdr
+    from tests.test_torch_matrix import MATRIX_GOLDEN, PAIRS
+
+    data = np.load(MATRIX_GOLDEN)
+    merging = ("ppm", "bpm", "vcm")
+    runs = [(s, a, "auto") for s, a in PAIRS] + \
+        [(s, a, "xla") for s, a in PAIRS if s > 0 and a in merging]
+    totals = {"matrix": {}, "matrix_xla": {}}
+    failed = []
+    for scene_id, alg, backend in runs:
+        ok, summary, n, secs = _matrix_pair(torch, dev, data, scene_id, alg,
+                                            backend)
+        cells = backend == "auto" and alg in merging
+        occl = alg in ("pt", "lt", "bpt", "vcm")
+        if n["intersect_sweep"] <= 0 or (n["merge_cells"] > 0) != cells \
+                or (n["occluded_sweep"] > 0) != occl:
+            raise AssertionError(f"matrix s{scene_id} {alg} {backend}: "
+                                 f"launches {n}")
+        path = totals["matrix" if backend == "auto" else "matrix_xla"]
+        for k, v in n.items():
+            path[k] = path.get(k, 0) + v
+        log(f"[matrix] s{scene_id} {alg:3s} {backend:4s}: {summary}; "
+            f"launches {n}; {secs:.2f} s {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"s{scene_id} {alg} {backend}")
+    if failed:
+        raise AssertionError(f"matrix: pairs disagree with the JAX golden: "
+                             f"{failed}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in (k for k in data.files if not k.endswith("_config")):
+            img = data[key]
+            save_hdr(img, f"{tmp}/g.hdr")
+            back = load_hdr(f"{tmp}/g.hdr")
+            _, e = np.frexp(img.max(axis=2))
+            half = np.ldexp(0.5, e - 8)[..., None]
+            stored = img.max(axis=2, keepdims=True) >= 1e-32
+            if back.dtype != np.float32 or not np.all(np.where(
+                    stored, np.abs(back - img) <= half, back == 0.0)):
+                raise AssertionError(f"load_hdr(save_hdr({key})) is not "
+                                     "within half an RGBE quantum")
+    log(f"[matrix] {len(PAIRS)} pairs with the kernels and "
+        f"{len(runs) - len(PAIRS)} through the pair merge agree with the JAX "
+        f"golden; launches {totals}; load_hdr(save_hdr(golden)) within half "
+        f"an RGBE quantum for all {len(PAIRS)} golden images")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1215,6 +1302,8 @@ def main() -> int:
     phase_done("phase 12 (report)")
     sharded = check_sharded(torch, dev)
     phase_done("phase 13 (sharding, codec, supervisor)")
+    matrix = check_matrix(torch, dev)
+    phase_done("phase 14 (matrix)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -1226,6 +1315,7 @@ def main() -> int:
         **{f"grad_{alg}": r["launches"][name] for alg, r in grads.items()},
         **{path: [n[name] for n in by_rank]
            for path, by_rank in sharded.items()},
+        **{path: n[name] for path, n in matrix.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

@@ -9,16 +9,23 @@ Renders with the JAX package on the CPU and writes, under ``tests/data/``:
   light and path tracing, same scene, size and iterations;
 * ``torch_golden_grad_s1_32.npz``: ``diff.loss_and_grad`` of pt and bpm on
   scene 1 at 32x32 (one iteration, max path length 6, target 0.2
-  everywhere, generous merge caps), every parameter leaf's gradient.
+  everywhere, generous merge caps), every parameter leaf's gradient;
+* ``torch_golden_matrix_32.npz``: every scene of ``SCENE_CONFIGS`` times
+  every algorithm of ``ALGORITHMS`` (32x32, 2 iterations, seed 1234, the
+  CLI's defaults) through ``smallvcm_tpu.render.render``, so the merge is
+  JAX's XLA merge and ppm is resolved as the CLI resolves it; arrays
+  ``s{scene}_{alg}`` and JSON configs ``s{scene}_{alg}_config``.
 
-Each file holds its config as JSON. ``tests/test_torch_slice.py`` and
-``tests/test_torch_simple.py`` check the port against the images on the
-CPU, and ``chip_smoke.py`` checks images and gradients on the GPU; neither
-needs JAX for that.
+Each file holds its config as JSON. ``tests/test_torch_slice.py``,
+``tests/test_torch_simple.py`` and ``tests/test_torch_matrix.py`` check
+the port against the images on the CPU, and ``chip_smoke.py`` checks
+images and gradients on the GPU; neither needs JAX for that.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [vcm] [el] [pt] [grad]
+    JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [vcm] [el] [pt] \
+        [grad] [matrix]
 
-With names, only those files are rewritten (default: all four).
+With names, only those files are rewritten (default: all five; the matrix
+takes about three minutes).
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ def golden_path(algorithm: str) -> Path:
 
 
 GRAD_GOLDEN = DATA / "torch_golden_grad_s1_32.npz"
+MATRIX_GOLDEN = DATA / "torch_golden_matrix_32.npz"
+MATRIX_CONFIG = dict(resolution=[32, 32], iterations=2, base_seed=1234)
 
 
 def _save(path: Path, **arrays) -> None:
@@ -62,7 +71,7 @@ def _save(path: Path, **arrays) -> None:
 
 def main(argv=None) -> int:
     which = set(sys.argv[1:] if argv is None else argv) or {
-        "vcm", "el", "pt", "grad"}
+        "vcm", "el", "pt", "grad", "matrix"}
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(ROOT))
     import jax
@@ -106,6 +115,8 @@ def main(argv=None) -> int:
         image = (acc / c["iterations"]).astype(np.float32)
         _save(golden_path(alg), image=image, config=json.dumps(cfg))
 
+    if "matrix" in which:
+        _save(MATRIX_GOLDEN, **_render_matrix())
     if "grad" not in which:
         return 0
     g = GRAD_CONFIG
@@ -132,6 +143,37 @@ def main(argv=None) -> int:
             [np.asarray(x, np.float32).ravel() for x in leaves])
     _save(GRAD_GOLDEN, **out)
     return 0
+
+
+def _render_matrix() -> dict:
+    """Every (scene, algorithm) pair at MATRIX_CONFIG through the JAX
+    package's ``render`` with its default RenderConfig otherwise."""
+    from smallvcm_tpu.render import (ALGORITHMS, RenderConfig, render,
+                                     resolve_algorithm)
+    from smallvcm_tpu.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    m = MATRIX_CONFIG
+    res = tuple(m["resolution"])
+    out = {}
+    for scene_id, config in enumerate(SCENE_CONFIGS):
+        scene = load_cornell_box(res, config)
+        for alg in ALGORITHMS:
+            cfg = RenderConfig(algorithm=alg, iterations=m["iterations"],
+                               resolution=res, base_seed=m["base_seed"])
+            image, _, done = render(scene, cfg)
+            if done != m["iterations"]:
+                raise RuntimeError(f"s{scene_id} {alg}: {done} iterations")
+            key = f"s{scene_id}_{alg}"
+            out[key] = np.asarray(image, np.float32)
+            out[key + "_config"] = json.dumps(dict(
+                m, scene_id=scene_id, algorithm=alg,
+                resolved=resolve_algorithm(scene, alg),
+                max_path_length=cfg.max_path_length,
+                min_path_length=cfg.min_path_length,
+                radius_factor=cfg.radius_factor,
+                radius_alpha=cfg.radius_alpha))
+            print(f"{key}: mean {out[key].mean():.6f}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

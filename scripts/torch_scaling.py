@@ -1,0 +1,279 @@
+#!/usr/bin/env python3
+"""Scaling of the PyTorch/CUDA port over cards: 1 -> W ranks, VCM, scene 0.
+
+The counterpart of ``scripts/scaling_bench.py`` (strong scaling) and of
+``scripts/render_2048_mesh.py`` (the sharded-memory regime) for
+``smallvcm_tpu_torch``. Imports nothing of JAX or of the JAX package.
+
+Strong scaling (the default): VCM, scene 0, 512x512, on 1, 2 and 4 ranks,
+one card a rank (NCCL, ``parallel/multihost.spawn``), with the all-gather
+and with the ring photon exchange. One rank renders in this process; a
+rank count above the visible cards is skipped, and said so. Each rank
+renders one warm iteration, then ``--iters`` timed ones (default 5), each
+ended by a device synchronise. Printed: each rank's ms/iteration (median,
+min, max), the exchange's wall ms a call (the packed light-vertex table
+``[17, 9, paths of one rank]`` exchanged alone, 5 calls) and its bytes a
+rank an iteration, the efficiency t_1 / (W t_W) of the median rank times,
+and the image's max |err| against one rank's.
+
+The sharded-memory regime: ``--res 2048 --exchange ring`` renders 2
+iterations (no warm one) on every visible card, ``--res 2048 --ranks 1``
+in one process; each rank's ``torch.cuda.max_memory_allocated``, the image
+mean against the JAX package's record (artifacts/mesh2048_summary.json:
+8 virtual devices, ring, 2 iterations, same seed) and the per-shard
+account that ``render_2048_mesh.py`` printed, next to the port's own table
+sizes. A run that does not fit its card prints the out-of-memory message.
+Every run also prints the cell merge's candidate pairs a path an iteration
+(the JAX package's pair merge caps them at ``pair_factor`` = 24 a path, a
+ring hop's cap on the paths of one shard).
+
+    python scripts/torch_scaling.py [--ranks 1 2 4] [--exchange allgather
+        ring] [--iters 5] [--res 512] [--device cuda]
+    python scripts/torch_scaling.py --res 2048 --exchange ring
+    python scripts/torch_scaling.py --res 2048 --ranks 1
+
+``--device cpu`` runs gloo ranks on the CPU (a rehearsal: no device
+numbers). The last line is a JSON object with every number printed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+MESH_2048 = ROOT / "artifacts" / "mesh2048_summary.json"
+MEMORY_RES = 2048      # at this size: 2 iterations, no warm one, memory
+VERTEX_ROWS = 17       # the packed light-vertex table (vcm.pack_vertices)
+MAX_L = 9              # light vertex slots at max path length 10
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _exchange_ms(torch, comm, group, dev, n_rank: int, exchange: str):
+    """Wall ms of one exchange call on the iteration's table, 5 calls."""
+    table = torch.rand((VERTEX_ROWS, MAX_L, n_rank), device=dev)
+    call = (lambda: comm.all_gather_columns(table, group)) \
+        if exchange == "allgather" else (lambda: comm.ring_shift(table,
+                                                                 group))
+    call()
+    times = []
+    for _ in range(5):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        call()
+        _sync(torch, dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _iteration(torch, scene, res: int, it: int, exchange: str, group):
+    """One VCM iteration of the whole frame (summed over the group's
+    ranks) -> (image, merge stats [candidate pairs, photons, queries])."""
+    from smallvcm_tpu_torch.algorithms import vcm
+    from smallvcm_tpu_torch.parallel import sharding
+
+    if group is None:
+        pix = torch.arange(res * res, device=scene.device)
+        img, _, stats = vcm.render_iteration_core(scene, it, pix, res, res,
+                                                  res * res)
+    else:
+        img, _, stats = sharding.sharded_render_iteration_with_stats(
+            group, scene, it, res, res, vm_exchange=exchange)
+    return img, stats
+
+
+def rank_run(device: str, res: int, iters: int, exchange: str,
+             warm: bool) -> dict:
+    """One rank's share (or the single process): render, time, measure."""
+    import torch
+
+    from smallvcm_tpu_torch.parallel import comm, multihost
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    group = multihost.global_group()
+    dev = multihost.rank_device(device)
+    w = 1 if group is None else comm.world_size(group)
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
+    out = dict(device=str(dev), world=w,
+               backend=None if group is None else
+               str(torch.distributed.get_backend(group)))
+    it = 0
+    if warm:
+        _iteration(torch, scene, res, it, exchange, group)
+        it += 1
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    comm.all_gather_columns.bytes = comm.ring_shift.bytes = 0
+    acc, ms, pairs = None, [], 0
+    try:
+        for k in range(iters):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            img, stats = _iteration(torch, scene, res, it + k, exchange,
+                                    group)
+            _sync(torch, dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            acc = img if acc is None else acc + img
+            pairs += int(stats[0])
+    except torch.cuda.OutOfMemoryError as e:
+        out["out_of_memory"] = str(e).splitlines()[0]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        return out
+    out.update(
+        ms=ms, image=(acc / iters).cpu(),
+        pairs_per_path=pairs / (iters * res * res),
+        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else None),
+        exchange_bytes=(comm.all_gather_columns.bytes
+                        + comm.ring_shift.bytes) // iters)
+    if group is not None:
+        out["exchange_ms"] = _exchange_ms(torch, comm, group, dev,
+                                          res * res // w, exchange)
+    return out
+
+
+def run(w: int, device: str, res: int, iters: int, exchange: str,
+        warm: bool) -> list:
+    """The ranks' results of one configuration, in rank order."""
+    from smallvcm_tpu_torch.parallel import multihost
+
+    if w == 1:
+        return [rank_run(device, res, iters, exchange, warm)]
+    return multihost.spawn(w, device, rank_run, device, res, iters,
+                           exchange, warm)
+
+
+def account(res: int, w: int) -> dict:
+    """Per-shard sizes: render_2048_mesh.py's formulas (the JAX package's
+    layout), then the port's packed light-vertex table and its camera
+    queries [17, max path length, paths of one rank] in f32."""
+    n_shard = res * res // w
+    gb = lambda words: round(4 * words / 1e9, 3)
+    return dict(
+        paths_total=res * res, paths_per_shard=n_shard,
+        stored_vertices_GB=gb(2 * 16 * 10 * n_shard),
+        connection_broadcast_GB=gb((10 - 2) * n_shard * 24),
+        photon_table_GB=gb(3.0 * n_shard * 16),
+        port_vertex_table_GB=gb(VERTEX_ROWS * MAX_L * n_shard),
+        port_query_table_GB=gb(VERTEX_ROWS * (MAX_L + 1) * n_shard))
+
+
+def summarize(ranks: list) -> dict:
+    med = [statistics.median(r["ms"]) for r in ranks]
+    return dict(
+        rank_ms_median=med,
+        rank_ms_min=[min(r["ms"]) for r in ranks],
+        rank_ms_max=[max(r["ms"]) for r in ranks],
+        ms=max(med),   # the job waits for its slowest rank
+        exchange_ms=ranks[0].get("exchange_ms"),
+        exchange_bytes=ranks[0]["exchange_bytes"],
+        pairs_per_path=ranks[0]["pairs_per_path"],
+        peak_GiB=[None if r["peak_bytes"] is None
+                  else round(r["peak_bytes"] / 2 ** 30, 3) for r in ranks],
+        backend=ranks[0]["backend"])
+
+
+def card_line() -> str:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return "; ".join(out.stdout.strip().splitlines())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ranks", type=int, nargs="+", default=None,
+                    help="rank counts (default 1 2 4; at 2048: every card)")
+    ap.add_argument("--exchange", nargs="+", default=["allgather", "ring"],
+                    choices=["allgather", "ring"])
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from smallvcm_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    memory = args.res >= MEMORY_RES
+    if dev.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        print(f"[card] {card_line()} ({n_cards} visible)", flush=True)
+    else:
+        n_cards = None
+        print("[card] cpu: gloo ranks, no device numbers", flush=True)
+    ranks = args.ranks or ([n_cards or 1] if memory else [1, 2, 4])
+    iters, warm = (2, False) if memory else (args.iters, True)
+    result = dict(res=args.res, iterations=iters, warm_iteration=warm,
+                  device=dev.type, runs=[])
+    base = None
+    for w in ranks:
+        if n_cards is not None and w > n_cards:
+            print(f"[skip] {w} ranks: only {n_cards} card(s) visible",
+                  flush=True)
+            continue
+        for exchange in (args.exchange if w > 1 else args.exchange[:1]):
+            t0 = time.perf_counter()
+            out = run(w, args.device, args.res, iters, exchange, warm)
+            row = dict(ranks=w, exchange=exchange if w > 1 else None,
+                       wall_s=round(time.perf_counter() - t0, 1),
+                       account=account(args.res, w))
+            if any("out_of_memory" in r for r in out):
+                row["out_of_memory"] = [r.get("out_of_memory") for r in out]
+                row["peak_GiB"] = [round(r["peak_bytes"] / 2 ** 30, 3)
+                                   for r in out]
+                print(f"[oom] {w} rank(s) at {args.res}x{args.res}: "
+                      f"{row['out_of_memory']}", flush=True)
+                result["runs"].append(row)
+                continue
+            row.update(summarize(out))
+            img = out[0]["image"]
+            row["mean"] = float(img.mean())
+            if w == 1:
+                base = img
+                result["t1_ms"] = row["ms"]
+            elif base is not None:
+                row["max_abs_err_vs_1"] = float((img - base).abs().max())
+            if "t1_ms" in result:
+                row["efficiency"] = result["t1_ms"] / (w * row["ms"])
+            if memory:
+                ref = json.loads(MESH_2048.read_text())["mean"]
+                row["jax_mean"] = ref
+                row["mean_rel_vs_jax"] = row["mean"] / ref - 1.0
+            result["runs"].append(row)
+            print(f"[{w} rank(s){', ' + exchange if w > 1 else ''}] "
+                  f"{args.res}x{args.res}: ms/iteration by rank (median) "
+                  f"{[round(x, 1) for x in row['rank_ms_median']]}, spread "
+                  f"{[round(x, 1) for x in row['rank_ms_min']]}.."
+                  f"{[round(x, 1) for x in row['rank_ms_max']]}; exchange "
+                  f"{row['exchange_bytes']} B a rank an iteration, "
+                  f"{row['exchange_ms']} ms a call; candidate pairs "
+                  f"{row['pairs_per_path']:.2f} a path; efficiency "
+                  f"{row.get('efficiency')}; peak GiB {row['peak_GiB']}; "
+                  f"mean {row['mean']:.6f}"
+                  + (f" vs JAX {row['jax_mean']:.6f} "
+                     f"({100 * row['mean_rel_vs_jax']:+.3f}%)"
+                     if memory else "")
+                  + (f"; max |err| vs 1 rank {row['max_abs_err_vs_1']:.3g}"
+                     if "max_abs_err_vs_1" in row else "")
+                  + f"; {row['wall_s']} s", flush=True)
+            print(f"  account: {row['account']}", flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

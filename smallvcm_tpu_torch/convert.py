@@ -6,8 +6,10 @@ a JAX ``SceneData`` whose leaves were turned into numpy arrays (for example
 ``SceneData`` on ``device`` (default the card; without one they raise,
 as ``device.resolve_device`` does), matching NamedTuples by class name;
 ``params_from_numpy`` does the same for the differentiable parameters of
-``diff.Params``. This module imports nothing of JAX: it only reads
-attributes and arrays.
+``diff.Params``, and ``light_state_from_numpy`` for a VCM light
+sub-path state (``SubPathState``), so that a light stage can start from
+the JAX package's emitted samples. This module imports nothing of JAX: it
+only reads attributes and arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .algorithms.vcm import SubPathState
 from .core.vec3 import V3
 from .device import resolve_device
 from .diff import Params
@@ -25,7 +28,7 @@ from .scene.scene import Lights, Materials, SceneData, SceneSphere
 
 _NAMED = {cls.__name__: cls
           for cls in (V3, Materials, Lights, SceneSphere, CameraData,
-                      Params)}
+                      Params, SubPathState)}
 
 
 def _convert(node, device):
@@ -52,3 +55,11 @@ def params_from_numpy(tree, device="cuda") -> Params:
     if not isinstance(params, Params):
         raise TypeError(f"expected Params, got {type(tree).__name__}")
     return params
+
+
+def light_state_from_numpy(tree, device="cuda") -> SubPathState:
+    """JAX ``vcm.SubPathState`` with numpy leaves -> the port's, on device."""
+    state = _convert(tree, resolve_device(device))
+    if not isinstance(state, SubPathState):
+        raise TypeError(f"expected SubPathState, got {type(tree).__name__}")
+    return state

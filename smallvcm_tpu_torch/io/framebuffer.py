@@ -227,6 +227,30 @@ def save_image(fb, filename: str) -> None:
         save_bmp(fb, filename + ".bmp", gamma=2.2)
 
 
+def load_hdr(filename: str) -> np.ndarray:
+    """Read a flat (non-RLE) Radiance RGBE file as written by save_hdr or the
+    reference -> float32 [resY, resX, 3]."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    # The header ends at the blank line; the resolution line follows.
+    pos = data.find(b"\n\n") + 2
+    eol = data.find(b"\n", pos)
+    parts = data[pos:eol].decode().split()
+    if pos < 2 or len(parts) != 4 or parts[0] != "-Y" or parts[2] != "+X":
+        raise ValueError(f"{filename}: not a flat -Y/+X RGBE file")
+    res_y, res_x = int(parts[1]), int(parts[3])
+    rgbe = np.frombuffer(
+        data, np.uint8, count=res_y * res_x * 4, offset=eol + 1
+    ).reshape(res_y, res_x, 4).astype(np.float32)
+    exp = np.ldexp(1.0, rgbe[..., 3].astype(np.int32) - 136)  # 2^(e-128)/256
+    # Radiance's (r + 0.5) * 2^(e-136): the encoder truncates mantissas, so
+    # the half quantum makes the decode unbiased. Without it a decoded image
+    # reads ~0.2-0.5% darker than the one rendered (PARITY.md, energy audit).
+    img = ((rgbe[..., :3] + 0.5) * exp[..., None]).astype(np.float32)
+    img[rgbe[..., 3] == 0] = 0.0
+    return img
+
+
 def load_bmp(filename: str) -> np.ndarray:
     """Read a 24bpp BMP written by either renderer -> float [resY,resX,3] in [0,1]."""
     with open(filename, "rb") as f:

@@ -127,3 +127,34 @@ def test_dense_sweep_is_never_chosen_for_a_card():
         R.render_single_iteration(
             load_cornell_box((8, 8), SCENE_CONFIGS[0], device="cpu"),
             R.RenderConfig(resolution=(8, 8), merge_backend="mosaic"), 0)
+
+
+def test_port_scripts_import_without_jax():
+    """The card's machine has no JAX: the parity and scaling scripts, the
+    smoke test and the matrix criterion it reads import none of it, nor
+    anything of the JAX package."""
+    code = (
+        "import contextlib, importlib, importlib.util, io, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "for name in ('torch_parity', 'torch_scaling'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'scripts/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        try:\n"
+        "            mod.main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, e.code\n"
+        "importlib.import_module('chip_smoke')\n"
+        "importlib.import_module('tests.test_torch_matrix')\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', "
+        "'smallvcm_tpu') or k.startswith(('jax.', 'jaxlib', "
+        "'smallvcm_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
