@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Benchmark of the PyTorch/CUDA port: rays/sec/chip (+ full-suite mode).
+
+The counterpart of ``bench.py`` for ``smallvcm_tpu_torch``; imports torch,
+numpy and the port, nothing of JAX or of the JAX package. Default: VCM on
+scene 0 at 512x512 on one card, in this process, through
+``smallvcm_tpu_torch.render.render``, and ONE JSON line on stdout:
+
+  {"metric": "rays/sec/chip (VCM, scene 0, 512x512)", "value": N,
+   "unit": "rays/s", "vs_baseline": N, "impl": "smallvcm_tpu_torch",
+   "device": "<card>", "ms_per_iter": ..., ...}
+
+Everything else goes to stderr, the card's name and power limit first.
+
+Timing. The first iteration (index 0) pays for the kernels' build and
+module load and is reported on its own (``first_iter_s``). Then single
+iterations run until two in a row agree within 30%, at most ``--warmup``
+of them. Then ``--repeats`` calls of ``render()`` with ``--iters``
+iterations each, the iteration index and the accumulator carried from one
+call to the next; each call's own ``elapsed`` (synchronised at both ends)
+over its iterations is one sample. Reported: the median ms/iteration and
+its spread (min, max, repeats). The eager port renders one iteration a
+step, so there is no block of iterations.
+
+Counts, from the iteration with index 1 (bench.py's ``start_iteration=1``):
+``rays_per_iter`` is ``render()``'s ray count, path segments plus enabled
+shadow/connection rays (bench.py:16-20); ``candidate_pairs_pair_merge`` is
+the pair merge's candidate count (``render_iteration_core(...,
+merge_backend="xla")``'s ``stats[0]``, the figure bench.py reads from the
+JAX package's XLA merge); ``candidate_pairs_cell_merge`` is the default
+cell merge's, the candidates its kernel walks.
+
+Profile, on a card, after every timing of the run (a process that has
+been profiled launches more slowly afterwards; PERF.md, PR 7): one
+iteration (index 1) under ``torch.profiler`` (CPU
+and CUDA), with ``record_function`` ranges put around the light stage
+(``vcm.trace_light_paths``), the camera stage (``vcm._camera_stage``) and
+the merge (``vcm._merge``) for the length of that call, and one around
+the whole ``render()``. Kernel launches are the CUDA events other than
+Memcpy and Memset (as chip_smoke.py counts them); each goes to the stage
+whose range was open when the CPU called the CUDA API to launch it;
+``rest`` is the iteration outside the three stages (the framebuffer sums).
+A kernel the profiler gives no launch time inside a range is counted as
+``unattributed`` and said on stderr.
+``busy_share`` is the profiled device ms over the unprofiled median
+ms/iteration. On ``--device cpu`` every device field is null.
+
+``--full`` times all seven algorithms in this process, one after the
+other, and appends one record to BENCH_TORCH_HISTORY.jsonl (or
+``--history``); ``--alg A`` times A (and VCM, for the metric) and appends
+the same way. The JSON line is always VCM's.
+
+    python bench_torch.py                       # on the card
+    python bench_torch.py --full
+    python bench_torch.py --device cpu --res 16 --iters 1 --repeats 2 \\
+        --warmup 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+REFERENCE_VCM_SCENE0_SECONDS = 1.6  # BASELINE.md, the reference binary
+
+# The reference binary's CPU seconds/iteration (BASELINE.md table), scene 0,
+# 512x512, for the per-algorithm vs_ref_cpu columns.
+REFERENCE_SECONDS = {
+    "el": 0.07, "pt": 0.60, "lt": 0.32, "ppm": 0.52, "bpm": 1.17,
+    "bpt": 1.11, "vcm": 1.60,
+}
+
+SCENE_ID = 0
+COUNT_ITERATION = 1
+SETTLE = 0.3                  # two warm-up iterations within 30% = settled
+HISTORY = ROOT / "BENCH_TORCH_HISTORY.jsonl"
+RANGE = "bench::"
+# (label, function of algorithms/vcm.py) for the profiled stage split.
+STAGES = (("light", "trace_light_paths"), ("camera", "_camera_stage"),
+          ("merge", "_merge"))
+# Wrapper counter name -> the CUDA function it launches.
+KERNELS = {"intersect_sweep": "intersect_sweep_kernel",
+           "occluded_sweep": "occluded_sweep_kernel",
+           "merge_cells": "merge_cells_kernel"}
+
+
+def metric_name(res: int) -> str:
+    return f"rays/sec/chip (VCM, scene {SCENE_ID}, {res}x{res})"
+
+
+def eprint(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def median_spread(values) -> dict:
+    """{median, min, max, n} of a list of samples."""
+    if not values:
+        raise ValueError("no samples")
+    return dict(median=statistics.median(values), min=min(values),
+                max=max(values), n=len(values))
+
+
+def card_line(dev) -> str:
+    """nvidia-smi's name and power limit of the card ``dev`` names."""
+    if dev.type != "cuda":
+        return "cpu (no card: the device fields are null)"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    if not out:
+        raise RuntimeError("nvidia-smi printed no card")
+    return out[min(dev.index or 0, len(out) - 1)].strip()
+
+
+def resolved_config(scene, cfg) -> dict:
+    """What ``render()`` runs for ``cfg``: the algorithm after the ppm
+    downgrade, the merge (none, the cell merge or the pair merge), the
+    kernels' route and the generator."""
+    from smallvcm_tpu_torch import render as R
+
+    alg = R.resolve_algorithm(scene, cfg.algorithm)
+    merge = None
+    if alg in ("ppm", "bpm", "vcm"):
+        merge = "pair" if cfg.merge_backend == "xla" else "cell"
+    return dict(algorithm=alg, merge=merge, rng=cfg.rng_kind,
+                route="cuda" if scene.device.type == "cuda" else "plain")
+
+
+def kernel_counters():
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+
+    return dict(intersect_sweep=S.sweep_kernel,
+                occluded_sweep=S.occluded_kernel,
+                merge_cells=M.merge_cells_kernel)
+
+
+def time_algorithm(scene, cfg, iters: int, repeats: int,
+                   warmup: int) -> dict:
+    """First-iteration seconds, settle loop, then ``repeats`` timed calls
+    of ``iters`` iterations -> samples, the wrapper launch counts of the
+    timed calls and the image mean."""
+    from smallvcm_tpu_torch import render as R
+
+    state = dict(accum=None, done=0)
+
+    def keep(accum, done):
+        state["accum"] = accum
+
+    def run(n: int) -> float:
+        _, elapsed, done, _ = R.render(
+            scene, dataclasses.replace(cfg, iterations=state["done"] + n),
+            accum=state["accum"], start_iter=state["done"], block_cb=keep)
+        state["done"] = done
+        return elapsed
+
+    first_s = run(1)
+    settle, prev = [], None
+    for _ in range(warmup):
+        dt = run(1)
+        settle.append(dt)
+        if prev is not None and abs(dt - prev) <= SETTLE * max(dt, prev):
+            break
+        prev = dt
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    per_iter_ms = [1e3 * run(iters) / iters for _ in range(repeats)]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    mean = float(state["accum"].mean()) / state["done"]
+    if not math.isfinite(mean):
+        raise RuntimeError(f"{cfg.algorithm}: image mean is {mean}")
+    return dict(first_iter_s=first_s, warmup_ms=[1e3 * s for s in settle],
+                per_iter_ms=per_iter_ms, kernel_launches=launches,
+                image_mean=mean)
+
+
+@contextlib.contextmanager
+def stage_ranges(record_function):
+    """Put a ``record_function`` range around each function of STAGES in
+    algorithms/vcm.py while the block runs."""
+    from smallvcm_tpu_torch.algorithms import vcm
+
+    real = {name: getattr(vcm, name) for _, name in STAGES}
+
+    def ranged(label, fn):
+        def call(*args, **kwargs):
+            with record_function(RANGE + label):
+                return fn(*args, **kwargs)
+        return call
+
+    try:
+        for label, name in STAGES:
+            setattr(vcm, name, ranged(label, real[name]))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(vcm, name, fn)
+
+
+def _is_launch(name: str) -> bool:
+    """A CUDA event that is a kernel: not a copy or fill, nor the device
+    side of a bench range."""
+    return not name.startswith(("Memcpy", "Memset", RANGE))
+
+
+def split_profile(events) -> dict:
+    """torch.profiler events of one ranged iteration -> launches, device
+    ms, the split by stage and by kernel of this port.
+
+    A kernel's launch time is the start of the CUDA API call with its
+    correlation id (``cudaLaunchKernel`` and the like; the ctypes kernels
+    have no aten op to link to); its stage is the STAGES range open at that
+    time, else ``rest`` inside the iteration's range, else none."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = {}
+    for e in cpu:
+        if e.name.startswith(RANGE):
+            ranges.setdefault(e.name[len(RANGE):], []).append(
+                (e.time_range.start, e.time_range.end))
+    api_start = {e.id: e.time_range.start for e in cpu
+                 if e.name.startswith("cu")}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and _is_launch(e.name)]
+    if not kernels:
+        raise RuntimeError("profiler: no CUDA kernel recorded")
+
+    def stage_of(k):
+        t = api_start.get(k.id)
+        if t is None:
+            return "unattributed"
+        for label, _ in STAGES:
+            if any(a <= t <= b for a, b in ranges.get(label, ())):
+                return label
+        if any(a <= t <= b for a, b in ranges.get("iteration", ())):
+            return "rest"
+        return "unattributed"
+
+    stages = {label: dict(launches=0, device_ms=0.0, host_ms_profiled=sum(
+        b - a for a, b in ranges.get(label, ())) / 1e3)
+        for label, _ in STAGES}
+    stages["rest"] = dict(launches=0, device_ms=0.0)
+    stages["unattributed"] = dict(launches=0, device_ms=0.0)
+    by_kernel = {name: dict(launches=0, device_ms=0.0) for name in KERNELS}
+    for k in kernels:
+        ms = k.device_time_total / 1e3
+        s = stages[stage_of(k)]
+        s["launches"] += 1
+        s["device_ms"] += ms
+        for name, fn_name in KERNELS.items():
+            if fn_name in k.name:
+                by_kernel[name]["launches"] += 1
+                by_kernel[name]["device_ms"] += ms
+    left = stages["unattributed"]
+    if left["launches"]:
+        eprint(f"[profile] {left['launches']} kernel launches "
+               f"({left['device_ms']:.3f} device ms) have no launch time "
+               f"inside a {RANGE}* range: counted as unattributed")
+    return dict(launches=len(kernels),
+                device_ms=sum(k.device_time_total for k in kernels) / 1e3,
+                stages=stages, kernels=by_kernel)
+
+
+def profile_iteration(scene, cfg, iteration: int = COUNT_ITERATION):
+    """``render()`` of the one iteration ``iteration`` -> (its ray count,
+    split_profile of it on a card, else None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from smallvcm_tpu_torch import render as R
+
+    one = dataclasses.replace(cfg, iterations=iteration + 1)
+    if scene.device.type != "cuda":
+        return R.render(scene, one, start_iter=iteration)[3], None
+    with stage_ranges(record_function), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        with record_function(RANGE + "iteration"):
+            rays = R.render(scene, one, start_iter=iteration)[3]
+        torch.cuda.synchronize(scene.device)
+    return rays, split_profile(prof.events())
+
+
+def pair_counts(scene, res: int, rays: int) -> dict:
+    """The two merges' candidate pairs of the VCM iteration with index
+    COUNT_ITERATION; each run's ray count must equal ``rays``."""
+    import torch
+
+    from smallvcm_tpu_torch.algorithms import vcm
+
+    n = res * res
+    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+    out = {}
+    for key, backend in (("candidate_pairs_pair_merge", "xla"),
+                         ("candidate_pairs_cell_merge", "auto")):
+        _, r, stats = vcm.render_iteration_core(
+            scene, COUNT_ITERATION, pix, res, res, n, merge_backend=backend)
+        if int(r) != rays:
+            raise RuntimeError(f"{backend} merge run: {int(r)} rays, "
+                               f"render() counted {rays}")
+        out[key] = int(stats[0])
+    return out
+
+
+def bench_config(alg: str, res: int):
+    from smallvcm_tpu_torch import render as R
+
+    return R.RenderConfig(algorithm=alg, resolution=(res, res))
+
+
+def algorithm_record(scene, alg: str, args, t: dict) -> dict:
+    """One algorithm's record from its timing ``t`` (time_algorithm) and
+    its profiled iteration."""
+    cfg = bench_config(alg, args.res)
+    ms = median_spread(t["per_iter_ms"])
+    rays, prof = profile_iteration(scene, cfg)
+    on_card = prof is not None
+    return dict(
+        ms_per_iter=ms["median"], ms_per_iter_min=ms["min"],
+        ms_per_iter_max=ms["max"], repeats=ms["n"], iters=args.iters,
+        per_iter_ms=t["per_iter_ms"], first_iter_s=t["first_iter_s"],
+        warmup_ms=t["warmup_ms"],
+        vs_ref_cpu=REFERENCE_SECONDS[alg] / (ms["median"] / 1e3),
+        rays_per_iter=rays,
+        launches_per_iter=prof["launches"] if on_card else None,
+        device_ms_per_iter=prof["device_ms"] if on_card else None,
+        busy_share=prof["device_ms"] / ms["median"] if on_card else None,
+        stages=prof["stages"] if on_card else None,
+        kernels=prof["kernels"] if on_card else None,
+        kernel_launches=t["kernel_launches"] if on_card else None,
+        image_mean=t["image_mean"], resolved=resolved_config(scene, cfg))
+
+
+def log_record(alg: str, r: dict) -> None:
+    line = (f"{alg}: {r['ms_per_iter']:.3f} ms/iter median (min "
+            f"{r['ms_per_iter_min']:.3f}, max {r['ms_per_iter_max']:.3f}, "
+            f"{r['repeats']} repeats of {r['iters']}); first iteration "
+            f"{r['first_iter_s']:.2f} s; {r['vs_ref_cpu']:.2f}x reference "
+            f"CPU; {r['rays_per_iter']} rays at iteration "
+            f"{COUNT_ITERATION}; image mean {r['image_mean']:.6f}; "
+            f"{r['resolved']}")
+    if r["launches_per_iter"] is not None:
+        line += (f"; {r['launches_per_iter']} launches, "
+                 f"{r['device_ms_per_iter']:.3f} device ms, busy share "
+                 f"{r['busy_share']:.4f}")
+    eprint(line)
+
+
+def log_split(alg: str, r: dict) -> None:
+    if r["stages"] is None:
+        return
+    parts = [f"{label} {s['device_ms']:.3f} ms / {s['launches']}"
+             for label, s in r["stages"].items()]
+    eprint(f"[split] {alg} (device ms / launches): " + ", ".join(parts))
+    parts = [f"{name} {k['device_ms']:.4f} ms / {k['launches']}"
+             for name, k in r["kernels"].items()]
+    eprint(f"[kernels] {alg} (device ms / launches): " + ", ".join(parts))
+
+
+def result_line(rec: dict, pairs: dict, device: str, res: int) -> dict:
+    """bench.py's JSON line for VCM, plus the port's fields."""
+    rays_per_s = rec["rays_per_iter"] / (rec["ms_per_iter"] / 1e3)
+    baseline = rec["rays_per_iter"] / REFERENCE_VCM_SCENE0_SECONDS
+    keys = ("ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
+            "iters", "first_iter_s", "rays_per_iter")
+    device_keys = ("launches_per_iter", "device_ms_per_iter", "busy_share",
+                   "stages", "kernels", "kernel_launches")
+    return {"metric": metric_name(res), "value": round(rays_per_s),
+            "unit": "rays/s", "vs_baseline": rays_per_s / baseline,
+            "impl": "smallvcm_tpu_torch", "device": device,
+            **{k: rec[k] for k in keys}, **pairs,
+            **{k: rec[k] for k in device_keys},
+            "image_mean": rec["image_mean"]}
+
+
+def parse_args(argv=None):
+    from smallvcm_tpu_torch.render import ALGORITHMS
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; without a card it "
+                         "raises)")
+    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--iters", type=int, default=8,
+                    help="iterations per timed repeat")
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--warmup", type=int, default=6,
+                    help="at most this many settle iterations")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--full", action="store_true",
+                      help="time all seven algorithms, append history")
+    mode.add_argument("--alg", choices=ALGORITHMS,
+                      help="time this algorithm too, append history")
+    ap.add_argument("--history", type=Path, default=HISTORY,
+                    help="JSON-lines file --full/--alg append to")
+    args = ap.parse_args(argv)
+    for name in ("res", "iters", "repeats"):
+        if getattr(args, name) < 1:
+            ap.error(f"--{name} must be >= 1")
+    if args.warmup < 0:
+        ap.error("--warmup must be >= 0")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    import torch
+
+    from smallvcm_tpu_torch.device import resolve_device
+    from smallvcm_tpu_torch.render import ALGORITHMS
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    dev = resolve_device(args.device)
+    card = card_line(dev)
+    eprint(f"[card] {card}")
+    device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    scene = load_cornell_box((args.res, args.res), SCENE_CONFIGS[SCENE_ID],
+                             device=dev)
+    algs = list(ALGORITHMS) if args.full else \
+        ([args.alg] if args.alg else [])
+    if "vcm" not in algs:
+        algs.append("vcm")
+    # Every timing comes before the first profiler session: a process
+    # that has been profiled launches more slowly afterwards.
+    timings = {alg: time_algorithm(scene, bench_config(alg, args.res),
+                                   args.iters, args.repeats, args.warmup)
+               for alg in algs}
+    records = {}
+    for alg in algs:
+        records[alg] = algorithm_record(scene, alg, args, timings[alg])
+        log_record(alg, records[alg])
+        log_split(alg, records[alg])
+    vcm_rec = records["vcm"]
+    pairs = pair_counts(scene, args.res, vcm_rec["rays_per_iter"])
+    eprint(f"[pairs] vcm iteration {COUNT_ITERATION}: pair merge "
+           f"{pairs['candidate_pairs_pair_merge']}, cell merge "
+           f"{pairs['candidate_pairs_cell_merge']} candidate pairs")
+    line = result_line(vcm_rec, pairs, device, args.res)
+    if args.full or args.alg:
+        record = dict(ts=time.time(), impl="smallvcm_tpu_torch",
+                      device=device, card=card, torch=torch.__version__,
+                      cuda=torch.version.cuda, scene=SCENE_ID, res=args.res,
+                      iters=args.iters, repeats=args.repeats,
+                      warmup=args.warmup, algorithms=records, vcm=line)
+        with open(args.history, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        eprint(f"[history] appended to {args.history}")
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

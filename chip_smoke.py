@@ -60,7 +60,13 @@ Phases (each one raises on failure; nothing is caught):
     tests/test_torch_matrix.py, and the nine merging pairs of scenes 1-3
     again through the pair merge; one line a pair (pixels, max |err|, mean,
     launches); the golden images through ``save_hdr`` -> ``load_hdr``
-    within half an RGBE quantum.
+    within half an RGBE quantum;
+15. the bench: ``python3 bench_torch.py`` (VCM, scene 0, 512x512, its
+    defaults) as a subprocess; its stdout must be one JSON line with every
+    field finite, ``rays_per_iter`` equal to phase 6's rays of iteration
+    1, ``launches_per_iter`` within 1% of phase 3's profiled count, a busy
+    share in (0, 1] and every kernel launched; the line and its stage
+    split are logged.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -74,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -646,7 +653,7 @@ def check_main_path(torch):
         f"{mean:.6f} vs reference {REFERENCE_MEAN} "
         f"({100 * (mean / REFERENCE_MEAN - 1):+.2f}%); launches {launches}; "
         f"second run bitwise equal")
-    return launches, ms_iter, rays_s
+    return launches, ms_iter, rays_s, rays[1]
 
 
 def check_simple_paths(torch):
@@ -1241,6 +1248,55 @@ def check_matrix(torch, dev) -> dict:
     return totals
 
 
+BENCH_FIELDS = ("value", "vs_baseline", "ms_per_iter", "ms_per_iter_min",
+                "ms_per_iter_max", "repeats", "iters", "first_iter_s",
+                "rays_per_iter", "candidate_pairs_pair_merge",
+                "candidate_pairs_cell_merge", "launches_per_iter",
+                "device_ms_per_iter", "busy_share", "image_mean")
+
+
+def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
+    """Phase 15: bench_torch.py's default mode in a subprocess -> its
+    wrapper launch counts (the timed repeats)."""
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    log("\n".join("  | " + line for line in proc.stderr.splitlines()))
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} stdout "
+                             "lines, not one")
+    rec = json.loads(lines[0])
+    if rec.get("metric") != f"rays/sec/chip (VCM, scene 0, {RES}x{RES})" \
+            or rec.get("unit") != "rays/s" \
+            or rec.get("impl") != "smallvcm_tpu_torch" \
+            or not rec.get("device"):
+        raise AssertionError(f"bench: metric, unit, impl or device: {rec}")
+    for key in BENCH_FIELDS:
+        v = rec.get(key)
+        if not isinstance(v, (int, float)) or not math.isfinite(v):
+            raise AssertionError(f"bench: {key} = {v!r}")
+    if rec["rays_per_iter"] != rays_iter1:
+        raise AssertionError(f"bench: {rec['rays_per_iter']} rays at "
+                             f"iteration 1, phase 6 counted {rays_iter1}")
+    if abs(rec["launches_per_iter"] / launches_per_iteration - 1) > 0.01:
+        raise AssertionError(f"bench: {rec['launches_per_iter']} launches, "
+                             f"phase 3 profiled {launches_per_iteration}")
+    if not 0 < rec["busy_share"] <= 1:
+        raise AssertionError(f"bench: busy share {rec['busy_share']}")
+    counts = rec["kernel_launches"]
+    if set(counts) != {"merge_cells", "intersect_sweep", "occluded_sweep"} \
+            or min(counts.values()) <= 0:
+        raise AssertionError(f"bench: kernel launches {counts}")
+    log(f"[bench] {lines[0]}")
+    log("[bench] vcm stage split (device ms / launches): " + ", ".join(
+        f"{label} {st['device_ms']:.3f} / {st['launches']}"
+        for label, st in rec["stages"].items()))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1284,7 +1340,7 @@ def main() -> int:
     merge_r = check_merge(torch, dev)
     check_golden(torch, dev)
     phase_done("phases 4-5")
-    launches, _ms_iter, _rays_s = check_main_path(torch)
+    launches, _ms_iter, _rays_s, rays_iter1 = check_main_path(torch)
     phase_done("phase 6 (vcm)")
     simple = check_simple_paths(torch)
     for alg in ("el", "pt"):
@@ -1304,6 +1360,8 @@ def main() -> int:
     phase_done("phase 13 (sharding, codec, supervisor)")
     matrix = check_matrix(torch, dev)
     phase_done("phase 14 (matrix)")
+    bench = check_bench(rays_iter1, occl_r["launches_per_iteration"])
+    phase_done("phase 15 (bench)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -1316,6 +1374,7 @@ def main() -> int:
         **{path: [n[name] for n in by_rank]
            for path, by_rank in sharded.items()},
         **{path: n[name] for path, n in matrix.items()},
+        "bench": bench[name],
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

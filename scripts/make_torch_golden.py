@@ -14,17 +14,23 @@ Renders with the JAX package on the CPU and writes, under ``tests/data/``:
   every algorithm of ``ALGORITHMS`` (32x32, 2 iterations, seed 1234, the
   CLI's defaults) through ``smallvcm_tpu.render.render``, so the merge is
   JAX's XLA merge and ppm is resolved as the CLI resolves it; arrays
-  ``s{scene}_{alg}`` and JSON configs ``s{scene}_{alg}_config``.
+  ``s{scene}_{alg}`` and JSON configs ``s{scene}_{alg}_config``;
+* ``torch_golden_bench_32.json``: bench.py's own count call
+  (``vcm.render_block_with_stats`` at iteration 1, one iteration, the XLA
+  merge, ``RenderConfig``'s merge caps) on scene 0 at 32x32: the ray count,
+  the merge stats (candidate pairs, live photons, live queries) and the
+  overflow flag, which must be 0 (an overflowing cap drops pairs).
 
 Each file holds its config as JSON. ``tests/test_torch_slice.py``,
-``tests/test_torch_simple.py`` and ``tests/test_torch_matrix.py`` check
-the port against the images on the CPU, and ``chip_smoke.py`` checks
-images and gradients on the GPU; neither needs JAX for that.
+``tests/test_torch_simple.py``, ``tests/test_torch_matrix.py`` and
+``tests/test_torch_bench.py`` check the port against them on the CPU, and
+``chip_smoke.py`` checks images and gradients on the GPU; neither needs
+JAX for that.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [vcm] [el] [pt] \
-        [grad] [matrix]
+        [grad] [matrix] [bench]
 
-With names, only those files are rewritten (default: all five; the matrix
+With names, only those files are rewritten (default: all six; the matrix
 takes about three minutes).
 """
 
@@ -61,6 +67,9 @@ def golden_path(algorithm: str) -> Path:
 GRAD_GOLDEN = DATA / "torch_golden_grad_s1_32.npz"
 MATRIX_GOLDEN = DATA / "torch_golden_matrix_32.npz"
 MATRIX_CONFIG = dict(resolution=[32, 32], iterations=2, base_seed=1234)
+BENCH_GOLDEN = DATA / "torch_golden_bench_32.json"
+BENCH_CONFIG = dict(algorithm="vcm", scene_id=0, resolution=[32, 32],
+                    iteration=1, merge_backend="xla")
 
 
 def _save(path: Path, **arrays) -> None:
@@ -71,7 +80,7 @@ def _save(path: Path, **arrays) -> None:
 
 def main(argv=None) -> int:
     which = set(sys.argv[1:] if argv is None else argv) or {
-        "vcm", "el", "pt", "grad", "matrix"}
+        "vcm", "el", "pt", "grad", "matrix", "bench"}
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(ROOT))
     import jax
@@ -117,6 +126,9 @@ def main(argv=None) -> int:
 
     if "matrix" in which:
         _save(MATRIX_GOLDEN, **_render_matrix())
+    if "bench" in which:
+        BENCH_GOLDEN.write_text(json.dumps(_bench_counts(), indent=1) + "\n")
+        print(f"wrote {BENCH_GOLDEN}")
     if "grad" not in which:
         return 0
     g = GRAD_CONFIG
@@ -174,6 +186,35 @@ def _render_matrix() -> dict:
                 radius_alpha=cfg.radius_alpha))
             print(f"{key}: mean {out[key].mean():.6f}", flush=True)
     return out
+
+
+def _bench_counts() -> dict:
+    """bench.py's ray and pair count (bench.py:103-111) at BENCH_CONFIG."""
+    from smallvcm_tpu import render as R
+    from smallvcm_tpu.algorithms import vcm
+    from smallvcm_tpu.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    b = BENCH_CONFIG
+    res_x, res_y = b["resolution"]
+    scene = load_cornell_box((res_x, res_y), SCENE_CONFIGS[b["scene_id"]])
+    cfg = R.RenderConfig(algorithm=b["algorithm"], resolution=(res_x, res_y))
+    chunks = max(1, int(-(-int(cfg.pair_factor * res_x * res_y)
+                          // (16 << 20))))
+    _acc, rays, ovf, stats, _lum = vcm.render_block_with_stats(
+        scene, b["iteration"], res_x, res_y, 1,
+        pair_factor=cfg.pair_factor, photon_factor=cfg.photon_factor,
+        query_factor=cfg.query_factor, merge_chunks=chunks,
+        merge_backend=b["merge_backend"],
+    )
+    if int(ovf) != 0:
+        raise RuntimeError(f"bench counts: merge caps overflowed ({int(ovf)})")
+    pairs, photons, queries = (int(x) for x in np.asarray(stats))
+    return dict(config=dict(b, pair_factor=cfg.pair_factor,
+                            photon_factor=cfg.photon_factor,
+                            query_factor=cfg.query_factor,
+                            merge_chunks=chunks),
+                rays=int(rays), candidate_pairs=pairs, live_photons=photons,
+                live_queries=queries, overflow=int(ovf))
 
 
 if __name__ == "__main__":

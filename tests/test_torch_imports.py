@@ -130,15 +130,18 @@ def test_dense_sweep_is_never_chosen_for_a_card():
 
 
 def test_port_scripts_import_without_jax():
-    """The card's machine has no JAX: the parity and scaling scripts, the
-    smoke test and the matrix criterion it reads import none of it, nor
-    anything of the JAX package."""
+    """The card's machine has no JAX: the parity, scaling and profiler-cost
+    scripts, the bench, the smoke test and the matrix criterion it reads import none of
+    it, nor anything of the JAX package."""
     code = (
         "import contextlib, importlib, importlib.util, io, sys\n"
         "sys.path.insert(0, '.')\n"
-        "for name in ('torch_parity', 'torch_scaling'):\n"
-        "    spec = importlib.util.spec_from_file_location(\n"
-        "        name, f'scripts/{name}.py')\n"
+        "for name, path in (('torch_parity', 'scripts/torch_parity.py'),\n"
+        "                   ('torch_scaling', 'scripts/torch_scaling.py'),\n"
+        "                   ('torch_profile_cost',\n"
+        "                    'scripts/torch_profile_cost.py'),\n"
+        "                   ('bench_torch', 'bench_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    spec.loader.exec_module(mod)\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
