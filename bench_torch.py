@@ -13,14 +13,22 @@ scene 0 at 512x512 on one card, in this process, through
 Everything else goes to stderr, the card's name and power limit first.
 
 Timing. The first iteration (index 0) pays for the kernels' build and
-module load and is reported on its own (``first_iter_s``). Then single
-iterations run until two in a row agree within 30%, at most ``--warmup``
-of them. Then ``--repeats`` calls of ``render()`` with ``--iters``
-iterations each, the iteration index and the accumulator carried from one
-call to the next; each call's own ``elapsed`` (synchronised at both ends)
-over its iterations is one sample. Reported: the median ms/iteration and
-its spread (min, max, repeats). The eager port renders one iteration a
-step, so there is no block of iterations.
+module load and is reported on its own (``first_iter_s``). On a card the
+second (index 1) captures the trace stages' CUDA graphs (graphs.py) and
+is reported on its own too (``second_iter_s``, of which ``capture_s`` is
+the captures' host seconds). Then single iterations run until two in a
+row agree within 30%, at most ``--warmup`` of them. Then ``--repeats``
+calls of ``render()`` with ``--iters`` iterations each, the iteration
+index and the accumulator carried from one call to the next; each call's
+own ``elapsed`` (synchronised at both ends) over its iterations is one
+sample. Reported: the median ms/iteration and its spread (min, max,
+repeats), and the peak device memory from the first iteration to the last
+repeat (``torch.cuda.max_memory_allocated`` and
+``max_memory_reserved``: a graph's private pool stays reserved between
+replays; under ``--full`` the reserved peak includes the graphs of the
+algorithms timed before). The port renders one iteration a step (the
+merge's host reads sit between the graphs), so there is no block of
+iterations.
 
 Counts, from the iteration with index 1 (bench.py's ``start_iteration=1``):
 ``rays_per_iter`` is ``render()``'s ray count, path segments plus enabled
@@ -37,11 +45,15 @@ and CUDA), with ``record_function`` ranges put around the light stage
 (``vcm.trace_light_paths``), the camera stage (``vcm._camera_stage``) and
 the merge (``vcm._merge``) for the length of that call, and one around
 the whole ``render()``. Kernel launches are the CUDA events other than
-Memcpy and Memset (as chip_smoke.py counts them); each goes to the stage
-whose range was open when the CPU called the CUDA API to launch it;
+copies and fills (COPY_EVENTS, as chip_smoke.py counts them); each goes to
+the stage whose range was open when the CPU called the CUDA API to launch
+it (a graph's kernels share its ``cudaGraphLaunch``);
 ``rest`` is the iteration outside the three stages (the framebuffer sums).
 A kernel the profiler gives no launch time inside a range is counted as
-``unattributed`` and said on stderr.
+``unattributed`` and said on stderr. ``host_launch_calls_per_iter`` counts
+the CUDA runtime's launch calls of the iteration (``cudaLaunchKernel*``,
+``cuLaunchKernel*``, ``cudaGraphLaunch``): what the host issues, where
+``launches_per_iter`` counts the kernels the device runs.
 ``busy_share`` is the profiled device ms over the unprofiled median
 ms/iteration. On ``--device cpu`` every device field is null.
 
@@ -89,6 +101,13 @@ RANGE = "bench::"
 # (label, function of algorithms/vcm.py) for the profiled stage split.
 STAGES = (("light", "trace_light_paths"), ("camera", "_camera_stage"),
           ("merge", "_merge"))
+# Device events that copy or fill rather than compute. A CUDA graph runs
+# a device-to-device copy node as a kernel named memcpy*, where the eager
+# path's copy is a "Memcpy DtoD" event: both are copies.
+COPY_EVENTS = ("Memcpy", "Memset", "memcpy")
+# CUDA API calls that launch work: a kernel each, or a whole graph.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cuGraphLaunch")
 # Wrapper counter name -> the CUDA function it launches.
 KERNELS = {"intersect_sweep": "intersect_sweep_kernel",
            "occluded_sweep": "occluded_sweep_kernel",
@@ -150,11 +169,19 @@ def kernel_counters():
 
 def time_algorithm(scene, cfg, iters: int, repeats: int,
                    warmup: int) -> dict:
-    """First-iteration seconds, settle loop, then ``repeats`` timed calls
-    of ``iters`` iterations -> samples, the wrapper launch counts of the
-    timed calls and the image mean."""
+    """First- and second-iteration seconds (the second captures the
+    graphs on a card), settle loop, then ``repeats`` timed calls of
+    ``iters`` iterations -> samples, the wrapper launch counts of the timed
+    calls, the captures' host seconds, peak memory and the image mean."""
+    import torch
+
+    from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
 
+    on_card = scene.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(scene.device)
+    graphs.stage.capture_s = 0.0
     state = dict(accum=None, done=0)
 
     def keep(accum, done):
@@ -168,6 +195,8 @@ def time_algorithm(scene, cfg, iters: int, repeats: int,
         return elapsed
 
     first_s = run(1)
+    second_s = run(1)
+    capture_s = graphs.stage.capture_s
     settle, prev = [], None
     for _ in range(warmup):
         dt = run(1)
@@ -183,8 +212,15 @@ def time_algorithm(scene, cfg, iters: int, repeats: int,
     mean = float(state["accum"].mean()) / state["done"]
     if not math.isfinite(mean):
         raise RuntimeError(f"{cfg.algorithm}: image mean is {mean}")
-    return dict(first_iter_s=first_s, warmup_ms=[1e3 * s for s in settle],
+    gib = lambda b: b / 2 ** 30
+    return dict(first_iter_s=first_s, second_iter_s=second_s,
+                capture_s=capture_s if on_card else None,
+                warmup_ms=[1e3 * s for s in settle],
                 per_iter_ms=per_iter_ms, kernel_launches=launches,
+                peak_allocated_gib=gib(torch.cuda.max_memory_allocated(
+                    scene.device)) if on_card else None,
+                peak_reserved_gib=gib(torch.cuda.max_memory_reserved(
+                    scene.device)) if on_card else None,
                 image_mean=mean)
 
 
@@ -214,17 +250,19 @@ def stage_ranges(record_function):
 def _is_launch(name: str) -> bool:
     """A CUDA event that is a kernel: not a copy or fill, nor the device
     side of a bench range."""
-    return not name.startswith(("Memcpy", "Memset", RANGE))
+    return not name.startswith((*COPY_EVENTS, RANGE))
 
 
 def split_profile(events) -> dict:
-    """torch.profiler events of one ranged iteration -> launches, device
-    ms, the split by stage and by kernel of this port.
+    """torch.profiler events of one ranged iteration -> launches, host
+    launch calls, device ms, the split by stage and by kernel of this port.
 
     A kernel's launch time is the start of the CUDA API call with its
-    correlation id (``cudaLaunchKernel`` and the like; the ctypes kernels
+    correlation id (``cudaLaunchKernel`` and the like, or the
+    ``cudaGraphLaunch`` of the graph that holds it; the ctypes kernels
     have no aten op to link to); its stage is the STAGES range open at that
-    time, else ``rest`` inside the iteration's range, else none."""
+    time, else ``rest`` inside the iteration's range, else none. A launch
+    call counts where it starts, the same way."""
     from torch.autograd import DeviceType
 
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
@@ -239,9 +277,10 @@ def split_profile(events) -> dict:
                and _is_launch(e.name)]
     if not kernels:
         raise RuntimeError("profiler: no CUDA kernel recorded")
+    calls = [e.time_range.start for e in cpu
+             if e.name.startswith(LAUNCH_CALLS)]
 
-    def stage_of(k):
-        t = api_start.get(k.id)
+    def stage_of(t):
         if t is None:
             return "unattributed"
         for label, _ in STAGES:
@@ -251,15 +290,18 @@ def split_profile(events) -> dict:
             return "rest"
         return "unattributed"
 
-    stages = {label: dict(launches=0, device_ms=0.0, host_ms_profiled=sum(
-        b - a for a, b in ranges.get(label, ())) / 1e3)
-        for label, _ in STAGES}
-    stages["rest"] = dict(launches=0, device_ms=0.0)
-    stages["unattributed"] = dict(launches=0, device_ms=0.0)
+    stages = {label: dict(launches=0, host_launch_calls=0, device_ms=0.0,
+                          host_ms_profiled=sum(b - a for a, b in
+                                               ranges.get(label, ())) / 1e3)
+              for label, _ in STAGES}
+    for label in ("rest", "unattributed"):
+        stages[label] = dict(launches=0, host_launch_calls=0, device_ms=0.0)
+    for t in calls:
+        stages[stage_of(t)]["host_launch_calls"] += 1
     by_kernel = {name: dict(launches=0, device_ms=0.0) for name in KERNELS}
     for k in kernels:
         ms = k.device_time_total / 1e3
-        s = stages[stage_of(k)]
+        s = stages[stage_of(api_start.get(k.id))]
         s["launches"] += 1
         s["device_ms"] += ms
         for name, fn_name in KERNELS.items():
@@ -272,6 +314,9 @@ def split_profile(events) -> dict:
                f"({left['device_ms']:.3f} device ms) have no launch time "
                f"inside a {RANGE}* range: counted as unattributed")
     return dict(launches=len(kernels),
+                host_launch_calls=sum(s["host_launch_calls"] for label, s in
+                                      stages.items()
+                                      if label != "unattributed"),
                 device_ms=sum(k.device_time_total for k in kernels) / 1e3,
                 stages=stages, kernels=by_kernel)
 
@@ -334,15 +379,20 @@ def algorithm_record(scene, alg: str, args, t: dict) -> dict:
         ms_per_iter=ms["median"], ms_per_iter_min=ms["min"],
         ms_per_iter_max=ms["max"], repeats=ms["n"], iters=args.iters,
         per_iter_ms=t["per_iter_ms"], first_iter_s=t["first_iter_s"],
+        second_iter_s=t["second_iter_s"], capture_s=t["capture_s"],
         warmup_ms=t["warmup_ms"],
         vs_ref_cpu=REFERENCE_SECONDS[alg] / (ms["median"] / 1e3),
         rays_per_iter=rays,
         launches_per_iter=prof["launches"] if on_card else None,
+        host_launch_calls_per_iter=(prof["host_launch_calls"] if on_card
+                                    else None),
         device_ms_per_iter=prof["device_ms"] if on_card else None,
         busy_share=prof["device_ms"] / ms["median"] if on_card else None,
         stages=prof["stages"] if on_card else None,
         kernels=prof["kernels"] if on_card else None,
         kernel_launches=t["kernel_launches"] if on_card else None,
+        peak_allocated_gib=t["peak_allocated_gib"],
+        peak_reserved_gib=t["peak_reserved_gib"],
         image_mean=t["image_mean"], resolved=resolved_config(scene, cfg))
 
 
@@ -355,18 +405,23 @@ def log_record(alg: str, r: dict) -> None:
             f"{COUNT_ITERATION}; image mean {r['image_mean']:.6f}; "
             f"{r['resolved']}")
     if r["launches_per_iter"] is not None:
-        line += (f"; {r['launches_per_iter']} launches, "
-                 f"{r['device_ms_per_iter']:.3f} device ms, busy share "
-                 f"{r['busy_share']:.4f}")
+        line += (f"; second iteration {r['second_iter_s']:.2f} s (captures "
+                 f"{r['capture_s']:.2f} s); {r['launches_per_iter']} "
+                 f"launches from {r['host_launch_calls_per_iter']} host "
+                 f"launch calls, {r['device_ms_per_iter']:.3f} device ms, "
+                 f"busy share {r['busy_share']:.4f}; peak "
+                 f"{r['peak_allocated_gib']:.3f} GiB allocated, "
+                 f"{r['peak_reserved_gib']:.3f} GiB reserved")
     eprint(line)
 
 
 def log_split(alg: str, r: dict) -> None:
     if r["stages"] is None:
         return
-    parts = [f"{label} {s['device_ms']:.3f} ms / {s['launches']}"
-             for label, s in r["stages"].items()]
-    eprint(f"[split] {alg} (device ms / launches): " + ", ".join(parts))
+    parts = [f"{label} {s['device_ms']:.3f} ms / {s['launches']} / "
+             f"{s['host_launch_calls']}" for label, s in r["stages"].items()]
+    eprint(f"[split] {alg} (device ms / launches / host launch calls): "
+           + ", ".join(parts))
     parts = [f"{name} {k['device_ms']:.4f} ms / {k['launches']}"
              for name, k in r["kernels"].items()]
     eprint(f"[kernels] {alg} (device ms / launches): " + ", ".join(parts))
@@ -377,9 +432,11 @@ def result_line(rec: dict, pairs: dict, device: str, res: int) -> dict:
     rays_per_s = rec["rays_per_iter"] / (rec["ms_per_iter"] / 1e3)
     baseline = rec["rays_per_iter"] / REFERENCE_VCM_SCENE0_SECONDS
     keys = ("ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
-            "iters", "first_iter_s", "rays_per_iter")
-    device_keys = ("launches_per_iter", "device_ms_per_iter", "busy_share",
-                   "stages", "kernels", "kernel_launches")
+            "iters", "first_iter_s", "second_iter_s", "rays_per_iter")
+    device_keys = ("capture_s", "launches_per_iter",
+                   "host_launch_calls_per_iter", "device_ms_per_iter",
+                   "busy_share", "stages", "kernels", "kernel_launches",
+                   "peak_allocated_gib", "peak_reserved_gib")
     return {"metric": metric_name(res), "value": round(rays_per_s),
             "unit": "rays/s", "vs_baseline": rays_per_s / baseline,
             "impl": "smallvcm_tpu_torch", "device": device,

@@ -16,7 +16,8 @@ Phases (each one raises on failure; nothing is caught):
    on every bounce and the any-hit entry on every shadow-ray call, with
    rays, active fraction and kernel ms per call site, a 2,097,152-ray
    connection-sized launch, and the sweeps' device ms and the kernel
-   launches of one iteration from torch.profiler;
+   launches of one iteration from torch.profiler (with the trace stages
+   as graphs, and eagerly);
 4. the merge kernel against its plain version on every query of the merge
    tables of one real 512x512 scene-0 VCM iteration, a bitwise second
    launch, its candidate-pair counts and its bound;
@@ -66,7 +67,20 @@ Phases (each one raises on failure; nothing is caught):
     field finite, ``rays_per_iter`` equal to phase 6's rays of iteration
     1, ``launches_per_iter`` within 1% of phase 3's profiled count, a busy
     share in (0, 1] and every kernel launched; the line and its stage
-    split are logged.
+    split are logged;
+16. graphs against eager: scene 0 at 512x512, vcm and pt iterations 0-3,
+    el, lt, ppm, bpm and bpt 0-2, each algorithm on a fresh scene through
+    ``render.render_iteration`` with the trace stages as CUDA graphs
+    (graphs.py: iteration 0 eager, 1 captures, later ones replay) and
+    under ``graphs.eager()``: images bit for bit, rays and the kernels'
+    ``.launches`` equal, ms/iteration both ways, the host launch calls of
+    one profiled iteration both ways (at most 1,500 for vcm and 100 for pt
+    on the graphs) and its device events by name, and the captures' host
+    seconds.
+
+Phases 6-15 run on the graph path wherever it applies (every render of two
+or more iterations captures at its second); phase 3 records its call sites
+and profiles under ``graphs.eager()``, since a replay runs no Python.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -277,9 +291,11 @@ def check_sweep(torch, dev):
 
 
 def record_iteration(torch, scene, cfg):
-    """Render one iteration of ``cfg`` while recording the arguments of
-    every ``intersect`` and ``occluded`` call made by algorithms/vcm.py ->
-    {"intersect": [(call site, args)], "occluded": [...]}."""
+    """Render one iteration of ``cfg`` eagerly while recording the
+    arguments of every ``intersect`` and ``occluded`` call made by
+    algorithms/vcm.py -> {"intersect": [(call site, args)], "occluded":
+    [...]}."""
+    from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.algorithms import vcm
 
@@ -295,7 +311,8 @@ def record_iteration(torch, scene, cfg):
     try:
         for name in calls:
             setattr(vcm, name, recorder(name))
-        R.render(scene, cfg)
+        with graphs.eager():
+            R.render(scene, cfg)
     finally:
         for name, fn in real.items():
             setattr(vcm, name, fn)
@@ -304,14 +321,17 @@ def record_iteration(torch, scene, cfg):
 
 
 def profile_iteration(torch, scene, cfg):
-    """torch.profiler over one warm render of ``cfg`` -> (device ms by
-    kernel name, kernel launches, device ms in all)."""
+    """torch.profiler over one warm render of ``cfg`` (its trace stages
+    replayed from their graphs: two renders before it warm up and capture)
+    -> (device ms by kernel name, kernel launches, device ms in all)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from bench_torch import COPY_EVENTS
     from smallvcm_tpu_torch import render as R
 
-    R.render(scene, cfg)
+    for _ in range(2):
+        R.render(scene, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -322,7 +342,7 @@ def profile_iteration(torch, scene, cfg):
         if e.device_type != DeviceType.CUDA:
             continue
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-        launches += not e.name.startswith(("Memcpy", "Memset"))
+        launches += not e.name.startswith(COPY_EVENTS)
     return by_name, launches, sum(by_name.values())
 
 
@@ -363,7 +383,9 @@ def check_occlusion(torch, dev):
     sweep_plain on every bounce and the any-hit kernel against
     occluded_plain on every shadow-ray call, bit for bit; time both per
     call site; time a 2,097,152-ray connection-sized launch; profile the
-    sweeps' device time and the launches of one iteration."""
+    sweeps' device time and the launches of one iteration, with its trace
+    stages as graphs and eagerly."""
+    from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.core.vec3 import V3
     from smallvcm_tpu_torch.ops import sweep as S
@@ -440,18 +462,22 @@ def check_occlusion(torch, dev):
         f"for bit): {hit_ms:.4f} ms")
 
     by_name, launches, device_ms = profile_iteration(torch, scene, cfg)
+    with graphs.eager():
+        _, eager_launches, eager_ms = profile_iteration(torch, scene, cfg)
     sweeps = {k: v for k, v in by_name.items() if "sweep_kernel" in k}
     if not sweeps:
         raise AssertionError("profiler: no sweep kernel on the device")
     log(f"[profile] vcm {RES}x{RES} one iteration: sweep device "
         f"{sum(sweeps.values()):.4f} ms ({sweeps}), {launches} kernel "
-        f"launches, {device_ms:.2f} device ms")
+        f"launches, {device_ms:.2f} device ms (graphs); eagerly "
+        f"{eager_launches} kernel launches, {eager_ms:.2f} device ms")
     return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 per_site=sites, connection_launch_ms=big,
                 closest_hit_bounce_ms=hit_ms,
                 sweep_device_ms_per_iteration=sum(sweeps.values()),
-                launches_per_iteration=launches)
+                launches_per_iteration=launches,
+                eager_launches_per_iteration=eager_launches)
 
 
 def merge_work(torch, M, tabs, r2, max_pl, min_pl):
@@ -1250,9 +1276,11 @@ def check_matrix(torch, dev) -> dict:
 
 BENCH_FIELDS = ("value", "vs_baseline", "ms_per_iter", "ms_per_iter_min",
                 "ms_per_iter_max", "repeats", "iters", "first_iter_s",
-                "rays_per_iter", "candidate_pairs_pair_merge",
-                "candidate_pairs_cell_merge", "launches_per_iter",
-                "device_ms_per_iter", "busy_share", "image_mean")
+                "second_iter_s", "capture_s", "rays_per_iter",
+                "candidate_pairs_pair_merge", "candidate_pairs_cell_merge",
+                "launches_per_iter", "host_launch_calls_per_iter",
+                "device_ms_per_iter", "busy_share", "peak_allocated_gib",
+                "peak_reserved_gib", "image_mean")
 
 
 def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
@@ -1290,11 +1318,133 @@ def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
     if set(counts) != {"merge_cells", "intersect_sweep", "occluded_sweep"} \
             or min(counts.values()) <= 0:
         raise AssertionError(f"bench: kernel launches {counts}")
+    if rec["stages"]["unattributed"]["launches"]:
+        raise AssertionError(f"bench: unattributed kernels {rec['stages']}")
     log(f"[bench] {lines[0]}")
-    log("[bench] vcm stage split (device ms / launches): " + ", ".join(
-        f"{label} {st['device_ms']:.3f} / {st['launches']}"
-        for label, st in rec["stages"].items()))
+    log("[bench] vcm stage split (device ms / launches / host launch "
+        "calls): " + ", ".join(
+            f"{label} {st['device_ms']:.3f} / {st['launches']} / "
+            f"{st['host_launch_calls']}"
+            for label, st in rec["stages"].items()))
     return counts
+
+
+# Phase 16: (algorithm, iterations 0..n-1) rendered with graphs and eagerly.
+GRAPH_CASES = (("vcm", 4), ("pt", 4), ("el", 3), ("lt", 3), ("ppm", 3),
+               ("bpm", 3), ("bpt", 3))
+# Host launch calls of one graph iteration, at most (36,493 and 17,711
+# eager kernels an iteration before the graphs, PERF.md §5).
+GRAPH_HOST_CALLS_MAX = dict(vcm=1500, pt=100)
+
+
+def launch_profile(torch, fn):
+    """torch.profiler over ``fn()`` -> (the host's CUDA launch calls, a
+    kernel each or a whole graph; the device events by name)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch import LAUNCH_CALLS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return (sum(e.name.startswith(LAUNCH_CALLS) for e in events),
+            Counter(e.name for e in events
+                    if e.device_type == DeviceType.CUDA))
+
+
+def _graph_run(torch, dev, alg: str, n_iter: int) -> dict:
+    """Iterations 0..n_iter-1 of ``alg`` on a fresh scene-0 scene, one
+    ``render_iteration`` call each -> cloned images, rays, the kernels'
+    launches, ms per iteration, the captures' host seconds, and the host
+    launch calls and device events of one more call of the last
+    iteration."""
+    from smallvcm_tpu_torch import graphs
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    cfg = R.RenderConfig(algorithm=alg, resolution=(RES, RES))
+    resolved = R.resolve_algorithm(scene, alg)
+    reset_counts(M, S)
+    captures, capture_s = graphs.stage.captures, graphs.stage.capture_s
+    imgs, rays, ms = [], [], []
+    for it in range(n_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, r = R.render_iteration(scene, cfg, resolved, it)
+        imgs.append(img.clone())
+        rays.append(int(r))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts(M, S)
+    calls, device = launch_profile(torch, lambda: R.render_iteration(
+        scene, cfg, resolved, n_iter - 1))
+    return dict(imgs=imgs, rays=rays, launches=launches, ms=ms,
+                captures=graphs.stage.captures - captures,
+                capture_s=graphs.stage.capture_s - capture_s,
+                host_calls=calls, device_events=device)
+
+
+def check_graphs(torch, dev) -> dict:
+    """Phase 16: every algorithm's trace stages as CUDA graphs against
+    ``graphs.eager()`` -> the kernels' launches by path."""
+    import statistics
+
+    from smallvcm_tpu_torch import graphs
+
+    out = {}
+    for alg, n_iter in GRAPH_CASES:
+        g = _graph_run(torch, dev, alg, n_iter)
+        with graphs.eager():
+            e = _graph_run(torch, dev, alg, n_iter)
+        for it, (a, b) in enumerate(zip(g["imgs"], e["imgs"])):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"graphs {alg} iteration {it}: image differs from "
+                    f"eager at {int((a != b).any(-1).sum())} pixels")
+        if g["rays"] != e["rays"] or g["launches"] != e["launches"]:
+            raise AssertionError(f"graphs {alg}: rays {g['rays']} vs "
+                                 f"{e['rays']}, launches {g['launches']} "
+                                 f"vs {e['launches']}")
+        if g["captures"] < 1 or e["captures"]:
+            raise AssertionError(f"graphs {alg}: {g['captures']} captures "
+                                 f"with graphs, {e['captures']} eager")
+        limit = GRAPH_HOST_CALLS_MAX.get(alg)
+        if limit is not None and g["host_calls"] > limit:
+            raise AssertionError(f"graphs {alg}: {g['host_calls']} host "
+                                 f"launch calls an iteration (at most "
+                                 f"{limit})")
+        if g["host_calls"] >= e["host_calls"]:
+            raise AssertionError(f"graphs {alg}: {g['host_calls']} host "
+                                 f"launch calls, eager {e['host_calls']}")
+        ms_g = statistics.median(g["ms"][2:])
+        ms_e = statistics.median(e["ms"][1:])
+        dg, de = g["device_events"], e["device_events"]
+        moved = {name[:40]: dg[name] - de[name] for name in sorted(
+            set(dg) | set(de), key=lambda k: -abs(dg[k] - de[k]))
+            if dg[name] != de[name]}
+        log(f"[graphs] {alg} {RES}x{RES} iterations 0-{n_iter - 1}: images "
+            f"bit for bit, rays {g['rays']} and launches {g['launches']} "
+            f"equal both ways; ms/iteration graphs {ms_g:.2f} (replays; "
+            f"{[round(x, 1) for x in g['ms']]}) vs eager {ms_e:.2f} "
+            f"({[round(x, 1) for x in e['ms']]}); host launch calls an "
+            f"iteration {g['host_calls']} vs {e['host_calls']}; device "
+            f"events {sum(dg.values())} vs {sum(de.values())} (graphs minus "
+            f"eager by name: {dict(list(moved.items())[:6])}); "
+            f"{g['captures']} captures in {g['capture_s']:.2f} s")
+        out[alg] = dict(ms_graphs=ms_g, ms_eager=ms_e,
+                        host_calls_graphs=g["host_calls"],
+                        host_calls_eager=e["host_calls"],
+                        capture_s=g["capture_s"], launches=g["launches"])
+    return out
 
 
 def main() -> int:
@@ -1362,6 +1512,8 @@ def main() -> int:
     phase_done("phase 14 (matrix)")
     bench = check_bench(rays_iter1, occl_r["launches_per_iteration"])
     phase_done("phase 15 (bench)")
+    graph_r = check_graphs(torch, dev)
+    phase_done("phase 16 (graphs against eager)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -1375,6 +1527,8 @@ def main() -> int:
            for path, by_rank in sharded.items()},
         **{path: n[name] for path, n in matrix.items()},
         "bench": bench[name],
+        **{f"graphs_{alg}": r["launches"][name] for alg, r in
+           graph_r.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

@@ -9,16 +9,20 @@ Strong scaling (the default): VCM, scene 0, 512x512, on 1, 2 and 4 ranks,
 one card a rank (NCCL, ``parallel/multihost.spawn``), with the all-gather
 and with the ring photon exchange. One rank renders in this process; a
 rank count above the visible cards is skipped, and said so. Each rank
-renders one warm iteration, then ``--iters`` timed ones (default 5), each
-ended by a device synchronise. Printed: each rank's ms/iteration (median,
-min, max), the exchange's wall ms a call (the packed light-vertex table
-``[17, 9, paths of one rank]`` exchanged alone, 5 calls) and its bytes a
-rank an iteration, the efficiency t_1 / (W t_W) of the median rank times,
-and the image's max |err| against one rank's.
+renders two warm iterations (on a card the first runs the trace stages
+eagerly and the second captures their CUDA graphs, graphs.py), then
+``--iters`` timed ones (default 5), each ended by a device synchronise.
+Printed: each rank's ms/iteration (median, min, max), the exchange's
+wall ms a call (the packed light-vertex table ``[17, 9, paths of one
+rank]`` exchanged alone, 5 calls) and its bytes a rank an iteration,
+the efficiency t_1 / (W t_W) of the median rank times, and the image's
+max |err| against one rank's.
 
 The sharded-memory regime: ``--res 2048 --exchange ring`` renders 2
 iterations (no warm one) on every visible card, ``--res 2048 --ranks 1``
-in one process; each rank's ``torch.cuda.max_memory_allocated``, the image
+in one process (the second iteration captures the graphs); each rank's
+``torch.cuda.max_memory_allocated`` and ``max_memory_reserved`` (a
+graph's private memory pool stays reserved between replays), the image
 mean against the JAX package's record (artifacts/mesh2048_summary.json:
 8 virtual devices, ring, 2 iterations, same seed) and the per-shard
 account that ``render_2048_mesh.py`` printed, next to the port's own table
@@ -109,7 +113,8 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
                str(torch.distributed.get_backend(group)))
     it = 0
     if warm:
-        _iteration(torch, scene, res, it, exchange, group)
+        for it in range(2):
+            _iteration(torch, scene, res, it, exchange, group)
         it += 1
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -128,12 +133,15 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
     except torch.cuda.OutOfMemoryError as e:
         out["out_of_memory"] = str(e).splitlines()[0]
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
         return out
     out.update(
         ms=ms, image=(acc / iters).cpu(),
         pairs_per_path=pairs / (iters * res * res),
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else None),
+        peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
+                             if dev.type == "cuda" else None),
         exchange_bytes=(comm.all_gather_columns.bytes
                         + comm.ring_shift.bytes) // iters)
     if group is not None:
@@ -180,6 +188,9 @@ def summarize(ranks: list) -> dict:
         pairs_per_path=ranks[0]["pairs_per_path"],
         peak_GiB=[None if r["peak_bytes"] is None
                   else round(r["peak_bytes"] / 2 ** 30, 3) for r in ranks],
+        peak_reserved_GiB=[None if r["peak_reserved_bytes"] is None
+                           else round(r["peak_reserved_bytes"] / 2 ** 30, 3)
+                           for r in ranks],
         backend=ranks[0]["backend"])
 
 
@@ -235,6 +246,8 @@ def main(argv=None) -> int:
                 row["out_of_memory"] = [r.get("out_of_memory") for r in out]
                 row["peak_GiB"] = [round(r["peak_bytes"] / 2 ** 30, 3)
                                    for r in out]
+                row["peak_reserved_GiB"] = [
+                    round(r["peak_reserved_bytes"] / 2 ** 30, 3) for r in out]
                 print(f"[oom] {w} rank(s) at {args.res}x{args.res}: "
                       f"{row['out_of_memory']}", flush=True)
                 result["runs"].append(row)
@@ -262,7 +275,8 @@ def main(argv=None) -> int:
                   f"{row['exchange_bytes']} B a rank an iteration, "
                   f"{row['exchange_ms']} ms a call; candidate pairs "
                   f"{row['pairs_per_path']:.2f} a path; efficiency "
-                  f"{row.get('efficiency')}; peak GiB {row['peak_GiB']}; "
+                  f"{row.get('efficiency')}; peak GiB {row['peak_GiB']} "
+                  f"allocated, {row['peak_reserved_GiB']} reserved; "
                   f"mean {row['mean']:.6f}"
                   + (f" vs JAX {row['jax_mean']:.6f} "
                      f"({100 * row['mean_rel_vs_jax']:+.3f}%)"

@@ -7,7 +7,8 @@ Python loop; the reference's early ``break``s are ``alive``-mask updates
 and contributions are accumulated where-masked. Every ``_safe_div`` and the
 miss-lane ``dist_safe`` clamp of the JAX version is kept: they keep masked
 lanes free of inf/NaN, which would otherwise poison backward passes
-through ``0 * inf``.
+through ``0 * inf``. On a card the whole pass (:func:`render_pass`) runs
+as one CUDA graph (graphs.py), the JAX package's ``_simple_block``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..core import rng
 from ..core.vec3 import V3, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, pdf_a_to_w
@@ -80,7 +82,21 @@ def render_core(
     RNG streams key off global pixel ids, as in the JAX package, so any
     partition of the pixels over processes renders the same paths. The ray
     count is path segments plus the shadow rays of enabled NEE connections
-    (the VCM family's count)."""
+    (the VCM family's count).
+
+    :func:`render_pass` as one graph (graphs.stage): on a card the image
+    and the count are the graph's outputs, overwritten by its next
+    replay."""
+    return graphs.stage(render_pass, scene, (pix,), (iteration,),
+                        (res_x, res_y, base_seed, max_path_length,
+                         min_path_length, rng_kind))
+
+
+def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
+                base_seed: int, max_path_length: int, min_path_length: int,
+                rng_kind: str):
+    """The body of :func:`render_core`, with the iteration a 0-dim int64
+    device tensor and no host read (a CUDA graph's body)."""
     dev = scene.device
     n = pix.shape[0]
     x = torch.remainder(pix, res_x).to(torch.float32)

@@ -22,6 +22,14 @@ The JAX ``lax.fori_loop`` bounce loops are Python loops here, and the
 camera loop is the JAX package's *unrolled* form: bounce i connects to the
 static window of w_i = min(maxL, maxPath - 2 - i) light slots, which is
 the only part of the vertex table its path lengths can reach.
+
+On a card, the light walk (:func:`light_walk`: emission and the bounce
+loop, without the splat flush) and the camera stage (:func:`camera_walk`)
+each run as one CUDA graph (graphs.py), the counterpart of the JAX
+package's one-program ``trace_iteration``. They take the iteration and the
+two MIS weights as 0-dim device tensors (:class:`StageMisc`), so no value
+of one iteration is frozen into the capture. The splat flush, the merge
+and the framebuffer accumulation run eagerly between the replays.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..core import rng
 from ..core.vec3 import V3, dot, len_sqr, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, PI_F, pdf_w_to_a, sqr
@@ -99,6 +108,20 @@ class VcmMisc(NamedTuple):
     light_sub_path_count: float
 
 
+class StageMisc(NamedTuple):
+    """The MIS constants the trace stages read. The two weights change
+    with the iteration (through the radius) and are 0-dim float32 tensors
+    on the stage's device, the graphs' scalar inputs: they only add and
+    multiply, where a tensor and a Python float holding the same float32
+    round alike. The light path count is fixed for a render and stays a
+    Python float: it divides, and a CUDA division by a host scalar
+    multiplies by its reciprocal, which a device scalar would not."""
+
+    mis_vm_weight: torch.Tensor
+    mis_vc_weight: torch.Tensor
+    light_sub_path_count: float
+
+
 def _empty_vertices(max_l: int, n: int, device) -> StoredVertices:
     zf = lambda: torch.zeros((max_l, n), dtype=torch.float32, device=device)
     zv = lambda: V3(zf(), zf(), zf())
@@ -151,10 +174,11 @@ def compute_misc(
 
 
 def generate_light_sample(
-    scene: SceneData, misc: VcmMisc, pix, iteration: int, base_seed: int,
+    scene: SceneData, misc: StageMisc, pix, iteration, base_seed: int,
     rng_kind: str = "threefry",
 ) -> SubPathState:
-    """GenerateLightSample (vertexcm.hxx:816-858)."""
+    """GenerateLightSample (vertexcm.hxx:816-858). ``iteration``: a Python
+    int or a 0-dim int64 tensor (core/rng.py)."""
     n = pix.shape[0]
     light_count = scene.lights.kind.shape[0]
     pick_prob = 1.0 / light_count
@@ -191,7 +215,7 @@ def generate_light_sample(
 
 
 def connect_to_camera(
-    scene: SceneData, misc: VcmMisc, state: SubPathState, hit_point: V3,
+    scene: SceneData, misc: StageMisc, state: SubPathState, hit_point: V3,
     b: bsdf_ops.BsdfState, enabled_mask, light_trace_only: bool,
 ):
     """ConnectToCamera (vertexcm.hxx:862-933) -> (raster_x, raster_y,
@@ -239,7 +263,7 @@ def connect_to_camera(
 
 
 def sample_scattering(
-    scene: SceneData, misc: VcmMisc, state: SubPathState, hit_point: V3,
+    scene: SceneData, misc: StageMisc, state: SubPathState, hit_point: V3,
     b: bsdf_ops.BsdfState, u, fix_is_light: bool,
 ) -> SubPathState:
     """SampleScattering (vertexcm.hxx:937-1006) — masked wavefront version."""
@@ -301,9 +325,39 @@ def trace_light_paths(
     use_vc: bool, use_vm: bool, light_trace_only: bool,
     rng_kind: str = "threefry",
 ):
-    """Light stage (vertexcm.hxx:321-396) -> (vertices, fb, ray_count)."""
+    """Light stage (vertexcm.hxx:321-396) -> (vertices, fb, ray_count):
+    :func:`light_walk` as one graph (graphs.stage), then the eager flush of
+    its camera splats into ``fb``."""
+    res_y, res_x = fb.x.shape
+    verts, splat_pix, splat_rgb, rays = graphs.stage(
+        light_walk, scene, (pix,),
+        (iteration, misc.mis_vm_weight, misc.mis_vc_weight),
+        (misc.light_sub_path_count, res_x, res_y, base_seed,
+         max_path_length, min_path_length, use_vc, use_vm, light_trace_only,
+         rng_kind))
+    if splat_pix is not None:
+        fb = splat_colors(fb, splat_pix, splat_rgb)
+    return verts, fb, rays
+
+
+def light_walk(
+    scene: SceneData, pix, iteration, mis_vm_weight, mis_vc_weight,
+    light_sub_path_count: float, res_x_fb: int, res_y_fb: int,
+    base_seed: int, max_path_length: int, min_path_length: int,
+    use_vc: bool, use_vm: bool, light_trace_only: bool,
+    rng_kind: str = "threefry",
+):
+    """Emission and the light bounce loop -> (vertices, splat pixels
+    [maxL, N] or None, splat colours V3 of [maxL, N] or None, ray_count).
+
+    ``iteration`` and the two MIS weights are 0-dim device tensors
+    (:class:`StageMisc`); the function makes no host read, so it runs as
+    one CUDA graph (graphs.py). The camera splats are recorded per bounce
+    for :func:`trace_light_paths` to flush; dead or off-screen rows carry
+    the sentinel ``res_x_fb * res_y_fb``."""
     n = pix.shape[0]
     dev = pix.device
+    misc = StageMisc(mis_vm_weight, mis_vc_weight, light_sub_path_count)
     max_l = max(1, max_path_length - 1)
     store_vertices = use_vc or use_vm
     connect_cam = use_vc or light_trace_only
@@ -313,8 +367,8 @@ def trace_light_paths(
     verts = _empty_vertices(max_l, n, dev)
     # Deferred camera-connection splats: each bounce records (pixel, rgb)
     # rows and one deterministic scatter flushes them after the walk.
-    res_y_fb, res_x_fb = fb.x.shape
     pix_sentinel = res_x_fb * res_y_fb
+    splat_pix = splat_rgb = None
     if connect_cam:
         splat_pix = torch.full((max_l, n), pix_sentinel, dtype=torch.int64,
                                device=dev)
@@ -396,9 +450,7 @@ def trace_light_paths(
             scene, misc, state, hit_point, b, u, fix_is_light=True
         )
 
-    if connect_cam:
-        fb = splat_colors(fb, splat_pix, splat_rgb)
-    return verts, fb, rays
+    return verts, splat_pix, splat_rgb, rays
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +459,7 @@ def trace_light_paths(
 
 
 def generate_camera_sample(
-    scene: SceneData, misc: VcmMisc, pix, res_x: int, iteration: int,
+    scene: SceneData, misc: StageMisc, pix, res_x: int, iteration,
     base_seed: int, rng_kind: str = "threefry",
 ):
     """GenerateCameraSample (vertexcm.hxx:564-606)."""
@@ -474,7 +526,7 @@ def get_light_radiance_weighted(
 
 
 def direct_illumination(
-    scene: SceneData, misc: VcmMisc, state: SubPathState, hit_point: V3,
+    scene: SceneData, misc: StageMisc, state: SubPathState, hit_point: V3,
     b: bsdf_ops.BsdfState, u3, active,
 ) -> V3:
     """DirectIllumination (vertexcm.hxx:663-738): NEE contribution.
@@ -525,7 +577,7 @@ def direct_illumination(
 
 
 def connect_vertices(
-    scene: SceneData, misc: VcmMisc, cam_d_vcm, cam_d_vc, cam_hit: V3,
+    scene: SceneData, misc: StageMisc, cam_d_vcm, cam_d_vc, cam_hit: V3,
     cam_b: bsdf_ops.BsdfState, lv_pos: V3, lv_in_dir: V3, lv_normal: V3,
     lv_mat, lv_d_vcm, lv_d_vc, lv_valid,
 ) -> V3:
@@ -594,9 +646,27 @@ def _camera_stage(
     max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
     ppm: bool, rng_kind: str = "threefry",
 ):
-    """Camera sub-paths -> (color V3 [N], queries, ray_count)."""
+    """Camera sub-paths -> (color V3 [N], queries, ray_count):
+    :func:`camera_walk` as one graph (graphs.stage)."""
+    return graphs.stage(
+        camera_walk, scene, (verts, pix),
+        (iteration, misc.mis_vm_weight, misc.mis_vc_weight),
+        (misc.light_sub_path_count, res_x, base_seed, max_path_length,
+         min_path_length, use_vc, use_vm, ppm, rng_kind))
+
+
+def camera_walk(
+    scene, verts, pix, iteration, mis_vm_weight, mis_vc_weight,
+    light_sub_path_count: float, res_x: int, base_seed: int,
+    max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
+    ppm: bool, rng_kind: str = "threefry",
+):
+    """The camera stage -> (color V3 [N], queries or None, ray_count), with
+    the iteration and the MIS weights as 0-dim device tensors and no host
+    read, as :func:`light_walk`."""
     n = pix.shape[0]
     dev = pix.device
+    misc = StageMisc(mis_vm_weight, mis_vc_weight, light_sub_path_count)
     sx, sy, state = generate_camera_sample(
         scene, misc, pix, res_x, iteration, base_seed, rng_kind
     )
@@ -690,11 +760,11 @@ def _camera_stage(
             fl = lambda a: a[:w_conn]
             flv = lambda v: V3(fl(v.x), fl(v.y), fl(v.z))
 
-            full_len = [j + 2 + path_length for j in range(w_conn)]
-            in_range = torch.tensor(
-                [min_path_length <= f <= max_path_length for f in full_len],
-                dtype=torch.bool, device=dev,
-            )[:, None]
+            # Slot j's full path length, formed on the device: a host
+            # list copied to the card would not replay from a graph.
+            full_len = torch.arange(w_conn, device=dev) + (2 + path_length)
+            in_range = ((full_len >= min_path_length)
+                        & (full_len <= max_path_length))[:, None]
             lv_valid = fl(verts.valid) & bro(alive & ~b.is_delta) & in_range
 
             cam_b_t = bsdf_ops.BsdfState(*(

@@ -83,7 +83,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "= the dense sweep, CPU only (an error on a card)")
     p.add_argument("--block", type=int, default=0, dest="block_size",
                    help="accepted for compatibility; no effect (the port "
-                        "renders one iteration per step)")
+                        "renders one iteration per step: the merge reads "
+                        "its live counts on the host between the graphs of "
+                        "the trace stages)")
     p.add_argument("--devices", type=int, default=0,
                    help="shard paths over this many processes (0 = every "
                         "local card, 1 = single device; N > 1 starts N "

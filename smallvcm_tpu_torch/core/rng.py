@@ -8,6 +8,12 @@ so the port draws the same bits as the JAX package for the same seed, and
 any partition of the paths reproduces the same streams. torch's uint32
 arithmetic is partial, so the 32-bit words live in int64 tensors and every
 wrapping operation is masked with ``& 0xFFFFFFFF``.
+
+The iteration, and with it the stream id and the key words, may be a
+Python int or a 0-dim int64 tensor (as the JAX package's traced
+``make_stream`` takes a traced iteration): a stage captured once as a CUDA
+graph (graphs.py) reads its iteration from a device buffer, so no stream
+id is frozen into the capture. Both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -90,7 +96,8 @@ def uniform_slots(seed: int, stream, path_ids, n_slots: int,
     """Generate ``[..., n_slots]`` uniforms in [0, 1) for each path.
 
     seed:      python int (base seed, reference default 1234)
-    stream:    python int identifying (iteration, stage, bounce)
+    stream:    python int or 0-dim int64 tensor identifying (iteration,
+               stage, bounce)
     path_ids:  integer tensor [...] of *global* path indices
     n_slots:   number of random values per path
     generator: "threefry" (default) or "tea" — the reference's LEGACY_RNG
@@ -108,12 +115,15 @@ def uniform_slots(seed: int, stream, path_ids, n_slots: int,
     return torch.stack(out[:n_slots], dim=-1)
 
 
-def make_stream(iteration: int, stage: int, bounce: int = 0) -> int:
-    """Pack (iteration, stage, bounce) into one 32-bit stream id.
+def make_stream(iteration, stage: int, bounce: int = 0):
+    """Pack (iteration, stage, bounce) into one 32-bit stream id: a Python
+    int for an int iteration, a 0-dim int64 tensor for a tensor one.
 
     stage < 8, bounce < 64 — plenty for max path length and pipeline stages.
     """
-    return (int(iteration) * 512 + stage * 64 + bounce) & _MASK
+    if not isinstance(iteration, torch.Tensor):
+        iteration = int(iteration)
+    return (iteration * 512 + (stage * 64 + bounce)) & _MASK
 
 
 # Stage codes (documentation + uniqueness).

@@ -1,0 +1,264 @@
+"""Each trace stage of an iteration as one device program: CUDA graphs.
+
+The port's counterpart of the JAX package's compiled iteration
+(``vcm.trace_iteration``, ``render.py::_simple_block`` and
+``_make_block_runner``). On a card, :func:`stage` captures a stage
+function once as a CUDA graph and replays it on every later call with the
+same key, so a stage's thousands of small kernels cost one host launch.
+The stages are the light walk and the camera stage of the VCM family
+(``algorithms/vcm.py::light_walk``, ``camera_walk``) and the whole pass of
+pt and el (``pathtracer.render_pass``, ``eyelight.render_pass``).
+
+The merge, the light splat flush and the framebuffer accumulation of the
+VCM family stay eager between the replays: they size their work from live
+counts read on the host (``ops/merge.py::merge_prep``,
+``vcm.merge_stage``, ``io/framebuffer.py::deterministic_index_add``),
+which a capture cannot hold. That is the JAX package's own split: one
+program for the two trace stages, host-side sizing, then the merge.
+
+A stage function is called as ``fn(scene, *tensors, *scalars, *static)``:
+
+- ``tensors``: device tensors, or NamedTuples of them. A replay reads them
+  from the graph's input buffers: the tensors of the capturing call,
+  cloned, or, for the outputs of another graph (the light walk's vertices
+  fed to the camera stage), those outputs themselves. A later call's
+  tensors are copied into the buffers first, unless they are the buffers.
+- ``scalars``: Python numbers that change between calls (the iteration,
+  the two MIS weights). Each reaches ``fn`` as a 0-dim device tensor (int
+  -> int64, float -> float32), which a replay fills first. ``fn`` uses
+  them only in device arithmetic: a Python number derived from one would
+  be frozen into the capture.
+- ``static``: hashable values of the key, frozen into the capture.
+- ``fn`` makes no host read (``.item()``, ``.tolist()``, ``nonzero``,
+  boolean indexing) and no host-to-device copy, and launches on the
+  current stream.
+
+A replay returns the graph's output tensors, which the next replay of the
+same graph overwrites: a caller that keeps one across calls clones it.
+
+The key is (``fn``, the scene's tensors by identity and its host
+metadata, the shapes, dtypes and devices of ``tensors``, the scalars'
+types, ``static``, the device). A graph holds raw pointers to the scene's
+memory, and the sweep kernels' scene block is copied into its kernel
+nodes, so an entry goes when any of the scene's tensors dies (as
+``ops/sweep.py::_BLOCKS`` does): ``diff.apply_params`` or the report do
+not pin stale graphs.
+
+The first call of a key runs ``fn`` eagerly: it builds the kernel
+library, packs the scene block and lets CUDA load its modules. The second
+captures (``torch.cuda.graph``, on its side stream) and replays; later
+calls replay. Eager and replayed stages give the same bits, so which call
+captured does not show in the image, and a one-iteration run never
+captures.
+
+Graphs apply on a CUDA device, outside :func:`eager`, whenever autograd
+would record nothing. Under grad mode with a scene tensor or input that
+requires grad (``diff.py``'s gradients, the sweep's autograd Function in
+``ops/sweep.py``) the stage runs eagerly, always. There is no other way
+back to eager launches on a card: a failed capture or replay raises.
+
+The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``)
+are bumped by their wrappers in Python, which run at capture and not at
+replay. So a capture takes its increments back and records them, and each
+replay adds them: the counters count launches on the device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+import weakref
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .ops import merge as merge_ops
+from .ops import sweep as sweep_ops
+
+_EAGER = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every stage eagerly inside the block: the A/B reference of the
+    graphs on a card (chip_smoke.py, the tests)."""
+    global _EAGER
+    _EAGER += 1
+    try:
+        yield
+    finally:
+        _EAGER -= 1
+
+
+def _kernel_counters():
+    return (sweep_ops.sweep_kernel, sweep_ops.occluded_kernel,
+            merge_ops.merge_cells_kernel)
+
+
+def _scene_leaves(scene):
+    """-> (the scene's tensors, its other leaves) in field order."""
+    tensors, meta = [], []
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            tensors.append(obj)
+        elif isinstance(obj, tuple):
+            for v in obj:
+                walk(v)
+        elif dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                walk(getattr(obj, f.name))
+        else:
+            meta.append(obj)
+
+    walk(scene)
+    return tensors, tuple(meta)
+
+
+def why_eager(scene, tensors=()):
+    """Why a stage of ``scene`` on ``tensors`` runs eagerly -> "autograd",
+    "eager()" or "cpu"; None when it runs as a graph."""
+    flat = [*_scene_leaves(scene)[0], *pytree.tree_leaves(tensors)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        return "autograd"
+    if _EAGER:
+        return "eager()"
+    if scene.device.type != "cuda":
+        return "cpu"
+    return None
+
+
+def _scalar(value, dev):
+    dtype = torch.int64 if isinstance(value, int) else torch.float32
+    return torch.full((), value, dtype=dtype, device=dev)
+
+
+class _Graph:
+    """A captured stage: the graph, its input and output tensors and the
+    kernel launches one replay makes."""
+
+    def __init__(self, graph, inputs, scalars, outputs, out_spec, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.scalars = scalars
+        self.outputs = outputs
+        self.out_spec = out_spec
+        self.launches = launches
+
+    def replay(self, flat_in, scalars):
+        for buf, t in zip(self.inputs, flat_in):
+            if t is not buf:
+                buf.copy_(t)
+        for buf, v in zip(self.scalars, scalars):
+            buf.fill_(v)
+        self.graph.replay()
+        for counter, n in zip(_kernel_counters(), self.launches):
+            counter.launches += n
+        stage.replays += 1
+        return pytree.tree_unflatten(self.outputs, self.out_spec)
+
+
+class _Entry:
+    """One key's state: weak references to the scene's tensors, the
+    finalizers that drop the entry when one dies, and the graph once
+    captured (None after the warm-up call)."""
+
+    def __init__(self, key, scene_tensors):
+        self.refs = tuple(map(weakref.ref, scene_tensors))
+        self.finalizers = [weakref.finalize(t, _scene_tensor_died, key)
+                           for t in scene_tensors]
+        self.graph = None
+
+    def alive_for(self, scene_tensors) -> bool:
+        return all(r() is t for r, t in zip(self.refs, scene_tensors))
+
+    def drop(self):
+        for f in self.finalizers:
+            f.detach()
+
+
+_ENTRIES: dict = {}
+# A capture's gc.collect() may run a finalizer: keys whose scene lost a
+# tensor meanwhile are dropped once the capture has ended.
+_CAPTURING = False
+_DEAD: list = []
+
+
+def _drop(key):
+    entry = _ENTRIES.pop(key, None)
+    if entry is not None:
+        entry.drop()
+
+
+def _scene_tensor_died(key):
+    if _CAPTURING:
+        _DEAD.append(key)
+    else:
+        _drop(key)
+
+
+def _owned(t) -> bool:
+    """Is ``t`` an output tensor of a captured graph?"""
+    return any(t is o for e in _ENTRIES.values() if e.graph is not None
+               for o in e.graph.outputs)
+
+
+def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
+    global _CAPTURING
+    inputs = [t if _owned(t) else t.clone() for t in flat_in]
+    bufs = [_scalar(v, dev) for v in scalars]
+    counters = _kernel_counters()
+    before = [c.launches for c in counters]
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    _CAPTURING = True
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn(scene, *pytree.tree_unflatten(inputs, in_spec), *bufs,
+                     *static)
+        launches = [c.launches - b for c, b in zip(counters, before)]
+    finally:
+        _CAPTURING = False
+        for c, b in zip(counters, before):
+            c.launches = b
+        while _DEAD:
+            _drop(_DEAD.pop())
+    stage.captures += 1
+    stage.capture_s += time.perf_counter() - t0
+    outputs, out_spec = pytree.tree_flatten(out)
+    return _Graph(graph, inputs, bufs, outputs, out_spec, launches)
+
+
+def stage(fn, scene, tensors: tuple, scalars: tuple, static: tuple):
+    """``fn(scene, *tensors, *scalars, *static)``: eagerly, or as a CUDA
+    graph replay (see the module docstring for the contract and the key).
+    Counts captures, their host seconds and replays in ``stage.captures``,
+    ``stage.capture_s`` and ``stage.replays``."""
+    flat_in, in_spec = pytree.tree_flatten(tensors)
+    dev = scene.device
+    if why_eager(scene, flat_in) is not None:
+        return fn(scene, *tensors, *(_scalar(v, dev) for v in scalars),
+                  *static)
+    geo, meta = _scene_leaves(scene)
+    key = (fn, tuple(map(id, geo)), meta,
+           tuple((t.shape, t.dtype, t.device) for t in flat_in),
+           tuple(type(v) for v in scalars), static, dev)
+    entry = _ENTRIES.get(key)
+    if entry is not None and not entry.alive_for(geo):
+        _drop(key)
+        entry = None
+    if entry is None:
+        _ENTRIES[key] = _Entry(key, geo)
+        return fn(scene, *tensors, *(_scalar(v, dev) for v in scalars),
+                  *static)
+    with torch.cuda.device(dev):
+        if entry.graph is None:
+            entry.graph = _capture(fn, scene, flat_in, in_spec, scalars,
+                                   static, dev)
+        return entry.graph.replay(flat_in, scalars)
+
+
+stage.captures = 0
+stage.capture_s = 0.0
+stage.replays = 0

@@ -404,6 +404,8 @@ def merge_cells_kernel(qpos, qtab, ranges, ppos, ptab, r2: float,
     return out
 
 
+# Launches on the device, as ops/sweep.py's counters (the merge runs
+# eagerly between the graphs, so no capture holds it).
 merge_cells_kernel.launches = 0
 
 

@@ -209,6 +209,9 @@ def sweep_kernel(scene, org: V3, direction: V3):
     return dist, prim
 
 
+# Kernel launches on the device. A CUDA graph's capture runs this wrapper
+# but launches nothing: graphs.py takes its increment back and adds it at
+# every replay instead.
 sweep_kernel.launches = 0
 
 
@@ -282,6 +285,7 @@ def occluded_kernel(scene, point: V3, direction: V3, dist, active):
     return out
 
 
+# Launches on the device, replays included (see sweep_kernel.launches).
 occluded_kernel.launches = 0
 
 

@@ -17,7 +17,10 @@ contiguous path shard: rank r renders global path ids
 
 Unlike the JAX package, which swaps both Pallas kernels for XLA under a
 mesh, every rank runs the port's kernels on its own card: the cell merge,
-the closest-hit sweep and the any-hit sweep.
+the closest-hit sweep and the any-hit sweep. Neither trace stage
+communicates, so each rank captures its own CUDA graphs of them for its
+``pix`` shard (graphs.py); the all-gather, the ring and the framebuffer sum
+stay eager, around the merge.
 
 The JAX package's ``training_step_spec`` has no counterpart: every rank
 holds the whole scene, so parameters are replicated by construction, and

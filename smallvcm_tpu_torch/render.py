@@ -2,9 +2,14 @@
 
 Port of ``smallvcm_tpu/render.py`` (the reference's ``CreateRenderer``
 factory, config.hxx:112-143, and ``render()`` loop, smallvcm.cxx:52-151)
-for all seven algorithms. PyTorch runs eagerly, so one iteration is one
-unit of work: no blocks of iterations, no static merge caps (the merges
-size their compaction from the live counts) and no grow-and-retry.
+for all seven algorithms. On a card each trace stage of an iteration runs
+as one device program, a CUDA graph (graphs.py): the light walk and the
+camera stage of the VCM family, the whole pass of pt and el. The merge,
+the light splat flush and the framebuffer accumulation run eagerly between
+them, because they size their work from live counts read on the host.
+That host read is why one iteration stays the unit of work: no blocks of
+iterations (``--block`` has no effect), no static merge caps and no
+grow-and-retry.
 
 With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
 group runs :func:`render` with the same configuration: each renders its
@@ -78,8 +83,9 @@ class RenderConfig:
     # the kernel's test reference and is never substituted for it on a
     # card: on CUDA it raises.
     trace_backend: str = "auto"
-    # Accepted for the JAX package's CLI and configs; has no effect: the
-    # eager port renders one iteration per step.
+    # Accepted for the JAX package's CLI and configs; has no effect: an
+    # iteration's merge reads its live counts on the host between the
+    # graphs of its trace stages, so the port renders one iteration a step.
     block_size: int = 0
     # Photon exchange between ranks for merging: "allgather" or "ring"
     # (parallel/sharding.py); unused by a single process.
@@ -126,7 +132,9 @@ def check_backends(scene: SceneData, cfg: RenderConfig) -> None:
 def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                      iteration: int):
     """One iteration of the resolved algorithm -> (image, ray_count); with
-    ``cfg.group``, this rank's shard, summed over the group's ranks."""
+    ``cfg.group``, this rank's shard, summed over the group's ranks. On a
+    card el's and pt's image and count are their graph's outputs, which
+    the next iteration overwrites: clone what you keep."""
     res_x, res_y = cfg.resolution
     if cfg.group is not None:
         if alg in ("el", "pt"):
@@ -159,12 +167,13 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
 
 def render_single_iteration(scene: SceneData, cfg: RenderConfig,
                             iteration: int):
-    """The image of one iteration (not averaged) of ``cfg.algorithm``."""
+    """The image of one iteration (not averaged) of ``cfg.algorithm``, a
+    tensor of its own (never a graph's output)."""
     check_backends(scene, cfg)
     img, _ = render_iteration(scene, cfg,
                               resolve_algorithm(scene, cfg.algorithm),
                               iteration)
-    return img
+    return img.clone()
 
 
 def _sync(device: torch.device) -> None:

@@ -202,12 +202,16 @@ def test_metric_string_is_bench_py_s():
 
 FIELDS = ("metric", "value", "unit", "vs_baseline", "impl", "device",
           "ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
-          "iters", "first_iter_s", "rays_per_iter",
-          "candidate_pairs_pair_merge", "candidate_pairs_cell_merge",
-          "launches_per_iter", "device_ms_per_iter", "busy_share", "stages",
-          "kernels", "kernel_launches", "image_mean")
-DEVICE_FIELDS = ("launches_per_iter", "device_ms_per_iter", "busy_share",
-                 "stages", "kernels", "kernel_launches")
+          "iters", "first_iter_s", "second_iter_s", "capture_s",
+          "rays_per_iter", "candidate_pairs_pair_merge",
+          "candidate_pairs_cell_merge", "launches_per_iter",
+          "host_launch_calls_per_iter", "device_ms_per_iter", "busy_share",
+          "stages", "kernels", "kernel_launches", "peak_allocated_gib",
+          "peak_reserved_gib", "image_mean")
+DEVICE_FIELDS = ("capture_s", "launches_per_iter",
+                 "host_launch_calls_per_iter", "device_ms_per_iter",
+                 "busy_share", "stages", "kernels", "kernel_launches",
+                 "peak_allocated_gib", "peak_reserved_gib")
 SMALL = ("--device", "cpu", "--res", "16", "--iters", "1", "--repeats", "2",
          "--warmup", "1")
 
@@ -225,6 +229,7 @@ def test_json_line_contract_on_cpu():
     assert rec["device"] == "cpu"
     assert all(rec[k] is None for k in DEVICE_FIELDS)
     assert rec["repeats"] == 2 and rec["iters"] == 1
+    assert rec["first_iter_s"] > 0 and rec["second_iter_s"] > 0
     assert rec["ms_per_iter_min"] <= rec["ms_per_iter"] \
         <= rec["ms_per_iter_max"]
     assert rec["rays_per_iter"] > 0 and rec["value"] > 0
@@ -322,6 +327,8 @@ def test_split_profile_attributes_by_launch_time():
     ]
     got = bench_torch.split_profile(events)
     assert got["launches"] == 8
+    # Launch calls inside the iteration: ids 1-5 and 7 (8 starts after it).
+    assert got["host_launch_calls"] == 6
     assert got["device_ms"] == pytest.approx(4.41)
     st = got["stages"]
     assert (st["light"]["launches"], st["light"]["device_ms"]) == (1, 2.0)
@@ -340,6 +347,51 @@ def test_split_profile_attributes_by_launch_time():
         bench_torch.split_profile(events[:13])
 
 
+def test_split_profile_counts_graph_launches():
+    """A graph's kernels share the correlation id of its cudaGraphLaunch:
+    they go to the stage of that one host launch call, which counts once
+    however many kernels the graph holds; its copy nodes are copies."""
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _event("bench::iteration", cpu, 0, 100),
+        _event("bench::light", cpu, 10, 30),
+        _event("bench::camera", cpu, 30, 60),
+        _event("bench::merge", cpu, 60, 80),
+        _event("cudaLaunchKernel", cpu, 11, id=1),
+        _event("cudaGraphLaunch", cpu, 20, id=2),
+        _event("cudaGraphLaunch", cpu, 40, id=3),
+        _event("cudaLaunchKernelExC", cpu, 65, id=4),
+        _event("cuLaunchKernel", cpu, 66, id=5),
+        _event("cudaStreamSynchronize", cpu, 90, id=6),
+        _event("elementwise_kernel", gpu, 12, id=1, us=10.0),
+        *(_event("elementwise_kernel", gpu, 21 + i, id=2, us=100.0)
+          for i in range(5)),
+        _event("intersect_sweep_kernel", gpu, 27, id=2, us=20.0),
+        *(_event("reduce_kernel", gpu, 41 + i, id=3, us=200.0)
+          for i in range(7)),
+        _event("occluded_sweep_kernel", gpu, 49, id=3, us=30.0),
+        _event("merge_cells_kernel", gpu, 67, id=5, us=40.0),
+        _event("sort_kernel", gpu, 66, id=4, us=5.0),
+        # A graph's copy node runs as a kernel named memcpy*: a copy.
+        _event("memcpy128", gpu, 22, id=2, us=3.0),
+        _event("memcpy32_post", gpu, 42, id=3, us=3.0),
+        _event("Memset (Unknown)", gpu, 43, id=3, us=3.0),
+    ]
+    got = bench_torch.split_profile(events)
+    assert got["launches"] == 17 and got["host_launch_calls"] == 5
+    st = got["stages"]
+    assert (st["light"]["launches"], st["light"]["host_launch_calls"]) \
+        == (7, 2)
+    assert (st["camera"]["launches"], st["camera"]["host_launch_calls"]) \
+        == (8, 1)
+    assert (st["merge"]["launches"], st["merge"]["host_launch_calls"]) \
+        == (2, 2)
+    assert st["unattributed"]["launches"] == 0
+    assert st["camera"]["device_ms"] == pytest.approx(1.43)
+    assert got["kernels"]["intersect_sweep"] == dict(launches=1,
+                                                      device_ms=0.02)
+
+
 def test_every_timing_comes_before_the_first_profile(tmp_path, monkeypatch):
     """--full times all seven algorithms before it profiles any: a
     profiled process launches more slowly afterwards."""
@@ -347,8 +399,10 @@ def test_every_timing_comes_before_the_first_profile(tmp_path, monkeypatch):
 
     def fake_time(scene, cfg, iters, repeats, warmup):
         calls.append(("time", cfg.algorithm))
-        return dict(first_iter_s=1.0, warmup_ms=[], per_iter_ms=[2.0, 4.0],
-                    kernel_launches={}, image_mean=0.1)
+        return dict(first_iter_s=1.0, second_iter_s=0.5, capture_s=None,
+                    warmup_ms=[], per_iter_ms=[2.0, 4.0], kernel_launches={},
+                    peak_allocated_gib=None, peak_reserved_gib=None,
+                    image_mean=0.1)
 
     def fake_profile(scene, cfg, iteration=1):
         calls.append(("profile", cfg.algorithm))

@@ -178,6 +178,34 @@ def test_render_on_card_matches_cpu(dev):
     assert abs(got.mean() / want.mean() - 1.0) <= 1e-4
 
 
+@pytest.mark.parametrize("alg", ["vcm", "pt", "el", "lt", "bpm"])
+def test_graphs_equal_eager_on_card(dev, alg):
+    """The trace stages as CUDA graphs (graphs.py) against graphs.eager():
+    iterations 0 (eager), 1 (captured) and 2-3 (replayed) bit for bit,
+    with equal rays and kernel launch counts (replays counted)."""
+    from smallvcm_tpu_torch import graphs
+
+    def run():
+        scene = load_cornell_box((16, 16), SCENE_CONFIGS[0], device=dev)
+        cfg = R.RenderConfig(algorithm=alg, resolution=(16, 16))
+        counters = (S.sweep_kernel, S.occluded_kernel, M.merge_cells_kernel)
+        before = [c.launches for c in counters]
+        out = []
+        for it in range(4):
+            img, rays = R.render_iteration(scene, cfg, alg, it)
+            out.append((img.clone(), int(rays)))
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    captures = graphs.stage.captures
+    got, got_launches = run()
+    assert graphs.stage.captures > captures
+    with graphs.eager():
+        want, want_launches = run()
+    assert got_launches == want_launches and got_launches[0] > 0
+    for (a, ra), (b, rb) in zip(got, want):
+        assert torch.equal(a, b) and ra == rb
+
+
 def test_sweep_autograd_matches_plain(dev):
     """The kernel's autograd Function against the plain sweep's autograd,
     on the card: distances to rtol 1e-6, ray gradients to rtol 1e-5."""
