@@ -26,9 +26,11 @@ repeats), and the peak device memory from the first iteration to the last
 repeat (``torch.cuda.max_memory_allocated`` and
 ``max_memory_reserved``: a graph's private pool stays reserved between
 replays; under ``--full`` the reserved peak includes the graphs of the
-algorithms timed before). The port renders one iteration a step (the
-merge's host reads sit between the graphs), so there is no block of
-iterations.
+algorithms timed before). A timed repeat is ONE block of ``--iters``
+iterations (``RenderConfig.block_size``, bench.py's ``BLOCK = 8``): on a
+card each iteration is one replay of its CUDA graph and the block reads
+the host once, at its end (render.py). The merge caps are measured (or
+read from the port's cache) before the first iteration.
 
 Counts, from the iteration with index 1 (bench.py's ``start_iteration=1``):
 ``rays_per_iter`` is ``render()``'s ray count, path segments plus enabled
@@ -40,22 +42,35 @@ cell merge's, the candidates its kernel walks.
 
 Profile, on a card, after every timing of the run (a process that has
 been profiled launches more slowly afterwards; PERF.md, PR 7): one
-iteration (index 1) under ``torch.profiler`` (CPU
-and CUDA), with ``record_function`` ranges put around the light stage
-(``vcm.trace_light_paths``), the camera stage (``vcm._camera_stage``) and
-the merge (``vcm._merge``) for the length of that call, and one around
-the whole ``render()``. Kernel launches are the CUDA events other than
-copies and fills (COPY_EVENTS, as chip_smoke.py counts them); each goes to
-the stage whose range was open when the CPU called the CUDA API to launch
-it (a graph's kernels share its ``cudaGraphLaunch``);
-``rest`` is the iteration outside the three stages (the framebuffer sums).
-A kernel the profiler gives no launch time inside a range is counted as
-``unattributed`` and said on stderr. ``host_launch_calls_per_iter`` counts
-the CUDA runtime's launch calls of the iteration (``cudaLaunchKernel*``,
-``cuLaunchKernel*``, ``cudaGraphLaunch``): what the host issues, where
-``launches_per_iter`` counts the kernels the device runs.
-``busy_share`` is the profiled device ms over the unprofiled median
-ms/iteration. On ``--device cpu`` every device field is null.
+iteration (index 1), a block of one, under ``torch.profiler`` (CPU and
+CUDA), with a ``record_function`` range around the whole ``render()``.
+Kernel launches are the CUDA events other than copies and fills
+(COPY_EVENTS, as chip_smoke.py counts them). ``host_launch_calls_per_iter``
+counts the CUDA runtime's launch calls of that iteration
+(``cudaLaunchKernel*``, ``cuLaunchKernel*``, ``cudaGraphLaunch``): what
+the host issues, where ``launches_per_iter`` counts the kernels the device
+runs. The stage split (``stages``) profiles the same iteration
+again under ``graphs.eager()`` (the whole iteration is one graph
+launch, which has no stages), with ranges around the light walk
+(``vcm.light_walk``), the camera stage (``vcm.camera_walk``) and the
+merge (``vcm._merge``): each kernel goes to the stage whose range was open
+when the CPU called the CUDA API to launch it; ``rest`` is the iteration
+outside the three stages (the splat flush and the framebuffer sums). A
+kernel the profiler gives no launch time inside a range is counted as
+``unattributed`` and said on stderr. Then three blocks of ``--iters``
+iterations through render.py's block runner: ``host_syncs_per_block``
+counts the synchronising operations of the first (run under
+``torch.cuda.set_sync_debug_mode("warn")``, each one a warning); the
+second, profiled, gives ``block_host_launch_calls_per_iter`` (its launch
+calls over its iterations); the third, unprofiled with CUDA events around
+each graph replay, gives ``busy_share``: the device time inside the
+replays over the device time from the first replay's start to the last
+one's end. (Until the iteration was one graph, busy_share divided the
+profiled iteration's device ms by the unprofiled median: the profiler
+lengthens each kernel a little, so on a device busy all the time that
+ratio read above 1; and under the profiler the device waits between a
+graph's kernels, so a profiled block reads far below 1.) On ``--device
+cpu`` every device field is null.
 
 ``--full`` times all seven algorithms in this process, one after the
 other, and appends one record to BENCH_TORCH_HISTORY.jsonl (or
@@ -79,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -99,7 +115,7 @@ SETTLE = 0.3                  # two warm-up iterations within 30% = settled
 HISTORY = ROOT / "BENCH_TORCH_HISTORY.jsonl"
 RANGE = "bench::"
 # (label, function of algorithms/vcm.py) for the profiled stage split.
-STAGES = (("light", "trace_light_paths"), ("camera", "_camera_stage"),
+STAGES = (("light", "light_walk"), ("camera", "camera_walk"),
           ("merge", "_merge"))
 # Device events that copy or fill rather than compute. A CUDA graph runs
 # a device-to-device copy node as a kernel named memcpy*, where the eager
@@ -321,24 +337,110 @@ def split_profile(events) -> dict:
                 stages=stages, kernels=by_kernel)
 
 
+def block_host_counts(scene, cfg, start: int, k: int) -> dict:
+    """Three blocks of ``k`` iterations from ``start`` through render.py's
+    block runner, on a card -> {"host_syncs": the synchronising operations
+    of the first (``torch.cuda.set_sync_debug_mode("warn")``: each one
+    warns), "sync_sites": the file:line each warned at,
+    "host_launch_calls": the CUDA runtime's launch calls of the second
+    (profiled, CPU activity only), "busy_share": of the third, the device
+    time inside its graph replays over the device time from the first
+    replay's start to the last one's end (CUDA events around each replay,
+    no profiler: on one stream the replays' spans are disjoint, so it is at
+    most 1, and below 1 by the device's waits on the host between
+    iterations)}. The runner is built first: a merge cap measurement is
+    not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallvcm_tpu_torch import graphs
+    from smallvcm_tpu_torch import render as R
+
+    alg = R.resolve_algorithm(scene, cfg.algorithm)
+    run = R._make_block_runner(scene, cfg, alg)
+    res_x, res_y = cfg.resolution
+    accum = torch.zeros((res_y, res_x, 3), device=scene.device)
+    torch.cuda.synchronize(scene.device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(start, k, accum)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    torch.cuda.synchronize(scene.device)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(start, k, accum)
+    torch.cuda.synchronize(scene.device)
+
+    spans = []
+    replay = graphs._Graph.replay
+
+    def timed(self, *args):
+        ends = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        ends[0].record()
+        out = replay(self, *args)
+        ends[1].record()
+        spans.append(ends)
+        return out
+
+    graphs._Graph.replay = timed
+    try:
+        run(start, k, accum)
+    finally:
+        graphs._Graph.replay = replay
+    torch.cuda.synchronize(scene.device)
+    if len(spans) != k:
+        raise RuntimeError(f"{len(spans)} graph replays in a block of {k}")
+    return dict(
+        host_syncs=len(sites), sync_sites=sites,
+        host_launch_calls=sum(e.name.startswith(LAUNCH_CALLS)
+                              for e in prof.events()),
+        busy_share=sum(a.elapsed_time(b) for a, b in spans)
+        / spans[0][0].elapsed_time(spans[-1][1]))
+
+
 def profile_iteration(scene, cfg, iteration: int = COUNT_ITERATION):
     """``render()`` of the one iteration ``iteration`` -> (its ray count,
-    split_profile of it on a card, else None)."""
+    on a card split_profile of it with the eager stage split as
+    ``stages`` and a block of ``cfg.block_size`` from it, else None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
 
     one = dataclasses.replace(cfg, iterations=iteration + 1)
     if scene.device.type != "cuda":
         return R.render(scene, one, start_iter=iteration)[3], None
-    with stage_ranges(record_function), profile(
-            activities=[ProfilerActivity.CPU,
-                        ProfilerActivity.CUDA]) as prof:
-        with record_function(RANGE + "iteration"):
-            rays = R.render(scene, one, start_iter=iteration)[3]
-        torch.cuda.synchronize(scene.device)
-    return rays, split_profile(prof.events())
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(RANGE + "iteration"):
+                rays = R.render(scene, one, start_iter=iteration)[3]
+            torch.cuda.synchronize(scene.device)
+        return rays, split_profile(prof.events())
+
+    t0 = time.perf_counter()
+    rays, out = profiled()
+    t1 = time.perf_counter()
+    with graphs.eager(), stage_ranges(record_function):
+        out["stages"] = profiled()[1]["stages"]
+    t2 = time.perf_counter()
+    block = cfg.block_size or R.auto_block_size(cfg, cfg.algorithm)
+    counts = block_host_counts(scene, cfg, iteration, block)
+    eprint(f"[profile] {cfg.algorithm}: profiled iteration {t1 - t0:.1f} s, "
+           f"eager stage split {t2 - t1:.1f} s, three blocks of {block} "
+           f"{time.perf_counter() - t2:.1f} s")
+    out.update(block=block, host_syncs_per_block=counts["host_syncs"],
+               block_host_launch_calls_per_iter=(
+                   counts["host_launch_calls"] / block),
+               busy_share=counts["busy_share"])
+    return rays, out
 
 
 def pair_counts(scene, res: int, rays: int) -> dict:
@@ -353,7 +455,7 @@ def pair_counts(scene, res: int, rays: int) -> dict:
     out = {}
     for key, backend in (("candidate_pairs_pair_merge", "xla"),
                          ("candidate_pairs_cell_merge", "auto")):
-        _, r, stats = vcm.render_iteration_core(
+        _, r, _, stats = vcm.render_iteration_core(
             scene, COUNT_ITERATION, pix, res, res, n, merge_backend=backend)
         if int(r) != rays:
             raise RuntimeError(f"{backend} merge run: {int(r)} rays, "
@@ -362,16 +464,19 @@ def pair_counts(scene, res: int, rays: int) -> dict:
     return out
 
 
-def bench_config(alg: str, res: int):
+def bench_config(alg: str, res: int, block: int):
+    """``alg`` at res x res, ``block`` iterations a block (a timed repeat
+    is one block)."""
     from smallvcm_tpu_torch import render as R
 
-    return R.RenderConfig(algorithm=alg, resolution=(res, res))
+    return R.RenderConfig(algorithm=alg, resolution=(res, res),
+                          block_size=block)
 
 
 def algorithm_record(scene, alg: str, args, t: dict) -> dict:
     """One algorithm's record from its timing ``t`` (time_algorithm) and
     its profiled iteration."""
-    cfg = bench_config(alg, args.res)
+    cfg = bench_config(alg, args.res, args.iters)
     ms = median_spread(t["per_iter_ms"])
     rays, prof = profile_iteration(scene, cfg)
     on_card = prof is not None
@@ -386,8 +491,13 @@ def algorithm_record(scene, alg: str, args, t: dict) -> dict:
         launches_per_iter=prof["launches"] if on_card else None,
         host_launch_calls_per_iter=(prof["host_launch_calls"] if on_card
                                     else None),
+        block=args.iters,
+        host_syncs_per_block=(prof["host_syncs_per_block"] if on_card
+                              else None),
+        block_host_launch_calls_per_iter=(
+            prof["block_host_launch_calls_per_iter"] if on_card else None),
         device_ms_per_iter=prof["device_ms"] if on_card else None,
-        busy_share=prof["device_ms"] / ms["median"] if on_card else None,
+        busy_share=prof["busy_share"] if on_card else None,
         stages=prof["stages"] if on_card else None,
         kernels=prof["kernels"] if on_card else None,
         kernel_launches=t["kernel_launches"] if on_card else None,
@@ -408,7 +518,10 @@ def log_record(alg: str, r: dict) -> None:
         line += (f"; second iteration {r['second_iter_s']:.2f} s (captures "
                  f"{r['capture_s']:.2f} s); {r['launches_per_iter']} "
                  f"launches from {r['host_launch_calls_per_iter']} host "
-                 f"launch calls, {r['device_ms_per_iter']:.3f} device ms, "
+                 f"launch calls (in a block of {r['block']}: "
+                 f"{r['block_host_launch_calls_per_iter']:.2f} an "
+                 f"iteration, {r['host_syncs_per_block']} host syncs), "
+                 f"{r['device_ms_per_iter']:.3f} device ms, "
                  f"busy share {r['busy_share']:.4f}; peak "
                  f"{r['peak_allocated_gib']:.3f} GiB allocated, "
                  f"{r['peak_reserved_gib']:.3f} GiB reserved")
@@ -432,9 +545,11 @@ def result_line(rec: dict, pairs: dict, device: str, res: int) -> dict:
     rays_per_s = rec["rays_per_iter"] / (rec["ms_per_iter"] / 1e3)
     baseline = rec["rays_per_iter"] / REFERENCE_VCM_SCENE0_SECONDS
     keys = ("ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
-            "iters", "first_iter_s", "second_iter_s", "rays_per_iter")
+            "iters", "block", "first_iter_s", "second_iter_s",
+            "rays_per_iter")
     device_keys = ("capture_s", "launches_per_iter",
-                   "host_launch_calls_per_iter", "device_ms_per_iter",
+                   "host_launch_calls_per_iter", "host_syncs_per_block",
+                   "block_host_launch_calls_per_iter", "device_ms_per_iter",
                    "busy_share", "stages", "kernels", "kernel_launches",
                    "peak_allocated_gib", "peak_reserved_gib")
     return {"metric": metric_name(res), "value": round(rays_per_s),
@@ -454,7 +569,7 @@ def parse_args(argv=None):
                          "raises)")
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--iters", type=int, default=8,
-                    help="iterations per timed repeat")
+                    help="iterations per timed repeat, run as one block")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=6,
                     help="at most this many settle iterations")
@@ -494,7 +609,8 @@ def main(argv=None) -> int:
         algs.append("vcm")
     # Every timing comes before the first profiler session: a process
     # that has been profiled launches more slowly afterwards.
-    timings = {alg: time_algorithm(scene, bench_config(alg, args.res),
+    timings = {alg: time_algorithm(scene,
+                                   bench_config(alg, args.res, args.iters),
                                    args.iters, args.repeats, args.warmup)
                for alg in algs}
     records = {}

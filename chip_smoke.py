@@ -16,17 +16,22 @@ Phases (each one raises on failure; nothing is caught):
    on every bounce and the any-hit entry on every shadow-ray call, with
    rays, active fraction and kernel ms per call site, a 2,097,152-ray
    connection-sized launch, and the sweeps' device ms and the kernel
-   launches of one iteration from torch.profiler (with the trace stages
-   as graphs, and eagerly);
-4. the merge kernel against its plain version on every query of the merge
-   tables of one real 512x512 scene-0 VCM iteration, a bitwise second
-   launch, its candidate-pair counts and its bound;
+   launches of one iteration from torch.profiler (the iteration as one
+   graph, and eagerly);
+4. the merge kernel against its plain version on every row of the merge
+   tables of one real 512x512 scene-0 VCM iteration at the main path's
+   static caps (dead rows zero; the live count, r^2 and the MIS weight
+   read from device memory), a bitwise second launch, its candidate-pair
+   counts and its bound; the cell size formed on the device against the
+   host's at the main path's radii;
 5. the golden image (tests/data/torch_golden_vcm_s0_32.npz, rendered by
    the JAX package) against the port's render on the card, and a bitwise
    repeat of that render;
 6. the main path through the CLI entry: VCM, scene 0, 512x512, 8
-   iterations -> BMP, ms/iteration, rays/s, image mean against the
-   reference, kernel launch counts, and a bitwise-repeatable second run;
+   iterations at the default block (one block of 8) -> BMP, image mean
+   against the reference, kernel launch counts (the merge's once an
+   iteration), and the same render with ``--block 1``: the same BMP bytes,
+   ms/iteration and rays/s from its per-iteration lines;
 7. eye light (2 iterations) and path tracing (8 iterations) at 512x512
    through the CLI: ms/iteration, rays/s, image mean against the
    reference, sweep launches, a bitwise second run; their 32x32 JAX
@@ -66,21 +71,38 @@ Phases (each one raises on failure; nothing is caught):
     defaults) as a subprocess; its stdout must be one JSON line with every
     field finite, ``rays_per_iter`` equal to phase 6's rays of iteration
     1, ``launches_per_iter`` within 1% of phase 3's profiled count, a busy
-    share in (0, 1] and every kernel launched; the line and its stage
-    split are logged;
+    share (the device time inside a block's graph replays over their
+    span, CUDA events) in (0, 1], every
+    kernel launched, a timed repeat one block of 8
+    with one host sync and at most BLOCK_HOST_CALLS_MAX host launch calls
+    an iteration; the line and its (eager) stage split are logged;
 16. graphs against eager: scene 0 at 512x512, vcm and pt iterations 0-3,
-    el, lt, ppm, bpm and bpt 0-2, each algorithm on a fresh scene through
-    ``render.render_iteration`` with the trace stages as CUDA graphs
-    (graphs.py: iteration 0 eager, 1 captures, later ones replay) and
-    under ``graphs.eager()``: images bit for bit, rays and the kernels'
+    el, lt, ppm, bpm and bpt 0-2, each algorithm on a fresh scene, a block
+    of one an iteration through render.py's block runner with the
+    iteration (VCM family) or pass (el, pt) as a CUDA graph (graphs.py:
+    iteration 0 eager, 1 captures, later ones replay) and under
+    ``graphs.eager()``: images bit for bit, rays and the kernels'
     ``.launches`` equal, ms/iteration both ways, the host launch calls of
-    one profiled iteration both ways (at most 1,500 for vcm and 100 for pt
-    on the graphs) and its device events by name, and the captures' host
-    seconds.
+    one profiled block both ways (at most 100 for vcm and pt on the graphs)
+    and its device events by name, and the captures' host seconds;
+17. blocks: VCM 512x512 ``-i 8`` at the auto block through ``render()``,
+    cold and warm: ms/iteration, one capture, one host sync a block
+    (``torch.cuda.set_sync_debug_mode``), host launch calls an iteration,
+    the merge launched once an iteration, peak memory, the caps; the same
+    render with ``--block 1`` and under ``graphs.eager()`` bit for bit
+    (blocks add their iterations to the running image one by one, so the
+    bound is 0); iteration 3 replayed from the iteration graph against the
+    eager iteration with ``merge_cells_plain`` (rtol 1e-4, atol 1e-6);
+    tiny frozen caps (0.05) grow and re-render the block to the same bytes;
+    a second process reads the caps from the cache and measures nothing;
+    ppm and bpm in a block of 8; el and pt in a block of 64 with one host
+    sync; ``scripts/torch_scaling.py --res 2048 --ranks 1`` through the
+    block runner: peak memory on one card.
 
-Phases 6-15 run on the graph path wherever it applies (every render of two
+Phases 6-17 run on the graph path wherever it applies (every render of two
 or more iterations captures at its second); phase 3 records its call sites
-and profiles under ``graphs.eager()``, since a replay runs no Python.
+and profiles under ``graphs.eager()``, since a replay runs no Python. The
+merge caps are cached in a directory of this run alone.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -102,6 +124,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
@@ -393,6 +416,7 @@ def check_occlusion(torch, dev):
 
     scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
     cfg = R.RenderConfig(algorithm="vcm", iterations=1, resolution=(RES, RES))
+    R._ensure_merge_caps(scene, cfg, "vcm")   # measured here, not recorded
     calls = record_iteration(torch, scene, cfg)
 
     hit_ms = 0.0
@@ -484,9 +508,11 @@ def merge_work(torch, M, tabs, r2, max_pl, min_pl):
     """What the cell walk's inputs ask of it: candidate pairs, pairs within
     r, pairs that pass the r^2 test and the path-length window, and the
     bytes and operations the bound counts (each needed input byte read
-    once: the ranges; a candidate's position and path length, of query and
-    photon; the other fields a passing pair uses; the output)."""
-    qpos, ppos, ranges = tabs.qpos, tabs.ppos, tabs.ranges
+    once: the live count, r^2, the MIS weight; the live queries' ranges; a
+    candidate's position and path length, of query and photon; the other
+    fields a passing pair uses; the output, every row of the cap)."""
+    n_live = int(tabs.n_q)
+    qpos, ppos, ranges = tabs.qpos, tabs.ppos, tabs.ranges[:, :n_live]
     n_q, n_p = qpos.shape[0], ppos.shape[0]
     q_cand = torch.zeros(n_q, dtype=torch.bool, device=qpos.device)
     q_pass, p_cand, p_pass = q_cand.clone(), q_cand.new_zeros(n_p), \
@@ -505,7 +531,7 @@ def merge_work(torch, M, tabs, r2, max_pl, min_pl):
         q_pass[qs[ok]] = True
         p_pass[ps[ok]] = True
     per_q = (ranges[M.ROWS:] - ranges[:M.ROWS]).sum(0)
-    n_bytes = 4 * (2 * M.ROWS * n_q + 3 * n_q
+    n_bytes = 4 * (3 + 2 * M.ROWS * n_live + 3 * n_q
                    + 4 * int(q_cand.sum())
                    + MERGE_QUERY_FIELDS * int(q_pass.sum())
                    + 4 * int(p_cand.sum())
@@ -513,17 +539,33 @@ def merge_work(torch, M, tabs, r2, max_pl, min_pl):
     n_ops = MERGE_OPS_CANDIDATE * cand + MERGE_OPS_PASS * passing
     return dict(candidates=cand, in_radius=near, passing=passing,
                 max_per_query=int(per_q.max()),
-                mean_per_query=cand / n_q, bytes=n_bytes, ops=n_ops)
+                mean_per_query=cand / n_live, bytes=n_bytes, ops=n_ops)
 
 
 def check_merge(torch, dev):
+    """Phase 4: the kernel against its plain version on the merge tables of
+    one real iteration at the main path's caps (every row, live and dead),
+    with n_q, r^2 and the MIS weight in device memory as in the graph; the
+    cell size formed on the device against the host's for the main path's
+    radii."""
+    from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.algorithms import vcm
     from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
+    from smallvcm_tpu_torch.ops import hashgrid
     from smallvcm_tpu_torch.ops import merge as M
     from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
 
     scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
     n = RES * RES
+    for it in range(64):
+        r = vcm.compute_misc(scene, it, n, 0.003, 0.75, True, True).radius
+        t = torch.tensor(r, dtype=torch.float32, device=dev)
+        if float(torch.reciprocal(t * 2.0)) != hashgrid.inv_cell_size(r):
+            raise AssertionError(f"merge: the device's cell size differs "
+                                 f"from the host's at iteration {it}")
+    cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES))
+    R._ensure_merge_caps(scene, cfg, "vcm")
+    caps = vcm.merge_caps(cfg.photon_factor, cfg.query_factor, n)
     pix = torch.arange(n, device=dev)
     misc = vcm.compute_misc(scene, 0, n, 0.003, 0.75, True, True)
     fb = new_fb_planes(RES, RES, dev)
@@ -531,10 +573,17 @@ def check_merge(torch, dev):
                                          True, True, False)
     _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, RES, SEED,
                                       10, 0, True, True, False)
-    tabs = M.merge_prep(scene, misc, queries, verts, n)
+    tabs = M.merge_prep(scene, misc, queries, verts, n, *caps)
     n_q, n_p = tabs.qtab.shape[0], tabs.ptab.shape[0]
-    kw = dict(max_path_length=10, min_path_length=0, ppm=False)
-    args = (*tabs[:5], misc.radius_sqr, misc.mis_vc_weight)
+    live_q, live_p = int(tabs.n_q), int(tabs.n_p)
+    if live_q > n_q or live_p > n_p:
+        raise AssertionError(f"merge: caps {caps} below the live counts "
+                             f"({live_p} photons, {live_q} queries)")
+    kw = dict(max_path_length=10, min_path_length=0, ppm=False,
+              n_live=tabs.n_q)
+    dev_scalar = lambda v: torch.full((), v, device=dev)
+    args = (*tabs[:5], dev_scalar(misc.radius_sqr),
+            dev_scalar(misc.mis_vc_weight))
     out = M.merge_cells_kernel(*args, **kw)
     again = M.merge_cells_kernel(*args, **kw)
     want = M.merge_cells_plain(*args, **kw)
@@ -543,20 +592,25 @@ def check_merge(torch, dev):
         raise AssertionError("merge: a second launch is not bitwise equal")
     if float(want.abs().sum()) <= 0.0:
         raise AssertionError("merge: no query found a photon")
+    if bool(out[:, live_q:].any()):
+        raise AssertionError("merge: a dead query row is not zero")
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-6)
     err = float((out - want).abs().max())
     ms = time_cuda(torch, lambda: M.merge_cells_kernel(*args, **kw), 50)
     plain_ms = time_cuda(torch, lambda: M.merge_cells_plain(*args, **kw), 3)
     w = merge_work(torch, M, tabs, misc.radius_sqr, 10, 0)
     b_ms, b_by = bound_ms(w["bytes"], w["ops"])
-    log(f"[merge] {n_q} queries, {n_p} photons; candidate pairs "
-        f"{w['candidates']} (max {w['max_per_query']}, mean "
-        f"{w['mean_per_query']:.3f} per query), within r {w['in_radius']}, "
-        f"passing r and window {w['passing']}; all queries checked: "
-        f"max|err|={err:.3g}, second launch bitwise equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms; bound {1e3 * b_ms:.2f} us "
-        f"by {b_by} ({w['bytes']} B, {w['ops']} ops), kernel at "
-        f"{100 * b_ms / ms:.1f}% of it")
+    log(f"[merge] caps {n_q} queries ({live_q} live), {n_p} photons "
+        f"({live_p} live; photon_factor {cfg.photon_factor}, query_factor "
+        f"{cfg.query_factor}); candidate pairs {w['candidates']} (max "
+        f"{w['max_per_query']}, mean {w['mean_per_query']:.3f} per live "
+        f"query), within r {w['in_radius']}, passing r and window "
+        f"{w['passing']}; all rows checked: max|err|={err:.3g}, dead rows "
+        f"zero, second launch bitwise equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms; bound {1e3 * b_ms:.2f} us by {b_by} "
+        f"({w['bytes']} B, {w['ops']} ops), kernel at "
+        f"{100 * b_ms / ms:.1f}% of it; device cell size equal to the "
+        f"host's at iterations 0-63")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -595,15 +649,16 @@ def check_golden(torch, dev, path=GOLDEN):
         raise AssertionError("golden: port disagrees with the JAX image")
 
 
-_ITER = re.compile(r"iter (\d+): luminance=\S+ mean=(\S+) rays=(\d+) "
-                   r"dt=([\d.]+)s")
+_BLOCK_LINE = re.compile(r"iter (\d+)\.\.(\d+): luminance=\S+ mean=(\S+) "
+                         r"rays=(\d+) dt=([\d.]+)s")
 
 
 def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
             extra=(), quiet: bool = False, rendered: int | None = None):
-    """cli.main on scene 0 at RES x RES on one card -> the per-iteration
-    (index, mean, rays, dt) tuples of its -v lines (``rendered`` of them,
-    default ``n_iter``; fewer when a checkpoint resumes the run)."""
+    """cli.main on scene 0 at RES x RES on one card -> the per-block
+    (first iteration, last iteration, mean so far, rays, dt) tuples of its
+    -v lines, which must cover ``rendered`` iterations (default
+    ``n_iter``; fewer when a checkpoint resumes the run) in order."""
     argv = ["-s", "0", "-a", alg, "-i", str(n_iter), "--resolution",
             str(RES), str(RES), "-o", out_path, "--device", "cuda",
             "--devices", "1", "-v", *extra]
@@ -615,12 +670,18 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
         log("\n".join("  | " + line for line in text.splitlines()))
     if rc != 0:
         raise AssertionError(f"cli exited {rc}")
-    iters = [m.groups() for m in _ITER.finditer(text)]
+    blocks = [(int(a), int(b), float(m), int(r), float(dt))
+              for a, b, m, r, dt in _BLOCK_LINE.findall(text)]
     rendered = n_iter if rendered is None else rendered
-    if len(iters) != rendered:
-        raise AssertionError(f"cli: expected {rendered} per-iteration "
-                             "lines")
-    return iters
+    expect = n_iter - rendered
+    for a, b, *_ in blocks:
+        if a != expect or b < a:
+            break
+        expect = b + 1
+    if not blocks or expect != n_iter:
+        raise AssertionError(f"cli: -v blocks {blocks} do not cover "
+                             f"iterations {n_iter - rendered}..{n_iter - 1}")
+    return blocks
 
 
 def reset_counts(M, S):
@@ -635,16 +696,19 @@ def read_counts(M, S) -> dict:
                 merge_cells=M.merge_cells_kernel.launches)
 
 
-def steady(iters):
-    """(ms/iteration after the first, rays/s after the first, mean)."""
-    dts = [float(it[3]) for it in iters]
-    rays = [int(it[2]) for it in iters]
-    tail = slice(1, None) if len(iters) > 1 else slice(None)
-    ms = 1e3 * sum(dts[tail]) / len(dts[tail])
-    return ms, sum(rays[tail]) / sum(dts[tail]), float(iters[-1][1])
+def steady(blocks):
+    """(ms/iteration after the first block, rays/s after the first block,
+    mean) of run_cli's blocks (all of them when there is one)."""
+    tail = blocks[1:] if len(blocks) > 1 else blocks
+    iters = sum(b - a + 1 for a, b, *_ in tail)
+    dt = sum(x[4] for x in tail)
+    return 1e3 * dt / iters, sum(x[3] for x in tail) / dt, blocks[-1][2]
 
 
 def check_main_path(torch):
+    """Phase 6: VCM -i 8 through cli.main at the default block (one block
+    of 8), then with ``--block 1`` (eight blocks of one): BMP bytes equal,
+    the merge launched once an iteration."""
     import numpy as np
 
     from smallvcm_tpu_torch import cli
@@ -654,31 +718,38 @@ def check_main_path(torch):
     with tempfile.TemporaryDirectory() as tmp:
         bmp1, bmp2 = f"{tmp}/vcm1.bmp", f"{tmp}/vcm2.bmp"
         reset_counts(M, S)
-        iters = run_cli(cli, bmp1)
+        blocks = run_cli(cli, bmp1)
         launches = read_counts(M, S)
-        iters2 = run_cli(cli, bmp2, quiet=True)
+        singles = run_cli(cli, bmp2, extra=("--block", "1"), quiet=True)
         b1, b2 = Path(bmp1).read_bytes(), Path(bmp2).read_bytes()
 
     if len(b1) != 54 + RES * RES * 3:
         raise AssertionError(f"cli: BMP is {len(b1)} bytes")
-    dts = [float(it[3]) for it in iters]
-    rays = [int(it[2]) for it in iters]
-    mean = float(iters[-1][1])
+    if [(a, b) for a, b, *_ in blocks] != [(0, 7)] or len(singles) != 8:
+        raise AssertionError(f"cli: blocks {blocks}, singles {singles}")
+    dts = [x[4] for x in singles]
+    rays = [x[3] for x in singles]
+    mean = blocks[-1][2]
     if not np.isfinite(mean) or abs(mean / REFERENCE_MEAN - 1) > MEAN_TOL:
         raise AssertionError(f"cli: image mean {mean} vs {REFERENCE_MEAN}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched {name}")
-    if b1 != b2 or [it[1] for it in iters] != [it[1] for it in iters2]:
-        raise AssertionError("cli: second render is not bitwise equal")
+    if launches["merge_cells"] != 8:
+        raise AssertionError(f"main path: {launches['merge_cells']} merge "
+                             "launches for 8 iterations")
+    if b1 != b2 or singles[-1][2] != mean or sum(rays) != blocks[0][3]:
+        raise AssertionError("cli: --block 1 render is not bitwise the "
+                             "block of 8")
     ms_iter = 1e3 * sum(dts[1:]) / len(dts[1:])
     rays_s = sum(rays[1:]) / sum(dts[1:])
-    log(f"[main] vcm 512x512 x8 via cli.main: first iteration "
-        f"{dts[0] * 1e3:.1f} ms, then {ms_iter:.1f} ms/iteration, "
-        f"{rays_s:.4g} rays/s ({rays[-1]} rays/iteration); image mean "
-        f"{mean:.6f} vs reference {REFERENCE_MEAN} "
-        f"({100 * (mean / REFERENCE_MEAN - 1):+.2f}%); launches {launches}; "
-        f"second run bitwise equal")
+    log(f"[main] vcm 512x512 x8 via cli.main: one block of 8 in "
+        f"{blocks[0][4] * 1e3:.1f} ms (iteration 0 eager, 1 captures the "
+        f"iteration graph); --block 1: first iteration {dts[0] * 1e3:.1f} "
+        f"ms, then {ms_iter:.1f} ms/iteration, {rays_s:.4g} rays/s "
+        f"({rays[-1]} rays/iteration); image mean {mean:.6f} vs reference "
+        f"{REFERENCE_MEAN} ({100 * (mean / REFERENCE_MEAN - 1):+.2f}%); "
+        f"launches {launches}; --block 1 bitwise equal to the block of 8")
     return launches, ms_iter, rays_s, rays[1]
 
 
@@ -704,7 +775,7 @@ def check_simple_paths(torch):
         if launches["intersect_sweep"] <= 0 or launches["merge_cells"] \
                 or (launches["occluded_sweep"] > 0) != (alg == "pt"):
             raise AssertionError(f"{alg}: launches {launches}")
-        if not same or [i[1] for i in iters] != [i[1] for i in iters2]:
+        if not same or [i[2] for i in iters] != [i[2] for i in iters2]:
             raise AssertionError(f"{alg}: second run not bitwise equal")
         log(f"[{alg}] {RES}x{RES} x{n_iter} via cli.main: {ms:.2f} "
             f"ms/iteration, {rays_s:.4g} rays/s; mean {mean:.6f} vs "
@@ -734,7 +805,7 @@ def check_family_paths(torch):
             raise AssertionError(f"{alg}: mean {mean} vs {ref}, launches "
                                  f"{launches}")
         log(f"[{alg}] {RES}x{RES} x2 via cli.main: first "
-            f"{float(iters[0][3]) * 1e3:.1f} ms, then {ms:.1f} ms/iteration,"
+            f"{iters[0][4] * 1e3:.1f} ms, then {ms:.1f} ms/iteration,"
             f" {rays_s:.4g} rays/s; mean {mean:.6f} vs reference {ref} "
             f"({100 * (mean / ref - 1):+.2f}%); launches {launches}")
         out[alg] = dict(ms=ms, rays_s=rays_s, mean=mean, launches=launches)
@@ -1280,7 +1351,12 @@ BENCH_FIELDS = ("value", "vs_baseline", "ms_per_iter", "ms_per_iter_min",
                 "candidate_pairs_pair_merge", "candidate_pairs_cell_merge",
                 "launches_per_iter", "host_launch_calls_per_iter",
                 "device_ms_per_iter", "busy_share", "peak_allocated_gib",
-                "peak_reserved_gib", "image_mean")
+                "peak_reserved_gib", "image_mean", "block",
+                "host_syncs_per_block", "block_host_launch_calls_per_iter")
+# Host launch calls an iteration of a VCM block of 8, at most: 760 an
+# iteration with the stage graphs alone (PERF.md §5); each replay of the
+# iteration graph adds its scalar fills and the block's sums.
+BLOCK_HOST_CALLS_MAX = 50
 
 
 def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
@@ -1314,6 +1390,14 @@ def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
                              f"phase 3 profiled {launches_per_iteration}")
     if not 0 < rec["busy_share"] <= 1:
         raise AssertionError(f"bench: busy share {rec['busy_share']}")
+    if rec["block"] != rec["iters"] or rec["host_syncs_per_block"] != 1 \
+            or rec["block_host_launch_calls_per_iter"] \
+            > BLOCK_HOST_CALLS_MAX:
+        raise AssertionError(
+            f"bench: block {rec['block']} of {rec['iters']} iterations, "
+            f"{rec['host_syncs_per_block']} host syncs, "
+            f"{rec['block_host_launch_calls_per_iter']} host launch calls "
+            f"an iteration (at most {BLOCK_HOST_CALLS_MAX})")
     counts = rec["kernel_launches"]
     if set(counts) != {"merge_cells", "intersect_sweep", "occluded_sweep"} \
             or min(counts.values()) <= 0:
@@ -1332,9 +1416,11 @@ def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
 # Phase 16: (algorithm, iterations 0..n-1) rendered with graphs and eagerly.
 GRAPH_CASES = (("vcm", 4), ("pt", 4), ("el", 3), ("lt", 3), ("ppm", 3),
                ("bpm", 3), ("bpt", 3))
-# Host launch calls of one graph iteration, at most (36,493 and 17,711
-# eager kernels an iteration before the graphs, PERF.md §5).
-GRAPH_HOST_CALLS_MAX = dict(vcm=1500, pt=100)
+# Host launch calls of one block of one iteration, at most (36,493 and
+# 17,711 eager kernels an iteration before the graphs, 760 and 8 with the
+# stage graphs alone, PERF.md §5): the iteration's graph, its scalar
+# fills and the block's sums and read.
+GRAPH_HOST_CALLS_MAX = dict(vcm=100, pt=100)
 
 
 def launch_profile(torch, fn):
@@ -1360,10 +1446,10 @@ def launch_profile(torch, fn):
 
 def _graph_run(torch, dev, alg: str, n_iter: int) -> dict:
     """Iterations 0..n_iter-1 of ``alg`` on a fresh scene-0 scene, one
-    ``render_iteration`` call each -> cloned images, rays, the kernels'
-    launches, ms per iteration, the captures' host seconds, and the host
-    launch calls and device events of one more call of the last
-    iteration."""
+    block of one through render.py's block runner each (the merge caps
+    sized before) -> the images, rays, the kernels' launches, ms per
+    iteration, the captures' host seconds, and the host launch calls and
+    device events of one more block of the last iteration."""
     from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.ops import merge as M
@@ -1372,21 +1458,21 @@ def _graph_run(torch, dev, alg: str, n_iter: int) -> dict:
 
     scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
     cfg = R.RenderConfig(algorithm=alg, resolution=(RES, RES))
-    resolved = R.resolve_algorithm(scene, alg)
+    run = R._make_block_runner(scene, cfg, R.resolve_algorithm(scene, alg))
+    zeros = lambda: torch.zeros((RES, RES, 3), device=dev)
     reset_counts(M, S)
     captures, capture_s = graphs.stage.captures, graphs.stage.capture_s
     imgs, rays, ms = [], [], []
     for it in range(n_iter):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img, r = R.render_iteration(scene, cfg, resolved, it)
-        imgs.append(img.clone())
-        rays.append(int(r))
-        torch.cuda.synchronize()
+        block = run(it, 1, zeros())
+        imgs.append(block.accum)
+        rays.append(block.rays)
         ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_counts(M, S)
-    calls, device = launch_profile(torch, lambda: R.render_iteration(
-        scene, cfg, resolved, n_iter - 1))
+    acc = zeros()
+    calls, device = launch_profile(torch, lambda: run(n_iter - 1, 1, acc))
     return dict(imgs=imgs, rays=rays, launches=launches, ms=ms,
                 captures=graphs.stage.captures - captures,
                 capture_s=graphs.stage.capture_s - capture_s,
@@ -1394,8 +1480,9 @@ def _graph_run(torch, dev, alg: str, n_iter: int) -> dict:
 
 
 def check_graphs(torch, dev) -> dict:
-    """Phase 16: every algorithm's trace stages as CUDA graphs against
-    ``graphs.eager()`` -> the kernels' launches by path."""
+    """Phase 16: every algorithm's iteration (VCM family) or pass (el, pt)
+    as a CUDA graph against ``graphs.eager()`` -> the kernels' launches by
+    path."""
     import statistics
 
     from smallvcm_tpu_torch import graphs
@@ -1447,6 +1534,241 @@ def check_graphs(torch, dev) -> dict:
     return out
 
 
+# Phase 17: merging algorithms' other blocks, and el/pt's auto block.
+BLOCK_ITERS = 8
+SIMPLE_BLOCK = 64
+# A subprocess that renders one VCM iteration with the cached caps.
+_CAPS_PROBE = """
+import json, sys
+sys.path.insert(0, {root!r})
+from smallvcm_tpu_torch import render as R
+from smallvcm_tpu_torch.algorithms import vcm
+from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+scene = load_cornell_box(({res}, {res}), SCENE_CONFIGS[0], device="cuda")
+cfg = R.RenderConfig(algorithm="vcm", iterations=1, resolution=({res}, {res}))
+how = R._ensure_merge_caps(scene, cfg, "vcm")
+R.render(scene, cfg)
+print(json.dumps(dict(how=how, measured=vcm.merge_measure_iteration.calls,
+                      photon_factor=cfg.photon_factor,
+                      query_factor=cfg.query_factor)))
+"""
+
+
+class _Run(NamedTuple):
+    """A phase-17 render: image, seconds, rays, its config after the run
+    (grown caps), the kernels' launches, graph captures and stdout."""
+    img: object
+    secs: float
+    rays: int
+    cfg: object
+    launches: dict
+    captures: int
+    out: str
+
+
+def _blocks_render(torch, scene, alg: str, iters: int, **kw) -> _Run:
+    """render() of ``alg`` at RES x RES, ``iters`` iterations."""
+    from smallvcm_tpu_torch import graphs
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+
+    cfg = R.RenderConfig(algorithm=alg, iterations=iters,
+                         resolution=(RES, RES), **kw)
+    reset_counts(M, S)
+    captures = graphs.stage.captures
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        img, secs, done, rays = R.render(scene, cfg)
+    torch.cuda.synchronize()
+    if done != iters or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"blocks {alg}: {done} iterations, finite "
+                             f"{bool(torch.isfinite(img).all())}")
+    return _Run(img, secs, rays, cfg, read_counts(M, S),
+                graphs.stage.captures - captures, buf.getvalue())
+
+
+def check_blocks(torch, dev) -> dict:
+    """Phase 17: the block runner on the card -> the kernels' launches by
+    path."""
+    from bench_torch import block_host_counts
+    from smallvcm_tpu_torch import graphs
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.algorithms import vcm
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    t_phase = time.perf_counter()
+
+    def blog(msg):
+        log(f"[blocks +{time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    n = RES * RES
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    launches = {}
+
+    # (a) The main path with blocks: VCM -i 8 at the auto block, cold (the
+    # iteration graph captured at iteration 1) and again (replays).
+    torch.cuda.reset_peak_memory_stats(dev)
+    cold = _blocks_render(torch, scene, "vcm", BLOCK_ITERS)
+    warm = _blocks_render(torch, scene, "vcm", BLOCK_ITERS)
+    img, secs, rays, cfg, counts = warm[:5]
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            torch.cuda.max_memory_reserved(dev) / 2 ** 30)
+    block = R.auto_block_size(cfg, "vcm")
+    host = block_host_counts(scene, cfg, BLOCK_ITERS, block)
+    if block != BLOCK_ITERS or cold.captures != 1 or warm.captures:
+        raise AssertionError(f"blocks: auto block {block}, captures "
+                             f"{cold.captures} cold and {warm.captures} warm")
+    if counts["merge_cells"] != BLOCK_ITERS or host["host_syncs"] != 1:
+        raise AssertionError(f"blocks: {counts['merge_cells']} merge "
+                             f"launches for {BLOCK_ITERS} iterations, "
+                             f"{host['host_syncs']} host syncs a block "
+                             f"(at {host['sync_sites']})")
+    calls_iter = host["host_launch_calls"] / block
+    busy = host["busy_share"]
+    if calls_iter > BLOCK_HOST_CALLS_MAX or not 0 < busy <= 1:
+        raise AssertionError(f"blocks: {calls_iter} host launch calls an "
+                             f"iteration (at most {BLOCK_HOST_CALLS_MAX}), "
+                             f"busy share {busy}")
+    caps = vcm.merge_caps(cfg.photon_factor, cfg.query_factor, n)
+    launches["blocks_vcm"] = counts
+    blog(f"vcm {RES}x{RES} -i {BLOCK_ITERS} at the auto block "
+        f"({block}): {1e3 * secs / BLOCK_ITERS:.2f} ms/iteration warm "
+        f"(cold {1e3 * cold.secs / BLOCK_ITERS:.2f}, {cold.captures} capture); "
+        f"{host['host_syncs']} host sync a block (at {host['sync_sites']}); "
+        f"{calls_iter:.2f} host launch calls an iteration "
+        f"({host['host_launch_calls']} a block); busy share {busy:.4f} "
+        f"(device time in the replays over their span); launches "
+        f"{counts}; peak "
+        f"{peak[0]:.3f} GiB allocated, {peak[1]:.3f} reserved; caps "
+        f"photon_factor {cfg.photon_factor} ({caps[0]} rows), query_factor "
+        f"{cfg.query_factor} ({caps[1]} rows); image mean "
+        f"{float(img.mean()):.6f}")
+
+    # (b) Blocks against single iterations and against eager: every block
+    # adds its iterations to the running image one by one, so the bits
+    # are the same whatever the partition (bound: 0).
+    singles = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, block_size=1)
+    with graphs.eager():
+        eager = _blocks_render(torch, scene, "vcm", BLOCK_ITERS)
+    for name, other in (("--block 1", singles), ("graphs.eager()", eager)):
+        diff = float((other.img - img).abs().max())
+        rel = abs(float(other.img.mean()) / float(img.mean()) - 1.0)
+        if rel > 1e-6 or not torch.equal(other.img, img) \
+                or other.rays != rays or other.launches != counts:
+            raise AssertionError(f"blocks: {name} differs (max |diff| "
+                                 f"{diff}, mean rel {rel}, rays {other.rays} "
+                                 f"vs {rays}, launches {other.launches})")
+    blog(f"block of {BLOCK_ITERS} vs --block 1 "
+        f"({1e3 * singles.secs / BLOCK_ITERS:.2f} ms/iteration) and vs "
+        f"graphs.eager() ({1e3 * eager.secs / BLOCK_ITERS:.2f} ms/iteration):"
+        f" images bit for bit (max |diff| 0, bound 0: the same association)"
+        f", rays and launches equal")
+
+    # The merge kernel inside the iteration graph against its plain
+    # version: iteration 3 replayed, and eagerly with the plain merge.
+    real = M.merge_cells
+    replayed = vcm.render_block_with_stats(
+        scene, 3, RES, RES, 1, photon_factor=cfg.photon_factor,
+        query_factor=cfg.query_factor)[0].clone()
+    try:
+        M.merge_cells = M.merge_cells_plain
+        with graphs.eager():
+            plain = vcm.render_block_with_stats(
+                scene, 3, RES, RES, 1, photon_factor=cfg.photon_factor,
+                query_factor=cfg.query_factor)[0]
+    finally:
+        M.merge_cells = real
+    torch.testing.assert_close(replayed, plain, rtol=1e-4, atol=1e-6)
+    merge_err = float((replayed - plain).abs().max())
+    blog(f"iteration 3 replayed from the iteration graph vs eager "
+        f"with merge_cells_plain: max |err| {merge_err:.3g} (rtol 1e-4, "
+        f"atol 1e-6)")
+
+    # (c) Forced overflow: tiny frozen caps grow and the block renders
+    # again, to the bytes of the measured caps.
+    forced = _blocks_render(torch, scene, "vcm", BLOCK_ITERS,
+                            photon_factor=0.05, query_factor=0.05,
+                            merge_caps_frozen=True)
+    if "merge cap overflow" not in forced.out \
+            or not torch.equal(forced.img, img) \
+            or forced.cfg.photon_factor <= 0.05 \
+            or forced.cfg.query_factor <= 0.05:
+        raise AssertionError(f"blocks: forced overflow: {forced.out!r}, "
+                             f"image equal {torch.equal(forced.img, img)}")
+    launches["blocks_overflow"] = forced.launches
+    blog(f"forced overflow (caps 0.05): {forced.out.strip()}; grown "
+        f"to photon_factor {forced.cfg.photon_factor}, query_factor "
+        f"{forced.cfg.query_factor}; image bit for bit the measured caps'; "
+        f"{1e3 * forced.secs / BLOCK_ITERS:.2f} ms/iteration with the "
+        f"re-render; launches {forced.launches}")
+
+    # (d) The caps cache: another process reads it and measures nothing.
+    probe = subprocess.run(
+        [sys.executable, "-c", _CAPS_PROBE.format(root=str(ROOT), res=RES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"caps probe: {probe.stderr[-2000:]}")
+    got = json.loads(probe.stdout.splitlines()[-1])
+    if got["how"] != "cached" or got["measured"] != 0 \
+            or got["photon_factor"] != forced.cfg.photon_factor \
+            or got["query_factor"] != forced.cfg.query_factor:
+        raise AssertionError(f"caps probe: {got}")
+    blog(f"caps cache {R._caps_cache_file()}: a second process "
+        f"read {got} and measured nothing")
+
+    # (e) ppm and bpm in blocks; el and pt in one block of 64.
+    for alg in ("ppm", "bpm"):
+        r = _blocks_render(torch, scene, alg, BLOCK_ITERS)
+        mean = float(r.img.mean())
+        if r.launches["merge_cells"] != BLOCK_ITERS \
+                or abs(mean / PARITY_MEAN[alg] - 1) > 0.05:
+            raise AssertionError(f"blocks {alg}: launches {r.launches}, "
+                                 f"mean {mean}")
+        launches[f"blocks_{alg}"] = r.launches
+        blog(f"{alg} -i {BLOCK_ITERS}: one block, "
+            f"{1e3 * r.secs / BLOCK_ITERS:.2f} ms/iteration, mean {mean:.6f}, "
+            f"launches {r.launches}")
+    for alg in ("el", "pt"):
+        cfg = R.RenderConfig(algorithm=alg, resolution=(RES, RES))
+        block = R.auto_block_size(cfg, alg)
+        r = _blocks_render(torch, scene, alg, SIMPLE_BLOCK)
+        host = block_host_counts(scene, cfg, SIMPLE_BLOCK, block)
+        mean = float(r.img.mean())
+        tol = 0.005 if alg == "el" else 0.03
+        if block != SIMPLE_BLOCK or host["host_syncs"] != 1 \
+                or abs(mean / PARITY_MEAN[alg] - 1) > tol:
+            raise AssertionError(f"blocks {alg}: block {block}, "
+                                 f"{host['host_syncs']} host syncs (at "
+                                 f"{host['sync_sites']}), mean {mean}")
+        launches[f"blocks_{alg}"] = r.launches
+        blog(f"{alg} -i {SIMPLE_BLOCK}: one block of {block}, "
+            f"{host['host_syncs']} host sync, "
+            f"{host['host_launch_calls'] / block:.2f} host launch calls an "
+            f"iteration, busy share {host['busy_share']:.4f}; "
+            f"{1e3 * r.secs / SIMPLE_BLOCK:.3f} ms/iteration; mean "
+            f"{mean:.6f}")
+
+    # (f) 2048x2048 on one card through the block runner.
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_scaling.py"),
+         "--res", "2048", "--ranks", "1"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    log("\n".join("  | " + line for line in proc.stdout.splitlines()[:-1]))
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_scaling 2048: {proc.stderr[-2000:]}")
+    run = json.loads(proc.stdout.splitlines()[-1])["runs"][0]
+    if "out_of_memory" in run or not math.isfinite(run["mean"]):
+        raise AssertionError(f"torch_scaling 2048: {run}")
+    blog(f"2048x2048 on one card through the block runner: peak "
+        f"{run['peak_GiB'][0]} GiB allocated, {run['peak_reserved_GiB'][0]} "
+        f"reserved; its two iterations (one eager, one capturing) "
+        f"{run['rank_ms_min'][0]:.1f}-{run['rank_ms_max'][0]:.1f} ms; mean "
+        f"{run['mean']:.6f}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1466,6 +1788,10 @@ def main() -> int:
 
     card = card_line()
     log(f"[card] {card}")
+    # The merge caps' cache of this run alone: the first merging render
+    # measures, later ones and phase 17's second process read it.
+    caps_dir = tempfile.TemporaryDirectory(prefix="svcm_caps_")
+    os.environ["SMALLVCM_TPU_TORCH_CACHE"] = caps_dir.name
     t0 = time.perf_counter()
     _cuda.load_library()
     log(f"[build] kernels built and loaded in "
@@ -1514,6 +1840,8 @@ def main() -> int:
     phase_done("phase 15 (bench)")
     graph_r = check_graphs(torch, dev)
     phase_done("phase 16 (graphs against eager)")
+    blocks = check_blocks(torch, dev)
+    phase_done("phase 17 (blocks)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -1529,6 +1857,7 @@ def main() -> int:
         "bench": bench[name],
         **{f"graphs_{alg}": r["launches"][name] for alg, r in
            graph_r.items()},
+        **{path: n[name] for path, n in blocks.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",
@@ -1547,6 +1876,7 @@ def main() -> int:
              launches=launches["occluded_sweep"],
              launches_by_path=by_path("occluded_sweep"), **occl_r),
     ]
+    caps_dir.cleanup()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

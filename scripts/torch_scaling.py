@@ -20,7 +20,9 @@ max |err| against one rank's.
 
 The sharded-memory regime: ``--res 2048 --exchange ring`` renders 2
 iterations (no warm one) on every visible card, ``--res 2048 --ranks 1``
-in one process (the second iteration captures the graphs); each rank's
+in one process through render.py's block runner (the merge caps measured
+or read from the cache first; the second iteration captures the
+whole-iteration graph); each rank's
 ``torch.cuda.max_memory_allocated`` and ``max_memory_reserved`` (a
 graph's private memory pool stays reserved between replays), the image
 mean against the JAX package's record (artifacts/mesh2048_summary.json:
@@ -80,19 +82,20 @@ def _exchange_ms(torch, comm, group, dev, n_rank: int, exchange: str):
     return statistics.median(times)
 
 
-def _iteration(torch, scene, res: int, it: int, exchange: str, group):
+def _iteration(torch, scene, res: int, it: int, exchange: str, group,
+               runner):
     """One VCM iteration of the whole frame (summed over the group's
-    ranks) -> (image, merge stats [candidate pairs, photons, queries])."""
-    from smallvcm_tpu_torch.algorithms import vcm
+    ranks) -> (image, merge stats [candidate pairs, photons, queries]).
+    One process renders through ``runner``, render.py's block runner, with
+    a block of 1: the whole iteration as one CUDA graph on a card."""
     from smallvcm_tpu_torch.parallel import sharding
 
     if group is None:
-        pix = torch.arange(res * res, device=scene.device)
-        img, _, stats = vcm.render_iteration_core(scene, it, pix, res, res,
-                                                  res * res)
-    else:
-        img, _, stats = sharding.sharded_render_iteration_with_stats(
-            group, scene, it, res, res, vm_exchange=exchange)
+        zeros = torch.zeros((res, res, 3), device=scene.device)
+        block = runner(it, 1, zeros)
+        return block.accum, block.stats
+    img, _, stats = sharding.sharded_render_iteration_with_stats(
+        group, scene, it, res, res, vm_exchange=exchange)
     return img, stats
 
 
@@ -101,6 +104,7 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
     """One rank's share (or the single process): render, time, measure."""
     import torch
 
+    from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.parallel import comm, multihost
     from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
 
@@ -108,13 +112,18 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
     dev = multihost.rank_device(device)
     w = 1 if group is None else comm.world_size(group)
     scene = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
+    runner = None
+    if group is None:
+        runner = R._make_block_runner(
+            scene, R.RenderConfig(algorithm="vcm", resolution=(res, res)),
+            "vcm")
     out = dict(device=str(dev), world=w,
                backend=None if group is None else
                str(torch.distributed.get_backend(group)))
     it = 0
     if warm:
         for it in range(2):
-            _iteration(torch, scene, res, it, exchange, group)
+            _iteration(torch, scene, res, it, exchange, group, runner)
         it += 1
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -125,7 +134,7 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
             _sync(torch, dev)
             t0 = time.perf_counter()
             img, stats = _iteration(torch, scene, res, it + k, exchange,
-                                    group)
+                                    group, runner)
             _sync(torch, dev)
             ms.append(1e3 * (time.perf_counter() - t0))
             acc = img if acc is None else acc + img

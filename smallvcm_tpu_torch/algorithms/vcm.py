@@ -23,17 +23,25 @@ camera loop is the JAX package's *unrolled* form: bounce i connects to the
 static window of w_i = min(maxL, maxPath - 2 - i) light slots, which is
 the only part of the vertex table its path lengths can reach.
 
-On a card, the light walk (:func:`light_walk`: emission and the bounce
-loop, without the splat flush) and the camera stage (:func:`camera_walk`)
-each run as one CUDA graph (graphs.py), the counterpart of the JAX
-package's one-program ``trace_iteration``. They take the iteration and the
-two MIS weights as 0-dim device tensors (:class:`StageMisc`), so no value
-of one iteration is frozen into the capture. The splat flush, the merge
-and the framebuffer accumulation run eagerly between the replays.
+On a card, :func:`render_block_with_stats` (the JAX package's
+``render_block_with_stats``) runs each iteration as ONE CUDA graph
+(graphs.py): :func:`iteration_stage` holds the light walk
+(:func:`light_walk`), the splat flush, the camera stage
+(:func:`camera_walk`), the cell merge at static photon and query caps
+(ops/merge.py) and the framebuffer sums. It takes the iteration, the
+radius, r^2, the vm normalization and the two MIS weights as 0-dim device
+tensors, filled before each replay from :func:`compute_misc`'s host
+floats, so no value of one iteration is frozen into the capture, and it
+makes no host read: overflow and merge stats stay on the device until the
+block's end. :func:`render_iteration_core` is the per-stage form, for
+sharded ranks (the exchange sits between the stages) and the pair merge
+(host reads): there the light walk and the camera stage are each one graph
+and the rest runs eagerly between them.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +52,7 @@ from ..core import rng
 from ..core.vec3 import V3, dot, len_sqr, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, PI_F, pdf_w_to_a, sqr
 from ..io.framebuffer import (add_color_at_pix, deterministic_index_add,
-                              new_fb_planes, splat_colors)
+                              new_fb_planes, splat_colors, total_luminance)
 from ..ops import bsdf as bsdf_ops
 from ..ops import hashgrid as grid_ops
 from ..ops import lights as light_ops
@@ -145,12 +153,32 @@ def _store_slot(verts: StoredVertices, i: int, **fields) -> None:
             dst[i] = val
 
 
+# id of a scene sphere's radius tensor -> (weak reference, its value); the
+# entry goes with the tensor.
+_RADII: dict = {}
+
+
+def _scene_radius(scene: SceneData) -> float:
+    """The scene sphere's radius as a host float, read from the device once
+    per tensor: compute_misc runs before every iteration of a block, whose
+    one host read is at its end."""
+    t = scene.scene_sphere.radius
+    kept = _RADII.get(id(t))
+    if kept is not None and kept[0]() is t:
+        return kept[1]
+    value = float(t)
+    if kept is None:
+        weakref.finalize(t, _RADII.pop, id(t), None)
+    _RADII[id(t)] = (weakref.ref(t), value)
+    return value
+
+
 def compute_misc(
     scene: SceneData, iteration: int, n_light_paths: int, radius_factor,
     radius_alpha, use_vc: bool, use_vm: bool,
 ) -> VcmMisc:
     f = np.float32
-    base_radius = f(radius_factor) * f(float(scene.scene_sphere.radius))
+    base_radius = f(radius_factor) * f(_scene_radius(scene))
     radius = base_radius / np.power(
         f(iteration) + f(1.0), f(0.5 * (1.0 - radius_alpha))
     )
@@ -951,9 +979,14 @@ def unpack_vertices(t: torch.Tensor) -> StoredVertices:
 
 def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
            min_path_length: int, n_paths_global: int, merge_backend: str,
-           vm_exchange: str, group):
+           vm_exchange: str, group, photon_cap: int | None = None,
+           query_cap: int | None = None):
     """The deferred merge of this process's queries -> (color_add V3 [n],
-    stats int64 [3]).
+    overflow int64, stats int64 [3]).
+
+    The cell merge takes the static caps (None: the tables' slot counts,
+    which cannot overflow); the pair merge sizes its work from the live
+    counts and never overflows.
 
     Single process: against its own photons. With ``group``, against every
     rank's: "allgather" gathers the packed tables in rank order, so the
@@ -965,27 +998,31 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
     8 cells per path (JAX vcm.py:1321)."""
     n = queries.valid.shape[1]
     if merge_backend == "xla":
-        merge = lambda lv: merge_stage(
-            scene, misc, queries, lv, ppm, max_path_length, min_path_length,
-            n, num_cells=8 * n_paths_global, with_stats=True)
+        def merge(lv):
+            color, stats = merge_stage(
+                scene, misc, queries, lv, ppm, max_path_length,
+                min_path_length, n, num_cells=8 * n_paths_global,
+                with_stats=True)
+            return color, torch.zeros_like(stats[0]), stats
     else:
         merge = lambda lv: cell_merge.merge_stage(
             scene, misc, queries, lv, ppm, max_path_length, min_path_length,
-            n, with_stats=True)
+            n, photon_cap, query_cap, with_stats=True)
     if group is None:
         return merge(verts)
     if vm_exchange == "allgather":
         return merge(unpack_vertices(
             comm.all_gather_columns(pack_vertices(verts), group)))
-    color, stats = merge(verts)
+    color, overflow, stats = merge(verts)
     visiting = pack_vertices(verts)
     for _ in range(comm.world_size(group) - 1):
         visiting = comm.ring_shift(visiting, group)
-        c, st = merge(unpack_vertices(visiting))
+        c, o, st = merge(unpack_vertices(visiting))
         color = color + c
+        overflow = overflow + o
         stats = torch.stack([stats[0] + st[0], torch.maximum(stats[1], st[1]),
                              torch.maximum(stats[2], st[2])])
-    return color, stats
+    return color, overflow, stats
 
 
 def render_iteration_core(
@@ -1008,10 +1045,13 @@ def render_iteration_core(
     merge_backend: str = "auto",
     vm_exchange: str = "allgather",
     group=None,
+    photon_cap: int | None = None,
+    query_cap: int | None = None,
 ):
-    """One VCM-family iteration over the path ids ``pix`` -> (this
-    process's image [resY, resX, 3] f32, ray_count, merge stats int64
-    [candidate pairs, live photons, live queries]).
+    """One VCM-family iteration over the path ids ``pix``, stage by stage
+    -> (this process's image [resY, resX, 3] f32, ray_count, merge
+    overflow int64, merge stats int64 [candidate pairs, live photons,
+    live queries]).
 
     ``pix`` holds *global* path/pixel ids: RNG streams and the camera pixel
     mapping depend only on them, so any partition of
@@ -1025,9 +1065,10 @@ def render_iteration_core(
 
     ``merge_backend``: "auto" and "pallas" take the cell merge
     (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
-    CPU), the port of the JAX package's Pallas merge; "xla" takes the
-    differentiable pair-expansion :func:`merge_stage`, the JAX package's
-    XLA merge.
+    CPU), the port of the JAX package's Pallas merge, at the static caps
+    ``photon_cap`` / ``query_cap`` (None: the slot counts, no overflow);
+    "xla" takes the differentiable pair-expansion :func:`merge_stage`, the
+    JAX package's XLA merge.
 
     The ray count is path segments plus enabled shadow/connection rays,
     the reference-comparable work metric (bench.py's count)."""
@@ -1041,6 +1082,7 @@ def render_iteration_core(
     misc = compute_misc(scene, iteration, n_paths_global, radius_factor,
                         radius_alpha, use_vc, use_vm)
     fb = new_fb_planes(res_x, res_y, dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     stats = torch.zeros((3,), dtype=torch.int64, device=dev)
 
     # ---- Stage 1: light sub-paths.
@@ -1049,7 +1091,7 @@ def render_iteration_core(
         min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
     )
     if light_trace_only:
-        return fb.to_array(), ray_count, stats
+        return fb.to_array(), ray_count, overflow, stats
 
     # ---- Stage 2: camera sub-paths.
     color, queries, cam_rays = _camera_stage(
@@ -1059,14 +1101,15 @@ def render_iteration_core(
 
     # ---- Stage 3: deferred merging.
     if use_vm:
-        mc, stats = _merge(scene, misc, queries, verts, ppm, max_path_length,
-                           min_path_length, n_paths_global, merge_backend,
-                           vm_exchange, group)
+        mc, overflow, stats = _merge(
+            scene, misc, queries, verts, ppm, max_path_length,
+            min_path_length, n_paths_global, merge_backend, vm_exchange,
+            group, photon_cap, query_cap)
         color = color + mc
 
     # Camera contributions always land on the path's own pixel.
     fb = add_color_at_pix(fb, pix, color)
-    return fb.to_array(), ray_count + cam_rays, stats
+    return fb.to_array(), ray_count + cam_rays, overflow, stats
 
 
 def render_iteration(
@@ -1088,11 +1131,182 @@ def render_iteration(
 ):
     """One VCM-family iteration over every pixel of the frame on the
     scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor):
-    :func:`render_iteration_core` over ``arange(res_x * res_y)``."""
+    :func:`render_iteration_core` over ``arange(res_x * res_y)``, stage by
+    stage, with caps nothing can overflow."""
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    img, rays, _ = render_iteration_core(
+    img, rays, _, _ = render_iteration_core(
         scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
         min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
         light_trace_only, ppm, rng_kind, merge_backend)
     return img, rays
+
+
+# ---------------------------------------------------------------------------
+# The whole iteration as one device program; blocks of iterations.
+# ---------------------------------------------------------------------------
+
+
+def merge_caps(photon_factor: float, query_factor: float,
+               n: int) -> tuple[int, int]:
+    """(photon_cap, query_cap) rows of the merge tables for ``n`` paths:
+    the factors' share of the paths, as the JAX package sizes them
+    (without its TPU tile padding)."""
+    return max(1, int(photon_factor * n)), max(1, int(query_factor * n))
+
+
+def iteration_static(res_x: int, res_y: int, base_seed: int,
+                     max_path_length: int, min_path_length: int,
+                     use_vc: bool, use_vm: bool, light_trace_only: bool,
+                     ppm: bool, rng_kind: str, photon_factor: float,
+                     query_factor: float) -> tuple:
+    """The static arguments of :func:`iteration_stage` (its graph key's
+    static part; render.py drops the graph of outgrown caps by it)."""
+    n = res_x * res_y
+    caps = merge_caps(photon_factor, query_factor, n) \
+        if use_vm and not light_trace_only else (0, 0)
+    return (float(np.float32(n)), res_x, res_y, base_seed, max_path_length,
+            min_path_length, use_vc, use_vm, light_trace_only, ppm, rng_kind,
+            *caps)
+
+
+def iteration_stage(
+    scene: SceneData, iteration, radius, radius_sqr, vm_normalization,
+    mis_vm_weight, mis_vc_weight, light_sub_path_count: float, res_x: int,
+    res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
+    use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
+    rng_kind: str, photon_cap: int, query_cap: int,
+):
+    """One whole VCM-family iteration over every pixel -> (image [resY,
+    resX, 3] f32, ray_count, merge overflow int64, merge stats int64 [3]),
+    all on the device: light walk, splat flush, camera stage, the cell
+    merge at the static caps, own-pixel accumulation.
+
+    ``iteration`` and the five per-iteration scalars are 0-dim device
+    tensors (graphs.stage fills them before each replay; compute_misc's
+    floats, exactly); nothing here reads the host, so on a card the whole
+    function is one CUDA graph. Same operations, in the same order, as
+    :func:`render_iteration_core` with the cell merge: the same bits."""
+    n = res_x * res_y
+    dev = scene.device
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    misc = VcmMisc(radius, radius_sqr, vm_normalization, mis_vm_weight,
+                   mis_vc_weight, light_sub_path_count)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = torch.zeros((3,), dtype=torch.int64, device=dev)
+    verts, splat_pix, splat_rgb, rays = light_walk(
+        scene, pix, iteration, mis_vm_weight, mis_vc_weight,
+        light_sub_path_count, res_x, res_y, base_seed, max_path_length,
+        min_path_length, use_vc, use_vm, light_trace_only, rng_kind)
+    fb = new_fb_planes(res_x, res_y, dev)
+    if splat_pix is not None:
+        fb = splat_colors(fb, splat_pix, splat_rgb)
+    if light_trace_only:
+        return fb.to_array(), rays, overflow, stats
+    color, queries, cam_rays = camera_walk(
+        scene, verts, pix, iteration, mis_vm_weight, mis_vc_weight,
+        light_sub_path_count, res_x, base_seed, max_path_length,
+        min_path_length, use_vc, use_vm, ppm, rng_kind)
+    if use_vm:
+        mc, overflow, stats = _merge(
+            scene, misc, queries, verts, ppm, max_path_length,
+            min_path_length, n, "auto", "allgather", None, photon_cap,
+            query_cap)
+        color = color + mc
+    fb = add_color_at_pix(fb, pix, color)
+    return fb.to_array(), rays + cam_rays, overflow, stats
+
+
+def render_block_with_stats(
+    scene: SceneData,
+    start_iteration: int,
+    res_x: int,
+    res_y: int,
+    block: int = 1,
+    base_seed: int = 1234,
+    max_path_length: int = 10,
+    min_path_length: int = 0,
+    radius_factor: float = 0.003,
+    radius_alpha: float = 0.75,
+    use_vc: bool = True,
+    use_vm: bool = True,
+    light_trace_only: bool = False,
+    ppm: bool = False,
+    photon_factor: float = 3.0,
+    query_factor: float = 3.0,
+    rng_kind: str = "threefry",
+    accum=None,
+):
+    """``block`` consecutive iterations, each one replay of the
+    :func:`iteration_stage` graph on a card -> (image sum [resY, resX, 3],
+    ray_count, overflow_sum, stats_max, luminance), all device tensors:
+    the counterpart of the JAX package's ``render_block_with_stats``
+    (vcm.py:1647-1715). Overflow is summed so that any overflowing
+    iteration shows; stats are maxed, for cap sizing.
+
+    The image sum starts at ``accum`` (default zeros, the JAX function's
+    block sum) and adds the iterations one by one: render.py passes its
+    running accumulator, so a render's bits do not depend on how its
+    iterations were cut into blocks. The caps are ``merge_caps`` of the
+    factors; the luminance is framebuffer.hxx:89-102's of the sum."""
+    n = res_x * res_y
+    dev = scene.device
+    static = iteration_static(res_x, res_y, base_seed, max_path_length,
+                              min_path_length, use_vc, use_vm,
+                              light_trace_only, ppm, rng_kind, photon_factor,
+                              query_factor)
+    acc = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
+           if accum is None else accum)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = torch.zeros((3,), dtype=torch.int64, device=dev)
+    for j in range(block):
+        it = start_iteration + j
+        m = compute_misc(scene, it, n, radius_factor, radius_alpha, use_vc,
+                         use_vm)
+        img, r, o, st = graphs.stage(
+            iteration_stage, scene, (),
+            (it, m.radius, m.radius_sqr, m.vm_normalization,
+             m.mis_vm_weight, m.mis_vc_weight), static)
+        acc = acc + img
+        rays = rays + r
+        overflow = overflow + o
+        stats = torch.maximum(stats, st)
+    return acc, rays, overflow, stats, total_luminance(acc)
+
+
+def merge_measure_iteration(
+    scene: SceneData, iteration: int, res_x: int, res_y: int,
+    base_seed: int = 1234, max_path_length: int = 10,
+    min_path_length: int = 0, radius_factor: float = 0.003,
+    radius_alpha: float = 0.75, use_vc: bool = True, ppm: bool = False,
+    rng_kind: str = "threefry",
+) -> tuple[int, int]:
+    """The live photon and query counts of one merging iteration ->
+    (photons, queries), from one host read, outside any graph: the light
+    walk and the camera stage run eagerly. The counterpart of the JAX
+    package's ``merge_measure_iteration`` (vcm.py:1555-1597), whose caps
+    the counts size (render.py::_ensure_merge_caps); vertex counts do not
+    depend on the caps or the radius."""
+    n = res_x * res_y
+    dev = scene.device
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    m = compute_misc(scene, iteration, n, radius_factor, radius_alpha, use_vc,
+                     True)
+    it, vm_w, vc_w = (graphs._scalar(v, dev) for v in (
+        iteration, m.mis_vm_weight, m.mis_vc_weight))
+    verts, _, _, _ = light_walk(
+        scene, pix, it, vm_w, vc_w, m.light_sub_path_count, res_x, res_y,
+        base_seed, max_path_length, min_path_length, use_vc, True, False,
+        rng_kind)
+    _, queries, _ = camera_walk(
+        scene, verts, pix, it, vm_w, vc_w, m.light_sub_path_count, res_x,
+        base_seed, max_path_length, min_path_length, use_vc, True, ppm,
+        rng_kind)
+    n_p, n_q = torch.stack([verts.valid.sum(), queries.valid.sum()]).tolist()
+    merge_measure_iteration.calls += 1
+    return n_p, n_q
+
+
+# Calls in this process (chip_smoke.py: a cached run measures nothing).
+merge_measure_iteration.calls = 0

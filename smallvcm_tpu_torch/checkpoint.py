@@ -65,8 +65,11 @@ def render_resumable(scene, cfg, checkpoint_path: str | None = None,
     continue at the saved index, so the result equals an uninterrupted
     run. With ``cfg.max_time > 0`` the time budget takes precedence over
     ``cfg.iterations`` (smallvcm.cxx semantics) and applies to THIS
-    invocation. The checkpoint is written after every iteration that ends
-    ``checkpoint_every`` or more iterations after the last one saved. With
+    invocation. The checkpoint is written after every block (render.py)
+    that ends ``checkpoint_every`` or more iterations after the last one
+    saved; the block schedule under ``-i`` depends only on the iterations
+    done, and blocks add their iterations to the running image one by one,
+    so a resumed run stays bit for bit the uninterrupted one. With
     ``cfg.group`` every rank resumes from the same file and only the
     coordinator (rank 0) writes it: every rank holds the same image.
     """

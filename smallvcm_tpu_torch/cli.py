@@ -82,10 +82,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "on a card, the dense plain sweep on the CPU; xla "
                         "= the dense sweep, CPU only (an error on a card)")
     p.add_argument("--block", type=int, default=0, dest="block_size",
-                   help="accepted for compatibility; no effect (the port "
-                        "renders one iteration per step: the merge reads "
-                        "its live counts on the host between the graphs of "
-                        "the trace stages)")
+                   help="iterations per block: each block runs its "
+                        "iterations back to back on the device (one CUDA "
+                        "graph replay an iteration on a card) and reads the "
+                        "host once at its end; checkpoints and -v lines "
+                        "come once a block (default 0 = auto: 8 for the "
+                        "VCM family, 64 for el and pt at 512x512, scaled "
+                        "inversely with the pixels; sharded runs use 1). "
+                        "The image does not depend on it")
     p.add_argument("--devices", type=int, default=0,
                    help="shard paths over this many processes (0 = every "
                         "local card, 1 = single device; N > 1 starts N "
@@ -106,7 +110,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default cuda)")
     p.add_argument("-v", "--verbose", action="store_true",
-                   help="print per-iteration luminance/mean/rays/timing")
+                   help="print per-block luminance/mean/rays/timing")
     return p
 
 

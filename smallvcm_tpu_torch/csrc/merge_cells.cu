@@ -41,7 +41,12 @@
 // Tables (f32 unless noted): qpos [n_q, 4] and ppos [n_p, 4] (x, y, z,
 // path length), qtab [n_q, 32], ptab [n_p, 16], ranges [8, n_q] int32
 // (rows 0-3 first photon of each probed row, rows 4-7 one past its last).
-// Output out [3, n_q]. Field layouts: ops/merge.py::merge_prep.
+// n_q and n_p are the static caps of the tables (ops/merge.py::merge_prep);
+// the live query count, r^2 and the MIS weight are read from device
+// memory, because they change every iteration and a CUDA graph replays
+// the launch with the arguments it captured. Rows at or past the live
+// count are dead and get 0. Output out [3, n_q]. Field layouts:
+// ops/merge.py::merge_prep.
 
 #include <cuda_runtime.h>
 
@@ -63,10 +68,20 @@ merge_cells_kernel(const float4* __restrict__ qpos,
                    const int* __restrict__ ranges,
                    const float4* __restrict__ ppos,
                    const float4* __restrict__ ptab, float* __restrict__ out,
-                   int n_q, float r2, float vc_w, float max_pl, float min_pl,
-                   int ppm) {
+                   int n_q, const int* __restrict__ n_live,
+                   const float* __restrict__ r2_p,
+                   const float* __restrict__ vc_w_p, float max_pl,
+                   float min_pl, int ppm) {
   const int qi = blockIdx.x * kBlock + threadIdx.x;
   if (qi >= n_q) return;
+  if (qi >= __ldg(n_live)) {
+    out[qi] = 0.f;
+    out[n_q + qi] = 0.f;
+    out[2 * n_q + qi] = 0.f;
+    return;
+  }
+  const float r2 = __ldg(r2_p);
+  const float vc_w = __ldg(vc_w_p);
 
   int lo[kRows], hi[kRows];
   int total = 0;
@@ -154,7 +169,8 @@ merge_cells_kernel(const float4* __restrict__ qpos,
 extern "C" int svcm_merge_cells(const float* qpos, const float* qtab,
                                 const int* ranges, const float* ppos,
                                 const float* ptab, float* out, int n_q,
-                                float r2, float vc_weight,
+                                const int* n_live, const float* r2,
+                                const float* vc_weight,
                                 int max_path_length, int min_path_length,
                                 int ppm, void* stream) {
   if (n_q <= 0) return 0;
@@ -163,7 +179,7 @@ extern "C" int svcm_merge_cells(const float* qpos, const float* qtab,
     return reinterpret_cast<const float4*>(a);
   };
   merge_cells_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      f4(qpos), f4(qtab), ranges, f4(ppos), f4(ptab), out, n_q, r2,
+      f4(qpos), f4(qtab), ranges, f4(ppos), f4(ptab), out, n_q, n_live, r2,
       vc_weight, (float)max_path_length, (float)min_path_length, ppm);
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,30 @@
-"""Each trace stage of an iteration as one device program: CUDA graphs.
+"""Each iteration as one device program: CUDA graphs.
 
-The port's counterpart of the JAX package's compiled iteration
-(``vcm.trace_iteration``, ``render.py::_simple_block`` and
+The port's counterpart of the JAX package's compiled iteration and block
+(``vcm.render_block_with_stats``, ``render.py::_simple_block`` and
 ``_make_block_runner``). On a card, :func:`stage` captures a stage
 function once as a CUDA graph and replays it on every later call with the
 same key, so a stage's thousands of small kernels cost one host launch.
-The stages are the light walk and the camera stage of the VCM family
-(``algorithms/vcm.py::light_walk``, ``camera_walk``) and the whole pass of
-pt and el (``pathtracer.render_pass``, ``eyelight.render_pass``).
+The stages are:
 
-The merge, the light splat flush and the framebuffer accumulation of the
-VCM family stay eager between the replays: they size their work from live
-counts read on the host (``ops/merge.py::merge_prep``,
-``vcm.merge_stage``, ``io/framebuffer.py::deterministic_index_add``),
-which a capture cannot hold. That is the JAX package's own split: one
-program for the two trace stages, host-side sizing, then the merge.
+- the whole iteration of the VCM family on one process
+  (``algorithms/vcm.py::iteration_stage``: light walk, splat flush, camera
+  stage, the cell merge at static caps, framebuffer sums), replayed k
+  times for a block of k iterations (``vcm.render_block_with_stats``);
+- the whole pass of pt and el (``pathtracer.render_pass``,
+  ``eyelight.render_pass``), k replays a block;
+- the light walk and the camera stage on their own
+  (``vcm.light_walk``, ``camera_walk``) where the rest of the iteration
+  cannot be captured: on sharded ranks (the photon exchange's collectives
+  sit between them) and under the pair merge (``merge_backend="xla"``,
+  which sizes its work from live counts read on the host). The merge, the
+  splat flush and the framebuffer sums run eagerly between those two
+  graphs.
+
+What stays outside every graph: the sums over a block's iterations (a
+few launches an iteration), the per-iteration scalars' fills, and the
+block's one host read at its end (overflow, merge stats, rays and
+luminance, ``render.py``).
 
 A stage function is called as ``fn(scene, *tensors, *scalars, *static)``:
 
@@ -24,11 +34,14 @@ A stage function is called as ``fn(scene, *tensors, *scalars, *static)``:
   fed to the camera stage), those outputs themselves. A later call's
   tensors are copied into the buffers first, unless they are the buffers.
 - ``scalars``: Python numbers that change between calls (the iteration,
-  the two MIS weights). Each reaches ``fn`` as a 0-dim device tensor (int
-  -> int64, float -> float32), which a replay fills first. ``fn`` uses
-  them only in device arithmetic: a Python number derived from one would
-  be frozen into the capture.
-- ``static``: hashable values of the key, frozen into the capture.
+  the radius, r^2, the vm normalization, the two MIS weights). Each
+  reaches ``fn`` as a 0-dim device tensor (int -> int64, float ->
+  float32), which a replay fills first. ``fn`` uses them only in device
+  arithmetic: a Python number derived from one would be frozen into the
+  capture.
+- ``static``: hashable values of the key, frozen into the capture (the
+  merge caps among them: grown caps are a new key, and :func:`drop`
+  frees the old graph's memory pool).
 - ``fn`` makes no host read (``.item()``, ``.tolist()``, ``nonzero``,
   boolean indexing) and no host-to-device copy, and launches on the
   current stream.
@@ -60,7 +73,8 @@ back to eager launches on a card: a failed capture or replay raises.
 The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``)
 are bumped by their wrappers in Python, which run at capture and not at
 replay. So a capture takes its increments back and records them, and each
-replay adds them: the counters count launches on the device.
+replay adds them: the counters count launches on the device, the merge's
+one a replay of the whole-iteration graph.
 """
 
 from __future__ import annotations
@@ -196,6 +210,16 @@ def _scene_tensor_died(key):
         _DEAD.append(key)
     else:
         _drop(key)
+
+
+def drop(fn, static: tuple) -> int:
+    """Forget every captured or warmed-up stage of ``fn`` with these
+    static values (its graph's private memory pool goes with it, once its
+    outputs are no longer held) -> the number of entries dropped."""
+    keys = [k for k in _ENTRIES if k[0] is fn and k[5] == static]
+    for k in keys:
+        _drop(k)
+    return len(keys)
 
 
 def _owned(t) -> bool:

@@ -42,13 +42,23 @@ def _deterministic():
 def deterministic_index_add(n_rows: int, index, rows):
     """``zeros(n_rows, C).index_add_(0, index, rows)`` with a repeatable
     summation order on every device (rows [M, C], index [M] in
-    [0, n_rows]); rows whose index is the sentinel ``n_rows`` are dropped.
+    [0, n_rows]); rows whose index is the sentinel ``n_rows`` add nothing.
 
-    The dead rows are dropped before the scatter (one host read for their
-    count): the deterministic CUDA ``index_add_`` sums each index's rows
-    serially, and the sentinel can hold most of the rows."""
-    keep = index < n_rows
-    index, rows = index[keep], rows[keep]
+    No host read: a sentinel row becomes a +0.0 row at index ``j %
+    n_rows`` (its own position j), so every output row gets a few of them
+    and none is hot (the deterministic CUDA ``index_add_`` sums each
+    index's rows serially, and the sentinel can hold most of the rows).
+    The bits are those of dropping the sentinel rows: each output row
+    still sums its live rows in source order (the CPU ``index_add_`` runs
+    in source order, the deterministic CUDA one sorts the indices
+    stably), and adding +0.0 leaves every float but -0.0 as it is, while a
+    sum that starts at +0.0 is never -0.0."""
+    m = index.shape[0]
+    dead = index >= n_rows
+    spread = torch.remainder(
+        torch.arange(m, dtype=index.dtype, device=index.device), n_rows)
+    index = torch.where(dead, spread, index)
+    rows = torch.where(dead[:, None], 0.0, rows)
     out = torch.zeros((n_rows, rows.shape[1]), dtype=rows.dtype,
                       device=rows.device)
     if rows.device.type == "cpu":
@@ -93,7 +103,8 @@ def splat_colors(fb, pix1d, color):
     deterministic scatter-add.
 
     ``pix1d``: integer [L, N] flat pixel index per splat; dead splats carry
-    the sentinel ``res_x * res_y`` (dropped). Light-tracer camera
+    the sentinel ``res_x * res_y`` and add nothing (no host read: see
+    :func:`deterministic_index_add`). Light-tracer camera
     connections land on arbitrary pixels, so the per-bounce splats are
     deferred and flushed here once per iteration.
     """

@@ -37,7 +37,6 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
 # C signatures of the entry points: name -> argtypes (restype is int).
 SIGNATURES = {
@@ -49,10 +48,11 @@ SIGNATURES = {
     # dist, active, out, n_rays, stream
     "svcm_occluded_sweep": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                             _P, _I, _P),
-    # qpos, qtab, ranges, ppos, ptab, out, n_q, r2, vc_weight,
-    # max_path_length, min_path_length, ppm, stream
-    "svcm_merge_cells": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I,
-                         _P),
+    # qpos, qtab, ranges, ppos, ptab, out, n_q (rows), n_live, r2,
+    # vc_weight (the last three device pointers), max_path_length,
+    # min_path_length, ppm, stream
+    "svcm_merge_cells": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                         _I, _P),
 }
 
 

@@ -3,20 +3,22 @@
 Port of ``smallvcm_tpu/ops/pallas_merge.py``, the single-device merge of
 VCM's main path (RangeQuery::Process, vertexcm.hxx:130-169):
 
-* :func:`merge_prep` compacts photons and camera queries, sorts both by the
-  full cell key ``(cz * GRID_XY + cy) * GRID_XY + cx`` over the
-  photon-bbox grid (cell = 2r, hashgrid.hxx:40-107), bakes a query table
-  ``qtab [n_q, QF]`` and a photon table ``ptab [n_p, PF]`` (the Pallas
-  prep's fields, one row per query or photon), and gives every query the
-  <= ``ROWS`` sorted-photon ranges that hold its 2x2x2 probe neighbourhood
-  (hashgrid.hxx:124-138): one range per probed (y, z) row, over the row's
-  one or two probed x cells.
-* :func:`merge_cells` walks each query's ranges: exact r^2 test, path-length
-  window (vertexcm.hxx:132-135), camera BSDF (diffuse + Phong) toward
-  -photon.in_dir, MIS weight 1/(w_light + 1 + w_camera) [tech. rep.
+* :func:`merge_prep` compacts photons and camera queries into tables of
+  static widths ``photon_cap`` and ``query_cap``, sorts both by the full
+  cell key ``(cz * GRID_XY + cy) * GRID_XY + cx`` over the photon-bbox
+  grid (cell = 2r, hashgrid.hxx:40-107; dead rows sort last under
+  ``_KEY_SENT``), bakes a query table ``qtab [query_cap, QF]`` and a photon
+  table ``ptab [photon_cap, PF]`` (the Pallas prep's fields, one row per
+  query or photon), and gives every live query the <= ``ROWS`` sorted-photon
+  ranges that hold its 2x2x2 probe neighbourhood (hashgrid.hxx:124-138):
+  one range per probed (y, z) row, over the row's one or two probed x
+  cells.
+* :func:`merge_cells` walks each live query's ranges: exact r^2 test,
+  path-length window (vertexcm.hxx:132-135), camera BSDF (diffuse + Phong)
+  toward -photon.in_dir, MIS weight 1/(w_light + 1 + w_camera) [tech. rep.
   (38)-(39)] (1 for ppm) times the photon throughput, summed per query ->
-  ``[3, n_q]``. CPU tensors take :func:`merge_cells_plain`; CUDA tensors
-  launch ``csrc/merge_cells.cu``.
+  ``[3, query_cap]``. CPU tensors take :func:`merge_cells_plain`; CUDA
+  tensors launch ``csrc/merge_cells.cu``.
 * :func:`merge_post` scales by the camera throughput and vm normalization
   and sums each query into its path, deterministically.
 
@@ -27,9 +29,14 @@ side-of-centre probe cover [p - r, p + r] on each axis, so every photon
 within r of a query is visited exactly once and the sums equal the Pallas
 merge's up to summation order.
 
-Sizes: the tables hold exactly the live photons and queries (counted with
-one host read per iteration in merge_prep), so nothing can overflow and
-there is no grow-and-retry.
+Sizes: as in the JAX package, the tables have static widths (the caps) and
+the live counts, the overflow flag ``(n_p > photon_cap) + (n_q >
+query_cap)`` and the stats stay on the device, so the merge makes no host
+read and runs inside the whole-iteration CUDA graph (graphs.py). The
+caller re-renders with grown caps on overflow (render.py). Caps left at
+None are the tables' slot counts, which nothing can overflow. The
+per-iteration scalars (radius, r^2, vm normalization, MIS weight) may be
+0-dim float32 device tensors or Python floats: they round alike.
 """
 
 from __future__ import annotations
@@ -173,22 +180,40 @@ def _probe_span(c, side, n_cells: int):
 
 class MergeTables(NamedTuple):
     """The cell walk's inputs, built by :func:`merge_prep` (rows in cell
-    order). The walk tests each candidate with ``qpos``/``ppos`` (16
-    contiguous bytes a query or photon); a pair that passes reads the
-    rest of its query's and photon's row."""
-    qpos: torch.Tensor     # [n_q, 4] f32: position, path length
-    qtab: torch.Tensor     # [n_q, QF] f32
-    ranges: torch.Tensor   # [2*ROWS, n_q] int32
-    ppos: torch.Tensor     # [n_p, 4] f32: position, path length
-    ptab: torch.Tensor     # [n_p, PF] f32
-    q_path: torch.Tensor   # [n_q] int64: the path that owns each query
+    order, live rows first). The walk tests each candidate with
+    ``qpos``/``ppos`` (16 contiguous bytes a query or photon); a pair that
+    passes reads the rest of its query's and photon's row. Rows at or past
+    the live counts are dead: empty ranges, a dropped path."""
+    qpos: torch.Tensor     # [query_cap, 4] f32: position, path length
+    qtab: torch.Tensor     # [query_cap, QF] f32
+    ranges: torch.Tensor   # [2*ROWS, query_cap] int32
+    ppos: torch.Tensor     # [photon_cap, 4] f32: position, path length
+    ptab: torch.Tensor     # [photon_cap, PF] f32
+    q_path: torch.Tensor   # [query_cap] int64: the owning path; dead: n_paths
+    n_p: torch.Tensor      # 0-dim int64: live photons
+    n_q: torch.Tensor      # 0-dim int64: live queries
 
 
-def merge_prep(scene, misc, queries, light_verts, n_paths: int):
-    """Compaction, cell sort, table bake and per-query photon ranges.
+def _dev_scalar(x, dev) -> torch.Tensor:
+    """A per-iteration scalar as a 0-dim float32 tensor on ``dev``: a
+    device tensor as it is (a graph's input), a Python float filled in."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=torch.float32, device=dev)
 
-    Returns None when there is nothing to merge, else the
-    :class:`MergeTables`.
+
+def merge_prep(scene, misc, queries, light_verts, n_paths: int,
+               photon_cap: int | None = None,
+               query_cap: int | None = None) -> MergeTables:
+    """Compaction into static caps, cell sort, table bake and per-query
+    photon ranges -> :class:`MergeTables`, with no host read.
+
+    ``photon_cap`` / ``query_cap`` default to the slot counts of the vertex
+    tables (nothing can overflow). Live rows come first in cell order; a
+    cap below the live count keeps the first cap rows (overflow, which
+    :func:`merge_stage` reports). ``misc.radius`` may be a 0-dim device
+    tensor: the cell size is formed on the device, rounded as
+    ``hashgrid.inv_cell_size`` rounds it.
 
     qtab fields: 0-2 pos | 3-11 frame x/y/z | 12 local_dir_fix.z |
     13-15 reflected fix dir | 16 prob_diff | 17 prob_phong | 18 cont |
@@ -209,33 +234,37 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
 
     psrc = _source_planes(light_verts)
     qsrc = _source_planes(queries)
+    photon_cap = psrc.shape[1] if photon_cap is None else photon_cap
+    query_cap = qsrc.shape[1] if query_cap is None else query_cap
     pv = psrc[15] > 0.0
     qv = qsrc[15] > 0.0
-    # The one host read of the merge: live photon/query counts size the
-    # compaction exactly (no static caps, no overflow retry).
-    n_p, n_q = (int(v) for v in torch.stack([pv.sum(), qv.sum()]).tolist())
-    if n_p == 0 or n_q == 0:
-        return None
+    n_p, n_q = pv.sum(), qv.sum()
+    radius = _dev_scalar(misc.radius, dev)
 
     # ---- Photons: bbox, keys, compact + sort, bake. -----------------------
     big = 1e36
     mins = [torch.where(pv, psrc[c], big).min() for c in range(3)]
     maxs = [torch.where(pv, psrc[c], -big).max() for c in range(3)]
-    inv_cell = inv_cell_size(misc.radius)
+    # 1 / (2 r) in f32: the doubling is exact and the reciprocal correctly
+    # rounded, as hashgrid.inv_cell_size computes it on the host.
+    inv_cell = torch.reciprocal(radius * 2.0)
 
     pcells, _ = _cells_of(psrc[0], psrc[1], psrc[2], mins, inv_cell, pv)
     pkey = torch.where(pv, _cell_key(*pcells), _KEY_SENT)
-    prows, psrc_idx = sort_compact_planes(pkey, psrc, n_p)
-    skey = pkey[psrc_idx].contiguous()    # ascending cell keys
+    prows, psrc_idx = sort_compact_planes(pkey, psrc, photon_cap)
+    p_live = torch.arange(photon_cap, device=dev) < n_p
+    # Ascending cell keys; a dead row (or the padding of a cap above the
+    # slot count) keeps the sentinel, so no range reaches it.
+    skey = torch.where(p_live, pkey[psrc_idx], _KEY_SENT).contiguous()
 
-    all_p = torch.ones((n_p,), dtype=torch.bool, device=dev)
+    all_p = torch.ones((photon_cap,), dtype=torch.bool, device=dev)
     p_in = V3(prows[3], prows[4], prows[5])
     p_nrm = V3(prows[6], prows[7], prows[8])
     p_mat = prows[14].contiguous().view(torch.int32)
     p_cont = bsdf_ops.setup(mats, p_in, p_nrm, p_mat, all_p).cont_prob
     p_len = (torch.div(psrc_idx, n_ph, rounding_mode="floor") + 1).to(
         torch.float32)
-    zp = torch.zeros((n_p,), dtype=torch.float32, device=dev)
+    zp = torch.zeros((photon_cap,), dtype=torch.float32, device=dev)
     ptab = torch.stack([
         prows[0], prows[1], prows[2], prows[3], prows[4], prows[5],
         prows[9], prows[10], prows[11], prows[12], prows[13],
@@ -245,21 +274,23 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
     # ---- Queries: keys, compact + sort (neighbours share cells), bake. ---
     qcells, qsides = _cells_of(qsrc[0], qsrc[1], qsrc[2], mins, inv_cell, qv)
     qkey = torch.where(qv, _cell_key(*qcells), _KEY_SENT)
-    qrows, qsrc_idx = sort_compact_planes(qkey, qsrc, n_q)
+    qrows, qsrc_idx = sort_compact_planes(qkey, qsrc, query_cap)
     (qcx, qcy, qcz), (qsx, qsy, qsz) = (
         [c[qsrc_idx] for c in t] for t in (qcells, qsides))
+    q_live = torch.arange(query_cap, device=dev) < n_q
 
     qx, qy, qz = qrows[0], qrows[1], qrows[2]
     # Bbox rejection (hashgrid.hxx:116-122) padded by the merge radius:
     # same-plane camera hits can sit f32 ulps outside the tight photon bbox.
-    pad = misc.radius
+    # Dead rows are outside too.
     in_bbox = (
-        (qx >= mins[0] - pad) & (qx <= maxs[0] + pad)
-        & (qy >= mins[1] - pad) & (qy <= maxs[1] + pad)
-        & (qz >= mins[2] - pad) & (qz <= maxs[2] + pad)
+        q_live
+        & (qx >= mins[0] - radius) & (qx <= maxs[0] + radius)
+        & (qy >= mins[1] - radius) & (qy <= maxs[1] + radius)
+        & (qz >= mins[2] - radius) & (qz <= maxs[2] + radius)
     )
 
-    all_q = torch.ones((n_q,), dtype=torch.bool, device=dev)
+    all_q = torch.ones((query_cap,), dtype=torch.bool, device=dev)
     q_in = V3(qrows[3], qrows[4], qrows[5])
     q_nrm = V3(qrows[6], qrows[7], qrows[8])
     q_mat = qrows[14].contiguous().view(torch.int32)
@@ -270,10 +301,10 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
     rho_s = (expo + 2.0) * (0.5 * INV_PI_F)
     q_len = (torch.div(qsrc_idx, n, rounding_mode="floor") + 1).to(
         torch.float32)
-    q_path = torch.remainder(qsrc_idx, n)
+    q_path = torch.where(q_live, torch.remainder(qsrc_idx, n), n_paths)
 
-    # Out-of-bbox queries keep the Pallas prep's position sentinel (and get
-    # empty ranges below).
+    # Out-of-bbox and dead queries keep the Pallas prep's position sentinel
+    # (and get empty ranges below).
     qtab = torch.stack([
         torch.where(in_bbox, qx, _QSENT),
         torch.where(in_bbox, qy, _QSENT),
@@ -314,7 +345,7 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int):
         qpos=torch.stack([qtab[:, 0], qtab[:, 1], qtab[:, 2], q_len], dim=1),
         qtab=qtab, ranges=ranges.to(torch.int32),
         ppos=torch.stack([prows[0], prows[1], prows[2], p_len], dim=1),
-        ptab=ptab, q_path=q_path)
+        ptab=ptab, q_path=q_path, n_p=n_p, n_q=n_q)
 
 
 # ---------------------------------------------------------------------------
@@ -334,17 +365,24 @@ def candidate_pairs(ranges):
         yield torch.div(qr, ROWS, rounding_mode="floor") + q0, photon
 
 
-def merge_cells_plain(qpos, qtab, ranges, ppos, ptab, r2: float,
-                      vc_weight: float, *, max_path_length: int,
-                      min_path_length: int, ppm: bool):
-    """Plain PyTorch version of csrc/merge_cells.cu -> [3, n_q].
+def merge_cells_plain(qpos, qtab, ranges, ppos, ptab, r2, vc_weight, *,
+                      max_path_length: int, min_path_length: int, ppm: bool,
+                      n_live=None):
+    """Plain PyTorch version of csrc/merge_cells.cu -> [3, rows].
 
-    Expands the ranges into (query, photon) pairs, tests them with the
-    position tables as the kernel's walk does, evaluates the pairs that
-    pass and sums per query deterministically (on the CPU in the kernel's
-    walk order)."""
+    Rows at or past ``n_live`` (default: every row) are dead and give 0,
+    as the kernel's. Expands the live rows' ranges into (query, photon)
+    pairs, tests them with the position tables as the kernel's walk does,
+    evaluates the pairs that pass and sums per query deterministically (on
+    the CPU in the kernel's walk order)."""
     n_q = qtab.shape[0]
-    out = torch.zeros((n_q, 3), dtype=torch.float32, device=qtab.device)
+    dev = qtab.device
+    if n_live is not None:
+        live = torch.arange(n_q, device=dev) < n_live
+        ranges = torch.where(live, ranges, 0)
+    r2 = _dev_scalar(r2, dev)
+    vc_weight = _dev_scalar(vc_weight, dev)
+    out = torch.zeros((n_q, 3), dtype=torch.float32, device=dev)
     for qs, ps in candidate_pairs(ranges):
         d = qpos[qs] - ppos[ps]
         tlen = qpos[qs, 3] + ppos[ps, 3]
@@ -363,10 +401,17 @@ def merge_cells_plain(qpos, qtab, ranges, ppos, ptab, r2: float,
     return out.T.contiguous()
 
 
-def merge_cells_kernel(qpos, qtab, ranges, ppos, ptab, r2: float,
-                       vc_weight: float, *, max_path_length: int,
-                       min_path_length: int, ppm: bool):
-    """Launch csrc/merge_cells.cu -> [3, n_q] per-query RGB sums."""
+def merge_cells_kernel(qpos, qtab, ranges, ppos, ptab, r2, vc_weight, *,
+                       max_path_length: int, min_path_length: int, ppm: bool,
+                       n_live=None):
+    """Launch csrc/merge_cells.cu -> [3, rows] per-query RGB sums.
+
+    The grid covers every row of the tables (the static query cap); the
+    kernel reads the live query count ``n_live`` (default: every row), r^2
+    and the MIS weight from device memory, so a CUDA graph's replay takes
+    each iteration's values without new launch arguments. Python numbers
+    are filled into device scalars first (outside a capture only: a
+    capture would freeze them)."""
     req = _cuda.require
     dev = qtab.device
     n_q, n_p = qtab.shape[0], ptab.shape[0]
@@ -388,6 +433,14 @@ def merge_cells_kernel(qpos, qtab, ranges, ppos, ptab, r2: float,
     req(2 * ROWS * n_q < 2 ** 31 and n_p < 2 ** 31,
         "merge_cells_kernel: tables too large for int32 indices")
     req(dev.type == "cuda", "merge_cells_kernel needs CUDA tensors")
+    live = (torch.full((), n_q, dtype=torch.int32, device=dev)
+            if n_live is None else n_live.to(torch.int32))
+    scalars = (live, _dev_scalar(r2, dev).to(torch.float32),
+               _dev_scalar(vc_weight, dev).to(torch.float32))
+    for t in scalars:
+        req(t.device == dev and t.numel() == 1,
+            "merge_cells_kernel: n_live, r2 and vc_weight are one value "
+            "each on the tables' device")
 
     out = torch.empty((3, n_q), dtype=torch.float32, device=dev)
     if n_q == 0:
@@ -395,22 +448,21 @@ def merge_cells_kernel(qpos, qtab, ranges, ppos, ptab, r2: float,
     lib = _cuda.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.svcm_merge_cells(
-        *(t.data_ptr() for t in tables), out.data_ptr(), n_q, float(r2),
-        float(vc_weight), int(max_path_length), int(min_path_length),
-        int(bool(ppm)), stream,
+        *(t.data_ptr() for t in tables), out.data_ptr(), n_q,
+        *(t.data_ptr() for t in scalars), int(max_path_length),
+        int(min_path_length), int(bool(ppm)), stream,
     )
     _cuda.check(status, "svcm_merge_cells")
     merge_cells_kernel.launches += 1
     return out
 
 
-# Launches on the device, as ops/sweep.py's counters (the merge runs
-# eagerly between the graphs, so no capture holds it).
+# Launches on the device, as ops/sweep.py's counters (graphs.py adds a
+# capture's launches at each replay of the whole-iteration graph).
 merge_cells_kernel.launches = 0
 
 
-def merge_cells(qpos, qtab, ranges, ppos, ptab, r2: float, vc_weight: float,
-                **kw):
+def merge_cells(qpos, qtab, ranges, ppos, ptab, r2, vc_weight, **kw):
     """Per-query merge sums: the plain version on CPU, the kernel on CUDA."""
     fn = merge_cells_plain if qtab.device.type == "cpu" else \
         merge_cells_kernel
@@ -422,11 +474,11 @@ def merge_cells(qpos, qtab, ranges, ppos, ptab, r2: float, vc_weight: float,
 # ---------------------------------------------------------------------------
 
 
-def merge_post(out, qtab, q_path, vm_normalization: float,
-               n_paths: int) -> V3:
+def merge_post(out, qtab, q_path, vm_normalization, n_paths: int) -> V3:
     """Scale per-query sums by camera throughput x vm normalization and sum
     them into the owning path -> color_add V3 [n_paths], deterministically
-    (framebuffer.deterministic_index_add)."""
+    (framebuffer.deterministic_index_add; dead rows carry the sentinel
+    path ``n_paths`` and add nothing)."""
     scaled = out * qtab[:, 29:32].T * vm_normalization
     z = deterministic_index_add(n_paths, q_path, scaled.T)
     return V3(z[:, 0], z[:, 1], z[:, 2])
@@ -434,29 +486,29 @@ def merge_post(out, qtab, q_path, vm_normalization: float,
 
 def merge_stage(scene, misc, queries, light_verts, ppm: bool,
                 max_path_length: int, min_path_length: int,
-                n_paths: int, with_stats: bool = False):
+                n_paths: int, photon_cap: int | None = None,
+                query_cap: int | None = None, with_stats: bool = False):
     """Vertex merging over all recorded camera queries -> color_add V3
-    [n_paths]; with ``with_stats``, ``(color_add, stats)``, stats = int64
-    [candidate pairs, live photons, live queries]. ``n_paths`` is the
-    query tables' column count; the photon table may have more columns
+    [n_paths]; with ``with_stats``, ``(color_add, overflow, stats)``:
+    overflow = int64 (live photons > photon_cap) + (live queries >
+    query_cap), stats = int64 [candidate pairs, live photons, live
+    queries], all on the device (no host read: the stage runs inside a
+    CUDA graph). Caps as :func:`merge_prep`; on overflow the sums are
+    those of the first cap rows and the caller re-renders. ``n_paths`` is
+    the query tables' column count; the photon table may have more columns
     (the sharded all-gather: merge_prep derives each side's path lengths
     and owners from its own column count)."""
-    dev = queries.valid.device
-    t = merge_prep(scene, misc, queries, light_verts, n_paths)
-    if t is None:
-        z = torch.zeros((n_paths,), dtype=torch.float32, device=dev)
-        stats = torch.stack([light_verts.valid.sum(), queries.valid.sum()])
-        z = V3(z, z, z)
-        return (z, torch.cat([stats.new_zeros(1), stats])) if with_stats \
-            else z
+    t = merge_prep(scene, misc, queries, light_verts, n_paths, photon_cap,
+                   query_cap)
     out = merge_cells(
-        *t[:5], misc.radius_sqr, misc.mis_vc_weight,
+        *t[:5], misc.radius_sqr, misc.mis_vc_weight, n_live=t.n_q,
         max_path_length=max_path_length, min_path_length=min_path_length,
         ppm=ppm,
     )
     z = merge_post(out, t.qtab, t.q_path, misc.vm_normalization, n_paths)
     if not with_stats:
         return z
+    overflow = ((t.n_p > t.ptab.shape[0]).to(torch.int64)
+                + (t.n_q > t.qtab.shape[0]).to(torch.int64))
     pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
-    return z, torch.stack([pairs, pairs.new_tensor(t.ptab.shape[0]),
-                           pairs.new_tensor(t.qtab.shape[0])])
+    return z, overflow, torch.stack([pairs, t.n_p, t.n_q])

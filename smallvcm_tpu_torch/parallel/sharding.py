@@ -76,7 +76,7 @@ def sharded_render_iteration_with_stats(
     Differentiable in the scene's parameters."""
     n = res_x * res_y
     pix = shard_pix(n, group, scene.device)
-    img, rays, stats = vcm.render_iteration_core(
+    img, rays, _, stats = vcm.render_iteration_core(
         scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
         min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
         light_trace_only, ppm, rng_kind, merge_backend, vm_exchange, group)

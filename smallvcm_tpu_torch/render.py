@@ -1,33 +1,56 @@
-"""Rendering: algorithm registry, the progressive loop, time budget.
+"""Rendering: algorithm registry, the block loop, merge caps, time budget.
 
 Port of ``smallvcm_tpu/render.py`` (the reference's ``CreateRenderer``
 factory, config.hxx:112-143, and ``render()`` loop, smallvcm.cxx:52-151)
-for all seven algorithms. On a card each trace stage of an iteration runs
-as one device program, a CUDA graph (graphs.py): the light walk and the
-camera stage of the VCM family, the whole pass of pt and el. The merge,
-the light splat flush and the framebuffer accumulation run eagerly between
-them, because they size their work from live counts read on the host.
-That host read is why one iteration stays the unit of work: no blocks of
-iterations (``--block`` has no effect), no static merge caps and no
-grow-and-retry.
+for all seven algorithms, with the JAX package's block runner:
+
+* Blocks: ``render()`` runs ``block`` iterations (``--block``;
+  :func:`auto_block_size`: 8 for the VCM family, 64 for el and pt at
+  512x512) per call of the runner, with one host read at the block's end
+  (overflow, merge stats, rays, luminance). On a card each iteration of
+  the VCM family is ONE CUDA graph (``vcm.iteration_stage``, graphs.py)
+  and each pass of el and pt another, replayed back to back.
+* Static merge caps: the cell merge's photon and query tables have static
+  widths (``photon_factor`` / ``query_factor`` times the paths), sized
+  from a measurement of iteration 0 (``vcm.merge_measure_iteration``,
+  x1.03, bucketed) and kept in the port's own cache,
+  ``~/.cache/smallvcm_tpu_torch/caps.json`` (``SMALLVCM_TPU_TORCH_CACHE``
+  names another directory). On overflow the runner grows the caps to the
+  measured need (x1.1, bucketed, never shrinking), saves them, and renders
+  the SAME block again: the counter-based RNG makes that exact.
+* Schedule: a pure function of the iterations done under ``-i`` (full
+  blocks, then single iterations), so a resumed run reproduces the
+  partition; under ``-t`` two single iterations, then blocks of 1 or the
+  auto block as the time left allows. The runner adds each iteration to
+  the running accumulator in turn, so the image's bits do not depend on
+  the partition either (``--block 1`` and ``--block 8`` agree bit for
+  bit).
 
 With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
 group runs :func:`render` with the same configuration: each renders its
-path shard (parallel/sharding.py) and holds the summed image. Under a time
-budget rank 0 decides each step and broadcasts it, so every rank runs the
-same number of iterations; only rank 0 prints.
+path shard (parallel/sharding.py) and holds the summed image, one
+iteration a block, stage by stage (the photon exchange sits between the
+graphs of the light and camera stages). Under a time budget rank 0 decides
+each step and broadcasts it, so every rank runs the same number of
+iterations; only rank 0 prints. The pair merge (``merge_backend="xla"``)
+also runs stage by stage: it sizes its work from live counts read on the
+host.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from . import graphs
 from .algorithms import eyelight, pathtracer, vcm
 from .io.framebuffer import total_luminance
 from .parallel import comm, sharding
@@ -58,6 +81,13 @@ _VCM_FLAGS = {
 
 TRACE_BACKENDS = ("auto", "pallas", "xla")
 
+DEFAULT_BLOCK = 8
+# el/pt carry no merge caps or overflow: a bigger block costs only
+# checkpoint granularity.
+DEFAULT_BLOCK_SIMPLE = 64
+# Grow-and-retry rounds of one block before the runner gives up.
+MAX_GROWS = 8
+
 
 @dataclass
 class RenderConfig:
@@ -74,6 +104,10 @@ class RenderConfig:
     min_path_length: int = 0
     resolution: tuple = (512, 512)
     rng_kind: str = "threefry"  # or "tea" (the reference's old_rng flavor)
+    # Static caps of the cell merge's photon and query tables, as shares
+    # of the paths (vcm.merge_caps).
+    photon_factor: float = 3.0
+    query_factor: float = 3.0
     # Photon merge: "auto"/"pallas" = the cell merge (the Hopper kernel on
     # CUDA, its plain version on the CPU); "xla" = the differentiable
     # pair-expansion merge (algorithms/vcm.py::merge_stage).
@@ -83,9 +117,12 @@ class RenderConfig:
     # the kernel's test reference and is never substituted for it on a
     # card: on CUDA it raises.
     trace_backend: str = "auto"
-    # Accepted for the JAX package's CLI and configs; has no effect: an
-    # iteration's merge reads its live counts on the host between the
-    # graphs of its trace stages, so the port renders one iteration a step.
+    # Caps frozen = sized by measurement or the cache (or by the caller);
+    # the block loop still grows them, and renders the block again, on the
+    # rare overflow.
+    merge_caps_frozen: bool = False
+    # Iterations per block, one host read each (0 = auto_block_size). Any
+    # partition gives the same image, bit for bit.
     block_size: int = 0
     # Photon exchange between ranks for merging: "allgather" or "ring"
     # (parallel/sharding.py); unused by a single process.
@@ -116,9 +153,11 @@ def resolve_algorithm(scene: SceneData, algorithm: str) -> str:
 
 
 def check_backends(scene: SceneData, cfg: RenderConfig) -> None:
-    """Reject trace backends the port does not know, and the dense sweep
-    on a card: it is the sweep kernel's reference, not a fallback (merge
-    backends are checked by vcm.render_iteration)."""
+    """Reject backends the port does not know, and the dense sweep on a
+    card: it is the sweep kernel's reference, not a fallback."""
+    if cfg.merge_backend not in vcm.MERGE_BACKENDS:
+        raise ValueError(f"merge_backend must be one of "
+                         f"{vcm.MERGE_BACKENDS}, not {cfg.merge_backend!r}")
     if cfg.trace_backend not in TRACE_BACKENDS:
         raise ValueError(f"trace_backend must be one of {TRACE_BACKENDS}, "
                          f"not {cfg.trace_backend!r}")
@@ -165,22 +204,6 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
     )
 
 
-def render_single_iteration(scene: SceneData, cfg: RenderConfig,
-                            iteration: int):
-    """The image of one iteration (not averaged) of ``cfg.algorithm``, a
-    tensor of its own (never a graph's output)."""
-    check_backends(scene, cfg)
-    img, _ = render_iteration(scene, cfg,
-                              resolve_algorithm(scene, cfg.algorithm),
-                              iteration)
-    return img.clone()
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _maybe_inject_test_fault(done: int) -> None:
     """Test hook for the isolate.py supervisor (tests/test_torch_isolate.py).
 
@@ -207,6 +230,253 @@ def _maybe_inject_test_fault(done: int) -> None:
                        "(SMALLVCM_TEST_FAULT_AT)")
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# ---------------------------------------------------------------------------
+# Merge caps: measure once, persist, reuse, grow on overflow.
+# ---------------------------------------------------------------------------
+
+
+def _bucket(needed: float, n: int) -> float:
+    """Smallest m*2^e >= needed with mantissa m in {4,5,6,7}, as a factor
+    of n (so the caps in the graph keys repeat exactly). The ~1.25x ladder
+    keeps padding waste under ~25% (every op downstream of compaction runs
+    at cap width, not live width). The JAX package's, verbatim."""
+    needed = max(needed, 1024)
+    e = max(0, int(needed).bit_length() - 3)
+    for m in (4, 5, 6, 7, 8):
+        if m << e >= needed:
+            return float(m << e) / n
+    return float(8 << e) / n
+
+
+def _grow(factor: float, need: int, n: int) -> float:
+    """A cap factor grown to the measured ``need`` (x1.1, bucketed); never
+    smaller than ``factor`` (the JAX package's rule, render.py:474-477)."""
+    return max(factor, _bucket(need * 1.1, n))
+
+
+def _caps_cache_file() -> Path:
+    root = os.environ.get("SMALLVCM_TPU_TORCH_CACHE",
+                          os.path.expanduser("~/.cache/smallvcm_tpu_torch"))
+    return Path(root) / "caps.json"
+
+
+def _merge_backend_key(cfg: RenderConfig) -> str:
+    """The JAX package's resolved backend name for the key: the cell merge
+    is the counterpart of its Pallas merge."""
+    return "xla" if cfg.merge_backend == "xla" else "pallas"
+
+
+def _caps_key(scene: SceneData, cfg: RenderConfig, alg: str,
+              backend: str) -> str:
+    """The JAX package's key format (render.py:208-222): caps are measured
+    at iteration 0 under one seed and generator."""
+    res_x, res_y = cfg.resolution
+    n_tri = int(scene.tri_mat.shape[0])
+    n_sph = int(scene.sph_mat.shape[0])
+    n_lights = int(scene.lights.kind.shape[0])
+    return (
+        f"{alg}|{backend}|{res_x}x{res_y}|tri{n_tri}sph{n_sph}"
+        f"l{n_lights}|pl{cfg.max_path_length}-{cfg.min_path_length}"
+        f"|r{cfg.radius_factor}a{cfg.radius_alpha}"
+        f"|s{cfg.base_seed}|{cfg.rng_kind}"
+    )
+
+
+def _load_cached_caps(key: str):
+    try:
+        return json.loads(_caps_cache_file().read_text()).get(key)
+    except (OSError, ValueError):
+        return None
+
+
+def _save_cached_caps(key: str, caps: dict) -> None:
+    """Merge ``caps`` into the cache file, written whole to a temporary
+    file and renamed over it, so a process that reads it meanwhile sees
+    the old or the new file, never half of one."""
+    path = _caps_cache_file()
+    try:
+        data = json.loads(path.read_text())
+    except (OSError, ValueError):
+        data = {}
+    data[key] = caps
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            f.write(json.dumps(data, indent=1, sort_keys=True))
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _ensure_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
+    """Freeze the photon and query caps of ``cfg`` before the first block
+    -> "frozen" (set by the caller or earlier), "cached" or "measured".
+
+    Sizes from the cache when the key is there, else measures iteration 0
+    (its merge radius is the largest, vertexcm.hxx:294-299; vertex counts
+    vary across iterations only by Monte Carlo noise) and takes x1.03,
+    bucketed. Correctness never depends on this: the block loop grows
+    the caps and renders the block again on overflow."""
+    if cfg.merge_caps_frozen:
+        return "frozen"
+    key = _caps_key(scene, cfg, alg, _merge_backend_key(cfg))
+    cached = _load_cached_caps(key)
+    if cached:
+        cfg.photon_factor = cached["photon_factor"]
+        cfg.query_factor = cached["query_factor"]
+        cfg.merge_caps_frozen = True
+        return "cached"
+    use_vc, _, _, ppm = _VCM_FLAGS[alg]
+    res_x, res_y = cfg.resolution
+    n = res_x * res_y
+    n_p, n_q = vcm.merge_measure_iteration(
+        scene, 0, res_x, res_y, cfg.base_seed, cfg.max_path_length,
+        cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha, use_vc,
+        ppm, cfg.rng_kind)
+    cfg.photon_factor = _bucket(n_p * 1.03, n)
+    cfg.query_factor = _bucket(n_q * 1.03, n)
+    cfg.merge_caps_frozen = True
+    _save_cached_caps(key, dict(photon_factor=cfg.photon_factor,
+                                query_factor=cfg.query_factor))
+    return "measured"
+
+
+# ---------------------------------------------------------------------------
+# Block runners: run(start, k, accum) -> Block, one host read a block.
+# ---------------------------------------------------------------------------
+
+
+class Block(NamedTuple):
+    """One block's result: the running accumulator with the block's
+    iterations added (a device tensor) and, from the block's one host
+    read, its rays, merge stats (max over its iterations: [candidate
+    pairs, live photons, live queries]) and the accumulator's total
+    luminance and mean."""
+    accum: torch.Tensor
+    rays: int
+    stats: tuple
+    luminance: float
+    mean: float
+
+
+def _read_block(acc, rays, overflow, stats):
+    """The block's one host read -> (overflow, Block)."""
+    one = lambda t: t.reshape(1).to(torch.float64)
+    ovf, pairs, n_p, n_q, r, lum, mean = torch.cat([
+        one(overflow), stats.to(torch.float64), one(rays),
+        one(total_luminance(acc)), one(acc.mean()),
+    ]).tolist()
+    return int(ovf), Block(acc, int(r), (int(pairs), int(n_p), int(n_q)),
+                           lum, mean)
+
+
+def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
+    """Build run(start, k, accum) -> Block for the resolved algorithm.
+
+    Merging algorithms size their caps here (:func:`_ensure_merge_caps`).
+    The runner grows the caps and renders the same block again on
+    overflow (at most MAX_GROWS times, then raises), and reads the host
+    once a block (twice when a block overflows)."""
+    res_x, res_y = cfg.resolution
+    n = res_x * res_y
+    dev = scene.device
+
+    def zeros():
+        return (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((3,), dtype=torch.int64, device=dev))
+
+    def run_iterations(start, k, accum):
+        # One iteration a step (sharded ranks, the pair merge), summed on
+        # the device; render_iteration's stats are not kept.
+        acc, rays = accum, torch.zeros((), dtype=torch.int64, device=dev)
+        for j in range(k):
+            img, r = render_iteration(scene, cfg, alg, start + j)
+            acc = acc + img
+            rays = rays + r
+        return _read_block(acc, rays, *zeros())[1]
+
+    if cfg.group is not None or alg in ("el", "pt") \
+            or cfg.merge_backend == "xla":
+        return run_iterations
+
+    use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
+    if use_vm:
+        _ensure_merge_caps(scene, cfg, alg)
+    caps_key = _caps_key(scene, cfg, alg, _merge_backend_key(cfg))
+
+    def run_block(start, k, accum):
+        for _ in range(MAX_GROWS + 1):
+            acc, rays, ovf, stats, _ = vcm.render_block_with_stats(
+                scene, start, res_x, res_y, k, cfg.base_seed,
+                cfg.max_path_length, cfg.min_path_length,
+                cfg.radius_factor, cfg.radius_alpha, use_vc=use_vc,
+                use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
+                photon_factor=cfg.photon_factor,
+                query_factor=cfg.query_factor, rng_kind=cfg.rng_kind,
+                accum=accum)
+            overflow, block = _read_block(acc, rays, ovf, stats)
+            if overflow == 0:
+                return block
+            # Grow every cap to the measured need, never shrinking, drop
+            # the old caps' graph and render the SAME block again: exact,
+            # because the RNG is counter-based.
+            _, n_p, n_q = block.stats
+            old_factors = (cfg.photon_factor, cfg.query_factor)
+            cfg.photon_factor = _grow(cfg.photon_factor, n_p, n)
+            cfg.query_factor = _grow(cfg.query_factor, n_q, n)
+            graphs.drop(vcm.iteration_stage, vcm.iteration_static(
+                res_x, res_y, cfg.base_seed, cfg.max_path_length,
+                cfg.min_path_length, use_vc, use_vm, lt_only, ppm,
+                cfg.rng_kind, *old_factors))
+            _save_cached_caps(caps_key, dict(
+                photon_factor=cfg.photon_factor,
+                query_factor=cfg.query_factor))
+            print(f"[smallvcm_tpu_torch] merge cap overflow; re-rendering "
+                  f"block at iteration {start} with "
+                  f"photon_factor={cfg.photon_factor} "
+                  f"query_factor={cfg.query_factor}", flush=True)
+        raise RuntimeError(f"merge caps still overflow after {MAX_GROWS} "
+                           f"grows at iteration {start}")
+
+    return run_block
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def auto_block_size(cfg: RenderConfig, alg: str) -> int:
+    """Iterations per block: ``cfg.block_size``, else the JAX package's
+    rule (render.py:527-541): 8 for the VCM family and 64 for el and pt at
+    512x512, inversely with the pixel count (a block's device time and its
+    checkpoint granularity stay about the same), at least 1."""
+    n_pix = cfg.resolution[0] * cfg.resolution[1]
+    base_block = (DEFAULT_BLOCK_SIMPLE if alg in ("el", "pt")
+                  else DEFAULT_BLOCK)
+    return cfg.block_size or max(
+        1, min(base_block, (base_block * 512 * 512) // max(n_pix, 1))
+    )
+
+
+def render_single_iteration(scene: SceneData, cfg: RenderConfig,
+                            iteration: int):
+    """The image of one iteration (not averaged) of ``cfg.algorithm``
+    through the block runner with a block of 1, a tensor of its own."""
+    check_backends(scene, cfg)
+    alg = resolve_algorithm(scene, cfg.algorithm)
+    res_x, res_y = cfg.resolution
+    zeros = torch.zeros((res_y, res_x, 3), dtype=torch.float32,
+                        device=scene.device)
+    return _make_block_runner(scene, cfg, alg)(iteration, 1, zeros).accum
+
+
 def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
            accum=None, start_iter: int = 0, block_cb=None):
     """Progressive render on the scene's device.
@@ -216,40 +486,44 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     is the average over completed iterations. ``accum`` / ``start_iter``
     resume a previous accumulation (checkpoint.py): iterations continue at
     ``start_iter`` and ``iterations`` counts them all, resumed prefix
-    included. ``block_cb(accum, iterations_done)`` fires after every
-    iteration (the checkpoint hook). ``rays`` is the traced ray count of
-    this call. With ``verbose``, prints one line per iteration: mean
-    luminance, image mean, rays and wall time (each line waits for the
-    device, so its time is the iteration's). With ``cfg.group``, every
-    rank of the group must call this with the same ``cfg``.
+    included. Iterations run in blocks (:func:`auto_block_size`, the
+    schedule in the module docstring), one host read each;
+    ``block_cb(accum, iterations_done)`` fires after every block (the
+    checkpoint hook). ``rays`` is the traced ray count of this call. With
+    ``verbose``, prints one line per block: its iterations, the mean
+    luminance and image mean so far, its rays and its wall time. With
+    ``cfg.group``, every rank of the group must call this with the same
+    ``cfg``.
     """
     check_backends(scene, cfg)
     res_x, res_y = cfg.resolution
     alg = resolve_algorithm(scene, cfg.algorithm)
     dev = scene.device
+    runner = _make_block_runner(scene, cfg, alg)
     accum = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
              if accum is None else accum.to(dev))
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    rays = 0
     done = start_iter
+    # Sharded ranks step one iteration at a time: under -t each rank's
+    # clock would choose its own block sizes.
+    auto_block = 1 if cfg.group is not None else auto_block_size(cfg, alg)
     verbose = verbose and is_coordinator()
     # Test-only fault injection (tests/test_torch_isolate.py), resolved once.
     fault_hook = (_maybe_inject_test_fault
                   if os.environ.get("SMALLVCM_TEST_FAULT_AT") else None)
 
-    def step():
+    def step(k):
         nonlocal accum, rays, done
         t0 = time.perf_counter()
-        img, r = render_iteration(scene, cfg, alg, done)
-        accum = accum + img
-        rays = rays + r
-        done += 1
+        block = runner(done, k, accum)
+        accum = block.accum
+        rays += block.rays
+        done += k
         if verbose:
-            lum = float(total_luminance(accum)) / done
-            mean = float(accum.mean()) / done
-            _sync(dev)
-            print(f"  iter {done - 1}: luminance={lum:.1f} mean={mean:.9g} "
-                  f"rays={int(r)} dt={time.perf_counter() - t0:.4f}s",
-                  flush=True)
+            print(f"  iter {done - k}..{done - 1}: "
+                  f"luminance={block.luminance / done:.1f} "
+                  f"mean={block.mean / done:.9g} rays={block.rays} "
+                  f"dt={time.perf_counter() - t0:.4f}s", flush=True)
         if block_cb is not None:
             block_cb(accum, done)
         if fault_hook is not None:
@@ -266,14 +540,25 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     _sync(dev)
     start = time.perf_counter()
     if cfg.max_time > 0:
+        # Two single iterations first (they settle the caps and give a
+        # time an iteration), then blocks of 1 or the auto block as the
+        # budget left allows. The block's host read ends it, so the
+        # budget is wall time of finished iterations.
         while in_budget():
-            step()
-            _sync(dev)  # the budget is wall time of finished iterations
+            rendered = done - start_iter
+            if rendered < 2:
+                step(1)
+                continue
+            spent = time.perf_counter() - start
+            left = cfg.max_time - spent
+            step(auto_block if left >= spent / rendered * auto_block else 1)
     else:
+        # Full blocks, then singles: a pure function of ``done``, so a
+        # resumed run reproduces the partition.
         while done < cfg.iterations:
-            step()
+            step(auto_block if cfg.iterations - done >= auto_block else 1)
     _sync(dev)
     elapsed = time.perf_counter() - start
 
     img = accum / done if done > 0 else accum
-    return img, elapsed, done, int(rays)
+    return img, elapsed, done, rays

@@ -110,8 +110,10 @@ def port():
         True, True, False)
     _, queries, cam_rays = tvcm._camera_stage(
         ts, misc, verts, pix, it, RES, SEED, MAX_PATH, 0, True, True, False)
-    _, stats = tvcm._merge(ts, misc, queries, verts, False, MAX_PATH, 0, N,
-                           "xla", "allgather", None)
+    _, overflow, stats = tvcm._merge(ts, misc, queries, verts, False,
+                                     MAX_PATH, 0, N, "xla", "allgather",
+                                     None)
+    assert int(overflow) == 0
     return SimpleNamespace(scene=ts, misc=misc, rays=rays, counts=counts,
                            verts=verts, queries=queries, stats=stats,
                            stage_rays=int(light_rays) + int(cam_rays))
@@ -174,7 +176,7 @@ def test_bench_count_gap_is_jax_program_fusion(golden, port):
     # and JAX's photons alone carried into the port's give JAX's count.
     merge = lambda q, v: [int(x) for x in tvcm._merge(
         port.scene, port.misc, q, v, False, MAX_PATH, 0, N, "xla",
-        "allgather", None)[1]]
+        "allgather", None)[-1]]
     assert merge(_stored(queries), _stored(verts)) == jstats
     assert merge(port.queries, _stored(verts)) == jstats
     assert merge(_stored(queries), port.verts)[0] == int(port.stats[0])

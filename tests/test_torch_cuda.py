@@ -206,6 +206,50 @@ def test_graphs_equal_eager_on_card(dev, alg):
         assert torch.equal(a, b) and ra == rb
 
 
+@pytest.mark.parametrize("alg", ["vcm", "ppm", "pt"])
+def test_blocks_equal_eager_and_single_iterations_on_card(dev, alg,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A block of four through render() (each iteration one replay of the
+    iteration graph) against the same render under graphs.eager() and with
+    --block 1: bit for bit, equal rays and kernel launches, the merge
+    launched once an iteration; tiny frozen caps grow, render the block
+    again and give the same bits."""
+    from smallvcm_tpu_torch import graphs
+
+    monkeypatch.setenv("SMALLVCM_TPU_TORCH_CACHE", str(tmp_path))
+    scene = load_cornell_box((16, 16), SCENE_CONFIGS[0], device=dev)
+    counters = (S.sweep_kernel, S.occluded_kernel, M.merge_cells_kernel)
+
+    def run(**kw):
+        cfg = R.RenderConfig(algorithm=alg, iterations=4,
+                             resolution=(16, 16), **kw)
+        before = [c.launches for c in counters]
+        img, _, done, rays = R.render(scene, cfg)
+        assert done == 4
+        return img, rays, [c.launches - b for c, b in zip(counters, before)]
+
+    if alg != "pt":
+        # Size the merge caps first: a measurement's launches are not the
+        # render's.
+        R._ensure_merge_caps(scene, R.RenderConfig(algorithm=alg,
+                                                   resolution=(16, 16)),
+                             R.resolve_algorithm(scene, alg))
+    captures = graphs.stage.captures
+    got = run(block_size=4)
+    assert graphs.stage.captures > captures
+    assert got[2][2] == (4 if alg != "pt" else 0)
+    with graphs.eager():
+        eager = run(block_size=4)
+    singles = run(block_size=1)
+    for other in (eager, singles):
+        assert torch.equal(other[0], got[0]) and other[1:] == got[1:]
+    if alg != "pt":
+        forced = run(block_size=4, photon_factor=0.05, query_factor=0.05,
+                     merge_caps_frozen=True)
+        assert torch.equal(forced[0], got[0]) and forced[1] == got[1]
+
+
 def test_sweep_autograd_matches_plain(dev):
     """The kernel's autograd Function against the plain sweep's autograd,
     on the card: distances to rtol 1e-6, ray gradients to rtol 1e-5."""

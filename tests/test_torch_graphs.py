@@ -13,6 +13,16 @@ for bit against the eager stage. It does not see host reads that only
 set a shape (boolean indexing, ``nonzero``): capture on the card refuses
 those (chip_smoke.py phase 16).
 
+The whole VCM-family iteration (``vcm.iteration_stage``, the graph of a
+block's every iteration on a card) is traced and replayed the same way
+through render() here, and stage by stage in
+tests/test_torch_iteration_graph.py. Its cell merge runs there as
+``merge_cells_plain``, whose pair expansion reads the host (it is the CPU
+stand-in for the kernel); the tests wrap it in an opaque custom op
+(:func:`_opaque_merge_cells`), as the kernel is one opaque node of the
+graph that reads its live count and scalars from device memory. With that
+op, tracing refuses any other host read (``aten._local_scalar_dense``).
+
 Also: the tensor-iteration RNG against the int form and the JAX
 package's, the MIS-weight tensors against ``compute_misc``'s floats, and
 when ``graphs.stage`` chooses eager.
@@ -38,6 +48,7 @@ from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import eyelight, pathtracer, vcm
 from smallvcm_tpu_torch.core import rng as trng
 from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
+from smallvcm_tpu_torch.ops import merge as M
 from smallvcm_tpu_torch.ops import sweep as S
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
 
@@ -78,6 +89,37 @@ class FxGraphs:
             self.captures += 1
         self.replays += 1
         return self.traced[key](*flat, *bufs)
+
+
+@torch.library.custom_op("svcm_test::merge_cells", mutates_args=())
+def _merge_cells_op(qpos: torch.Tensor, qtab: torch.Tensor,
+                    ranges: torch.Tensor, ppos: torch.Tensor,
+                    ptab: torch.Tensor, r2: torch.Tensor,
+                    vc_weight: torch.Tensor, n_live: torch.Tensor,
+                    max_path_length: int, min_path_length: int,
+                    ppm: bool) -> torch.Tensor:
+    return M.merge_cells_plain(
+        qpos, qtab, ranges, ppos, ptab, r2, vc_weight, n_live=n_live,
+        max_path_length=max_path_length, min_path_length=min_path_length,
+        ppm=ppm)
+
+
+@_merge_cells_op.register_fake
+def _(qpos, qtab, ranges, ppos, ptab, r2, vc_weight, n_live,
+      max_path_length, min_path_length, ppm):
+    return qtab.new_empty((3, qtab.shape[0]))
+
+
+def _opaque_merge_cells(qpos, qtab, ranges, ppos, ptab, r2, vc_weight, *,
+                        max_path_length, min_path_length, ppm,
+                        n_live=None):
+    """ops/merge.py::merge_cells as one opaque op, as the kernel is."""
+    dev = qtab.device
+    live = torch.full((), qtab.shape[0]) if n_live is None else n_live
+    return _merge_cells_op(qpos, qtab, ranges, ppos, ptab,
+                           M._dev_scalar(r2, dev),
+                           M._dev_scalar(vc_weight, dev), live,
+                           max_path_length, min_path_length, ppm)
 
 
 @pytest.fixture(scope="module")
@@ -173,15 +215,19 @@ def test_el_pass_replays_bit_for_bit(scene, fx, monkeypatch):
 
 
 def test_render_through_traced_stages_equals_eager(scene, fx, monkeypatch):
-    """Four VCM iterations through render() with every trace stage
-    replayed from its trace: the merge, the flush and the accumulation run
-    eagerly on the replayed outputs, and the image is the eager one."""
+    """Four VCM iterations through render(), in two blocks of two, with
+    each whole iteration (light walk, flush, camera stage, merge at static
+    caps, sums) replayed from its trace: the image and rays are the eager
+    ones, bit for bit."""
     cfg = R.RenderConfig(algorithm="vcm", iterations=4, resolution=(RES, RES),
-                         max_path_length=MAX_PATH)
+                         max_path_length=MAX_PATH, block_size=2)
     want, _, _, want_rays = R.render(scene, cfg)
+    before = fx.replays
     with monkeypatch.context() as m:
         m.setattr(graphs, "stage", fx.stage)
+        m.setattr(M, "merge_cells", _opaque_merge_cells)
         got, _, _, rays = R.render(scene, cfg)
+    assert fx.replays - before == 3          # iterations 1 (traced) to 3
     assert torch.equal(got, want) and rays == want_rays
 
 

@@ -102,17 +102,22 @@ def _photon_src(ptab, light_verts):
 def test_merge_tables_match_pallas_prep():
     """qtab / ptab hold the Pallas prep's rows, permuted by the cell sort
     (matched by source index), and the plain cell walk on them equals the
-    Pallas kernel's per-query sums on the Pallas tables."""
+    Pallas kernel's per-query sums on the Pallas tables. The port's caps
+    are the live counts here, so every row is live; its live counts are
+    the Pallas prep's."""
     js, ts, misc, queries, light_verts = _case(3, 6.0)
     (jq, jruns, jp), jq_path, n_q, ovf, stats = JPM.merge_prep(
         js, misc, queries, light_verts, 384, 256, N)
     assert int(ovf) == 0
+    n_p = int(stats[1])
     tabs = TM.merge_prep(ts, _port_misc(misc), _port_vertices(queries),
-                         _port_vertices(light_verts), N)
+                         _port_vertices(light_verts), N, photon_cap=n_p,
+                         query_cap=int(n_q))
     qtab, ranges, ptab, q_path = tabs.qtab, tabs.ranges, tabs.ptab, \
         tabs.q_path
-    tn_q, n_p = qtab.shape[0], int(stats[1])
+    tn_q = qtab.shape[0]
     assert tn_q == int(n_q) and ptab.shape[0] == n_p
+    assert int(tabs.n_q) == int(n_q) and int(tabs.n_p) == n_p
     assert ranges.shape == (2 * TM.ROWS, tn_q)
     assert ranges.dtype == torch.int32
     # The walk's position tables repeat the rows' position and length.
@@ -203,7 +208,8 @@ def _np_vertices(rng, pos):
 
 
 def _range_case(name):
-    """Merge tables of one synthetic case -> (tables, radius).
+    """Live rows of the merge tables of one synthetic case -> (tables,
+    radius).
 
     random: uniform in a cube of 6 radii (most queries find photons);
     edge: queries on and just outside the faces and corners of the photon
@@ -233,9 +239,19 @@ def _range_case(name):
         off = rng.uniform(0.0, 0.99 * r, qpos.shape)
         qpos = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
                          [pmin - off, pmin, pmax, pmax + off], qpos)
-    tables = TM.merge_prep(ts, misc, _np_vertices(rng, qpos),
-                           _np_vertices(rng, ppos), n)
-    return tables, r
+    t = TM.merge_prep(ts, misc, _np_vertices(rng, qpos),
+                      _np_vertices(rng, ppos), n)
+    # The tables are cap-wide (here the slot counts): dead rows follow the
+    # live ones, probe nothing and own no path.
+    n_q, n_p = int(t.n_q), int(t.n_p)
+    assert t.qtab.shape[0] == 4 * n > n_q and t.ptab.shape[0] == 5 * n > n_p
+    assert bool((t.ranges[:, n_q:] == 0).all())
+    assert bool((t.q_path[n_q:] == n).all()) and bool((t.q_path[:n_q] < n)
+                                                       .all())
+    live = t._replace(qpos=t.qpos[:n_q], qtab=t.qtab[:n_q],
+                      ranges=t.ranges[:, :n_q], q_path=t.q_path[:n_q],
+                      ppos=t.ppos[:n_p], ptab=t.ptab[:n_p])
+    return live, r
 
 
 @pytest.mark.parametrize("name", ["random", "edge", "wide"])

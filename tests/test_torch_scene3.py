@@ -148,8 +148,8 @@ def test_scene3_bpm_firefly_is_radius_boundary_branching(monkeypatch):
     flags = (BPM["use_vc"], BPM["use_vm"])
 
     def port_merge(misc, queries, verts):
-        color, _ = tvcm._merge(ts, misc, queries, verts, False, MAX_PATH, 0,
-                               N, "auto", "allgather", None)
+        color, _, _ = tvcm._merge(ts, misc, queries, verts, False, MAX_PATH,
+                                  0, N, "auto", "allgather", None)
         return _np([c.numpy() for c in color])
 
     def port_light_stage(misc):

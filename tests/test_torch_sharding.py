@@ -186,8 +186,11 @@ def test_merge_of_a_query_shard_against_every_photon(backend):
     _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, RES, 1234,
                                       MAXLEN, 0, True, True, False)
     if backend == "cells":
-        merge = lambda q, m: cell_merge.merge_stage(
-            scene, misc, q, verts, False, MAXLEN, 0, m, with_stats=True)
+        def merge(q, m):
+            color, overflow, stats = cell_merge.merge_stage(
+                scene, misc, q, verts, False, MAXLEN, 0, m, with_stats=True)
+            assert int(overflow) == 0
+            return color, stats
     else:
         merge = lambda q, m: vcm.merge_stage(
             scene, misc, q, verts, False, MAXLEN, 0, m, num_cells=8 * n,
