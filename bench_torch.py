@@ -35,10 +35,13 @@ read from the port's cache) before the first iteration.
 Counts, from the iteration with index 1 (bench.py's ``start_iteration=1``):
 ``rays_per_iter`` is ``render()``'s ray count, path segments plus enabled
 shadow/connection rays (bench.py:16-20); ``candidate_pairs_pair_merge`` is
-the pair merge's candidate count (``render_iteration_core(...,
-merge_backend="xla")``'s ``stats[0]``, the figure bench.py reads from the
-JAX package's XLA merge); ``candidate_pairs_cell_merge`` is the default
-cell merge's, the candidates its kernel walks.
+the pair merge's candidate count, read as bench.py:100-109 reads it from
+the JAX package's XLA merge: ``stats[0]`` of one
+``render_block_with_stats(..., merge_backend="xla")`` iteration at the
+runner's caps and the chunk rule's ``merge_chunks``; the line's
+``merge_caps`` names those caps (bench.py:133-141); and
+``candidate_pairs_cell_merge`` is the default cell merge's, the candidates
+its kernel walks.
 
 Profile, on a card, after every timing of the run (a process that has
 been profiled launches more slowly afterwards; PERF.md, PR 7): one
@@ -162,15 +165,16 @@ def card_line(dev) -> str:
 
 def resolved_config(scene, cfg) -> dict:
     """What ``render()`` runs for ``cfg``: the algorithm after the ppm
-    downgrade, the merge (none, the cell merge or the pair merge), the
-    kernels' route and the generator."""
+    downgrade, the merge (none, the cell merge or the pair merge) and its
+    caps (:func:`merge_caps`), the kernels' route and the generator."""
     from smallvcm_tpu_torch import render as R
 
     alg = R.resolve_algorithm(scene, cfg.algorithm)
-    merge = None
+    merge = caps = None
     if alg in ("ppm", "bpm", "vcm"):
         merge = "pair" if cfg.merge_backend == "xla" else "cell"
-    return dict(algorithm=alg, merge=merge, rng=cfg.rng_kind,
+        caps = merge_caps(scene, cfg)
+    return dict(algorithm=alg, merge=merge, caps=caps, rng=cfg.rng_kind,
                 route="cuda" if scene.device.type == "cuda" else "plain")
 
 
@@ -443,25 +447,43 @@ def profile_iteration(scene, cfg, iteration: int = COUNT_ITERATION):
     return rays, out
 
 
-def pair_counts(scene, res: int, rays: int) -> dict:
+def merge_caps(scene, cfg) -> dict:
+    """The block runner's merge caps for ``cfg`` (sized by its first
+    render, then read from the port's cache) and the pair merge's chunk
+    count at them (bench.py:103)."""
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.algorithms import vcm
+
+    cfg = dataclasses.replace(cfg)
+    R._ensure_merge_caps(scene, cfg, R.resolve_algorithm(scene,
+                                                          cfg.algorithm))
+    n = cfg.resolution[0] * cfg.resolution[1]
+    return dict(R._caps_of(cfg),
+                merge_chunks=vcm.merge_chunks_for(cfg.pair_factor, n))
+
+
+def pair_counts(scene, res: int, rays: int, caps: dict) -> dict:
     """The two merges' candidate pairs of the VCM iteration with index
-    COUNT_ITERATION; each run's ray count must equal ``rays``."""
+    COUNT_ITERATION: the pair merge's at ``caps`` (merge_caps), as
+    bench.py counts them, and the cell merge's over its slot counts; each
+    run's ray count must equal ``rays``."""
     import torch
 
     from smallvcm_tpu_torch.algorithms import vcm
 
     n = res * res
+    _, r_pair, overflow, stats = vcm.render_block_with_stats(
+        scene, COUNT_ITERATION, res, res, 1, merge_backend="xla", **caps)[:4]
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    out = {}
-    for key, backend in (("candidate_pairs_pair_merge", "xla"),
-                         ("candidate_pairs_cell_merge", "auto")):
-        _, r, _, stats = vcm.render_iteration_core(
-            scene, COUNT_ITERATION, pix, res, res, n, merge_backend=backend)
+    _, r_cell, _, cell_stats = vcm.render_iteration_core(
+        scene, COUNT_ITERATION, pix, res, res, n, merge_backend="auto")
+    for backend, r in (("xla", r_pair), ("auto", r_cell)):
         if int(r) != rays:
             raise RuntimeError(f"{backend} merge run: {int(r)} rays, "
                                f"render() counted {rays}")
-        out[key] = int(stats[0])
-    return out
+    return dict(candidate_pairs_pair_merge=int(stats[0]),
+                pair_merge_overflow=int(overflow),
+                candidate_pairs_cell_merge=int(cell_stats[0]))
 
 
 def bench_config(alg: str, res: int, block: int):
@@ -540,8 +562,10 @@ def log_split(alg: str, r: dict) -> None:
     eprint(f"[kernels] {alg} (device ms / launches): " + ", ".join(parts))
 
 
-def result_line(rec: dict, pairs: dict, device: str, res: int) -> dict:
-    """bench.py's JSON line for VCM, plus the port's fields."""
+def result_line(rec: dict, pairs: dict, device: str, res: int,
+                caps: dict) -> dict:
+    """bench.py's JSON line for VCM, plus the port's fields; ``caps`` are
+    the merge caps the pair count was read at."""
     rays_per_s = rec["rays_per_iter"] / (rec["ms_per_iter"] / 1e3)
     baseline = rec["rays_per_iter"] / REFERENCE_VCM_SCENE0_SECONDS
     keys = ("ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
@@ -555,7 +579,7 @@ def result_line(rec: dict, pairs: dict, device: str, res: int) -> dict:
     return {"metric": metric_name(res), "value": round(rays_per_s),
             "unit": "rays/s", "vs_baseline": rays_per_s / baseline,
             "impl": "smallvcm_tpu_torch", "device": device,
-            **{k: rec[k] for k in keys}, **pairs,
+            **{k: rec[k] for k in keys}, **pairs, "merge_caps": caps,
             **{k: rec[k] for k in device_keys},
             "image_mean": rec["image_mean"]}
 
@@ -619,11 +643,13 @@ def main(argv=None) -> int:
         log_record(alg, records[alg])
         log_split(alg, records[alg])
     vcm_rec = records["vcm"]
-    pairs = pair_counts(scene, args.res, vcm_rec["rays_per_iter"])
+    caps = vcm_rec["resolved"]["caps"]
+    pairs = pair_counts(scene, args.res, vcm_rec["rays_per_iter"], caps)
     eprint(f"[pairs] vcm iteration {COUNT_ITERATION}: pair merge "
-           f"{pairs['candidate_pairs_pair_merge']}, cell merge "
+           f"{pairs['candidate_pairs_pair_merge']} at {caps} (overflow "
+           f"{pairs['pair_merge_overflow']}), cell merge "
            f"{pairs['candidate_pairs_cell_merge']} candidate pairs")
-    line = result_line(vcm_rec, pairs, device, args.res)
+    line = result_line(vcm_rec, pairs, device, args.res, caps)
     if args.full or args.alg:
         record = dict(ts=time.time(), impl="smallvcm_tpu_torch",
                       device=device, card=card, torch=torch.__version__,

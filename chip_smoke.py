@@ -75,7 +75,9 @@ Phases (each one raises on failure; nothing is caught):
     span, CUDA events) in (0, 1], every
     kernel launched, a timed repeat one block of 8
     with one host sync and at most BLOCK_HOST_CALLS_MAX host launch calls
-    an iteration; the line and its (eager) stage split are logged;
+    an iteration, its pair-merge count read at the runner's caps (named in
+    ``merge_caps``) with no overflow; the line and its (eager) stage split
+    are logged;
 16. graphs against eager: scene 0 at 512x512, vcm and pt iterations 0-3,
     el, lt, ppm, bpm and bpt 0-2, each algorithm on a fresh scene, a block
     of one an iteration through render.py's block runner with the
@@ -97,9 +99,25 @@ Phases (each one raises on failure; nothing is caught):
     a second process reads the caps from the cache and measures nothing;
     ppm and bpm in a block of 8; el and pt in a block of 64 with one host
     sync; ``scripts/torch_scaling.py --res 2048 --ranks 1`` through the
-    block runner: peak memory on one card.
+    block runner: peak memory on one card;
+18. the pair merge at static caps (``--merge-backend xla``): VCM 512x512
+    ``-i 8`` through the CLI (one block) and ``render()``, cold and warm:
+    ms/iteration, one capture and its seconds, one host sync a block, host
+    launch calls an iteration, peak memory, the caps; ``--block 1`` and
+    ``graphs.eager()`` bit for bit; a tiny pair factor (0.05) grows by the
+    JAX package's rule and re-renders to the same bytes; the image against
+    the cell merge's (mean within 1e-3, pixels at rtol 1e-3); iteration 1's
+    candidate pairs equal to phase 15's; the profiled iteration's device
+    ms and eager stage split; VCM 1024x1024 ``-i 2`` at the chunk rule's
+    ``merge_chunks`` (> 1, inside the iteration graph) bit for bit equal
+    to one chunk (eager); phase 11 again with caps (the gradient golden at
+    measured caps, a 512x512 step at the measured caps against phase 11's
+    time and memory); phase 13 again with caps (two gloo ranks on one card
+    from a tiny pair factor: the overflow summed over ranks grows both to
+    the same caps, by JAX's rule over a rank's paths, and the image equals
+    the single process's at those caps within rtol 1e-4 / atol 1e-6).
 
-Phases 6-17 run on the graph path wherever it applies (every render of two
+Phases 6-18 run on the graph path wherever it applies (every render of two
 or more iterations captures at its second); phase 3 records its call sites
 and profiles under ``graphs.eager()``, since a replay runs no Python. The
 merge caps are cached in a directory of this run alone.
@@ -1359,9 +1377,10 @@ BENCH_FIELDS = ("value", "vs_baseline", "ms_per_iter", "ms_per_iter_min",
 BLOCK_HOST_CALLS_MAX = 50
 
 
-def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
-    """Phase 15: bench_torch.py's default mode in a subprocess -> its
-    wrapper launch counts (the timed repeats)."""
+def check_bench(rays_iter1: int, launches_per_iteration: int):
+    """Phase 15: bench_torch.py's default mode in a subprocess -> (its
+    wrapper launch counts (the timed repeats), its pair-merge candidate
+    count of iteration 1, which phase 18 holds against its own)."""
     proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
@@ -1404,13 +1423,18 @@ def check_bench(rays_iter1: int, launches_per_iteration: int) -> dict:
         raise AssertionError(f"bench: kernel launches {counts}")
     if rec["stages"]["unattributed"]["launches"]:
         raise AssertionError(f"bench: unattributed kernels {rec['stages']}")
+    caps = rec["merge_caps"]
+    if rec["pair_merge_overflow"] or set(caps) != {
+            "pair_factor", "photon_factor", "query_factor", "merge_chunks"}:
+        raise AssertionError(f"bench: pair merge overflow "
+                             f"{rec['pair_merge_overflow']}, caps {caps}")
     log(f"[bench] {lines[0]}")
     log("[bench] vcm stage split (device ms / launches / host launch "
         "calls): " + ", ".join(
             f"{label} {st['device_ms']:.3f} / {st['launches']} / "
             f"{st['host_launch_calls']}"
             for label, st in rec["stages"].items()))
-    return counts
+    return counts, rec["candidate_pairs_pair_merge"]
 
 
 # Phase 16: (algorithm, iterations 0..n-1) rendered with graphs and eagerly.
@@ -1769,6 +1793,318 @@ def check_blocks(torch, dev) -> dict:
     return launches
 
 
+# Phase 18: the pair merge at static caps.
+PAIR_RES_CHUNKED = 1024      # the chunk rule gives merge_chunks > 1 here
+PAIR_TINY = 0.05             # a pair factor every block overflows
+
+
+def _pair_rank(device: str, res: int) -> dict:
+    """Phase 18 in each rank: VCM through the pair merge from tiny pair
+    caps, two iterations, one block -> the image, the block's stats, the
+    caps grown to, the overflow lines and the kernels' launches."""
+    import torch
+
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.parallel import multihost
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    dev = multihost.rank_device(device)
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
+    cfg = R.RenderConfig(algorithm="vcm", iterations=2, resolution=(res, res),
+                         merge_backend="xla", pair_factor=PAIR_TINY,
+                         block_size=2, group=multihost.global_group())
+    run = R._make_block_runner(scene, cfg, "vcm")
+    reset_counts(M, S)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        block = run(0, 2, torch.zeros((res, res, 3), device=dev))
+    return dict(img=block.accum.cpu(), stats=block.stats,
+                caps=R._caps_of(cfg), out=buf.getvalue(),
+                launches=read_counts(M, S))
+
+
+def check_pair_caps(torch, dev, bench_pairs: int, grad_steps: dict) -> dict:
+    """Phase 18: VCM through the pair merge at static caps, one CUDA graph
+    an iteration -> the kernels' launches by path. ``bench_pairs``: phase
+    15's pair count of iteration 1; ``grad_steps``: phase 11's steps."""
+    import numpy as np
+
+    import bench_torch
+    from bench_torch import block_host_counts
+    from smallvcm_tpu_torch import cli, diff, graphs
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.algorithms import vcm
+    from smallvcm_tpu_torch.ops import merge as M
+    from smallvcm_tpu_torch.ops import sweep as S
+    from smallvcm_tpu_torch.parallel import multihost
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    t_phase = time.perf_counter()
+
+    def plog(msg):
+        log(f"[pair-caps +{time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    n = RES * RES
+    xla = dict(merge_backend="xla")
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    launches = {}
+
+    # (a) The CLI entry: -i 8 --merge-backend xla, one block of 8.
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(M, S)
+        blocks = run_cli(cli, f"{tmp}/xla.bmp", "vcm", BLOCK_ITERS,
+                         ("--merge-backend", "xla"), quiet=True)
+        cli_counts = read_counts(M, S)
+    if [(a, b) for a, b, *_ in blocks] != [(0, BLOCK_ITERS - 1)] \
+            or cli_counts["merge_cells"] or cli_counts["intersect_sweep"] \
+            <= 0 or cli_counts["occluded_sweep"] <= 0:
+        raise AssertionError(f"pair caps cli: blocks {blocks}, launches "
+                             f"{cli_counts}")
+    launches["pair_caps_cli"] = cli_counts
+    plog(f"cli -i {BLOCK_ITERS} --merge-backend xla: one block in "
+         f"{1e3 * blocks[0][4]:.1f} ms (caps cached by the CLI's first "
+         f"render or measured there), mean {blocks[0][2]:.6f}; launches "
+         f"{cli_counts}")
+
+    # (b) render(): cold (a capture), warm, one host sync a block, host
+    # launch calls an iteration, peak memory.
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    capture_s = graphs.stage.capture_s
+    cold = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, **xla)
+    capture_s = graphs.stage.capture_s - capture_s
+    warm = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, **xla)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            torch.cuda.max_memory_reserved(dev) / 2 ** 30)
+    img, cfg, counts = warm.img, warm.cfg, warm.launches
+    host = block_host_counts(scene, cfg, BLOCK_ITERS, BLOCK_ITERS)
+    calls_iter = host["host_launch_calls"] / BLOCK_ITERS
+    if cold.captures != 1 or warm.captures or host["host_syncs"] != 1 \
+            or calls_iter > BLOCK_HOST_CALLS_MAX or counts["merge_cells"] \
+            or "overflow" in cold.out + warm.out:
+        raise AssertionError(f"pair caps: captures {cold.captures} / "
+                             f"{warm.captures}, {host['host_syncs']} host "
+                             f"syncs (at {host['sync_sites']}), {calls_iter} "
+                             f"host launch calls an iteration, launches "
+                             f"{counts}, output {cold.out + warm.out!r}")
+    chunks = R.merge_chunks(cfg)
+    pair_rows = int(cfg.pair_factor * n)
+    launches["pair_caps_vcm"] = counts
+    plog(f"vcm {RES}x{RES} -i {BLOCK_ITERS} through the pair merge: "
+         f"{1e3 * warm.secs / BLOCK_ITERS:.2f} ms/iteration warm (cold "
+         f"{1e3 * cold.secs / BLOCK_ITERS:.2f}, {cold.captures} capture of "
+         f"{capture_s:.2f} s host); {host['host_syncs']} host sync a block; "
+         f"{calls_iter:.2f} host launch calls an iteration; busy share "
+         f"{host['busy_share']:.4f}; peak {peak[0]:.3f} GiB allocated, "
+         f"{peak[1]:.3f} reserved; caps pair_factor {cfg.pair_factor} "
+         f"({pair_rows} pair rows, merge_chunks {chunks}), photon_factor "
+         f"{cfg.photon_factor}, query_factor {cfg.query_factor}; launches "
+         f"{counts}; image mean {float(img.mean()):.6f}")
+
+    # (c) --block 1 and graphs.eager(): bit for bit.
+    singles = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, block_size=1,
+                             **xla)
+    with graphs.eager():
+        eager = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, **xla)
+    for name, other in (("--block 1", singles), ("graphs.eager()", eager)):
+        if not torch.equal(other.img, img) or other.rays != warm.rays \
+                or other.launches != counts:
+            raise AssertionError(
+                f"pair caps: {name} differs (max |diff| "
+                f"{float((other.img - img).abs().max())}, rays "
+                f"{other.rays} vs {warm.rays}, launches {other.launches})")
+    plog(f"block of {BLOCK_ITERS} vs --block 1 "
+         f"({1e3 * singles.secs / BLOCK_ITERS:.2f} ms/iteration) and vs "
+         f"graphs.eager() ({1e3 * eager.secs / BLOCK_ITERS:.2f} "
+         f"ms/iteration): images bit for bit, rays and launches equal")
+
+    # (d) Forced overflow: a tiny pair factor grows by the JAX rule and
+    # the block renders again to the same bytes.
+    forced = _blocks_render(torch, scene, "vcm", BLOCK_ITERS,
+                            pair_factor=PAIR_TINY,
+                            photon_factor=cfg.photon_factor,
+                            query_factor=cfg.query_factor,
+                            merge_caps_frozen=True, **xla)
+    if "merge cap overflow" not in forced.out \
+            or not torch.equal(forced.img, img) \
+            or forced.cfg.pair_factor <= PAIR_TINY:
+        raise AssertionError(f"pair caps: forced overflow: {forced.out!r}, "
+                             f"image equal {torch.equal(forced.img, img)}")
+    launches["pair_caps_overflow"] = forced.launches
+    plog(f"forced overflow (pair_factor {PAIR_TINY}): "
+         f"{forced.out.strip()}; grown to pair_factor "
+         f"{forced.cfg.pair_factor}; image bit for bit the measured caps'; "
+         f"{1e3 * forced.secs / BLOCK_ITERS:.2f} ms/iteration with the "
+         f"re-render")
+
+    # (e) Against the cell merge, and phase 15's pair count.
+    cells = _blocks_render(torch, scene, "vcm", BLOCK_ITERS)
+    rel = abs(float(img.mean()) / float(cells.img.mean()) - 1.0)
+    close = torch.isclose(img, cells.img, rtol=1e-3, atol=1e-6).all(
+        dim=-1).float().mean().item()
+    if rel > 1e-3 or close < 0.99:
+        raise AssertionError(f"pair caps vs cells: mean rel {rel}, pixels "
+                             f"{close}")
+    _, _, ovf, stats, _ = vcm.render_block_with_stats(
+        scene, 1, RES, RES, 1, pair_factor=cfg.pair_factor,
+        photon_factor=cfg.photon_factor, query_factor=cfg.query_factor,
+        merge_chunks=chunks, **xla)
+    pairs1 = int(stats[0])
+    if int(ovf) or pairs1 != bench_pairs:
+        raise AssertionError(f"pair caps: iteration 1 has {pairs1} pairs "
+                             f"(overflow {int(ovf)}), bench_torch.py "
+                             f"counted {bench_pairs}")
+    plog(f"against the cell merge (-i {BLOCK_ITERS}): mean rel {rel:.2e}, "
+         f"pixels within rtol 1e-3 {close:.4f}; iteration 1: {pairs1} "
+         f"candidate pairs, {int(stats[1])} photons, {int(stats[2])} "
+         f"queries, equal to phase 15's count")
+
+    # (f) Device ms and the stage split of one profiled iteration.
+    rays, prof = bench_torch.profile_iteration(
+        scene, R.RenderConfig(algorithm="vcm", resolution=(RES, RES),
+                              block_size=BLOCK_ITERS, **xla))
+    split = ", ".join(f"{k} {v['device_ms']:.3f} / {v['launches']}"
+                      for k, v in prof["stages"].items())
+    plog(f"profiled iteration 1 (a block of one): {prof['launches']} "
+         f"kernels from {prof['host_launch_calls']} host launch calls, "
+         f"device {prof['device_ms']:.3f} ms; eager stage split (device ms "
+         f"/ kernels): {split}; kernels {prof['kernels']}")
+
+    # (g) 1024x1024 -i 2: the chunk rule's merge_chunks (a graph) against
+    # one chunk (eager), bit for bit.
+    res = PAIR_RES_CHUNKED
+    big = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
+    bcfg = R.RenderConfig(algorithm="vcm", resolution=(res, res), **xla)
+    zeros = lambda: torch.zeros((res, res, 3), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        chunked = R._make_block_runner(big, bcfg, "vcm")(0, 2, zeros())
+    big_chunks = R.merge_chunks(bcfg)
+    peak_chunked = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with graphs.eager():
+        one, _, ovf1, st1, _ = vcm.render_block_with_stats(
+            big, 0, res, res, 2, pair_factor=bcfg.pair_factor,
+            photon_factor=bcfg.photon_factor, query_factor=bcfg.query_factor,
+            merge_chunks=1, accum=zeros(), **xla)
+    peak_one = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if big_chunks < 2 or int(ovf1) or not torch.equal(chunked.accum, one) \
+            or tuple(st1.tolist()) != chunked.stats:
+        raise AssertionError(
+            f"pair caps {res}: merge_chunks {big_chunks} vs 1: equal "
+            f"{torch.equal(chunked.accum, one)}, overflow {int(ovf1)}, "
+            f"stats {st1.tolist()} vs {chunked.stats}; {buf.getvalue()!r}")
+    plog(f"vcm {res}x{res} -i 2: the chunk rule's merge_chunks {big_chunks} "
+         f"(pair_factor {bcfg.pair_factor}, "
+         f"{int(bcfg.pair_factor * res * res)} pair rows; "
+         f"{buf.getvalue().count('overflow')} overflow re-renders), "
+         f"captured, equal bit for bit to merge_chunks 1 (eager); stats "
+         f"{chunked.stats}; peak allocated {peak_chunked:.3f} GiB chunked, "
+         f"{peak_one:.3f} GiB with one chunk")
+    # The scene's tensors die with it, and its graphs with them.
+    del big, chunked, one
+    torch.cuda.empty_cache()
+
+    # (h) Phase 11 again with caps: the gradient golden at its caps, and a
+    # full-size step at the measured caps against phase 11's.
+    data = np.load(GRAD_GOLDEN)
+    c = json.loads(str(data["config"]))
+    res_x, res_y = c["resolution"]
+    gscene = load_cornell_box((res_x, res_y),
+                              SCENE_CONFIGS[c["scene_id"]]).to(dev)
+    target = torch.full((res_y, res_x, 3), c["target"], device=dev)
+    n_li = 3 * gscene.lights.kind.shape[0]
+    for alg in c["algorithms"]:
+        caps = {}
+        if alg != "pt":
+            gcfg = R.RenderConfig(algorithm=alg, resolution=(res_x, res_y),
+                                  base_seed=c["base_seed"],
+                                  max_path_length=c["max_path_length"],
+                                  **xla)
+            R._ensure_merge_caps(gscene, gcfg, alg)
+            caps = R._caps_of(gcfg)
+        _, g = diff.loss_and_grad(
+            gscene, diff.extract_params(gscene), target, c["iteration"], alg,
+            res_x, res_y, n_iterations=c["n_iterations"],
+            base_seed=c["base_seed"], max_path_length=c["max_path_length"],
+            **caps)
+        flat = torch.cat([x.reshape(-1) for x in diff._leaves(g)]).cpu()
+        want = torch.from_numpy(data[f"{alg}_grad"])
+        if not bool(torch.isfinite(flat).all()):
+            raise AssertionError(f"pair caps grad golden {alg}: non-finite")
+        torch.testing.assert_close(flat[-n_li:], want[-n_li:], rtol=1e-3,
+                                   atol=0.0)
+        plog(f"gradient golden {alg} {res_x}x{res_y} at caps {caps}: "
+             f"light-intensity grads within rtol 1e-3, every leaf finite")
+    target = torch.full((GRAD_RES, GRAD_RES, 3), 0.1, device=dev)
+    gcaps = R._caps_of(cfg)
+    times = []
+    for it in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(M, S)
+        t0 = time.perf_counter()
+        loss, g = diff.loss_and_grad(scene, diff.extract_params(scene),
+                                     target, it, "vcm", GRAD_RES, GRAD_RES,
+                                     **gcaps)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    gpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    glaunches = read_counts(M, S)
+    if not all(bool(torch.isfinite(x).all()) for x in diff._leaves(g)) \
+            or glaunches["merge_cells"] or glaunches["intersect_sweep"] <= 0:
+        raise AssertionError(f"pair caps grad: launches {glaunches}")
+    launches["pair_caps_grad_vcm"] = glaunches
+    plog(f"vcm {GRAD_RES}x{GRAD_RES} x1 forward+backward at the measured "
+         f"caps {gcaps}: {times[0]:.1f} ms cold, {times[1]:.1f} ms warm, "
+         f"peak {gpeak:.2f} GiB allocated (phase 11, default caps 24 / 3 / "
+         f"3: {grad_steps['vcm']['ms']:.1f} ms, "
+         f"{grad_steps['vcm']['peak_gib']:.2f} GiB); loss {float(loss):.6g}")
+
+    # (i) Phase 13 again with caps: two gloo ranks on one card, the pair
+    # merge from tiny caps; the summed overflow grows both alike.
+    del g, loss
+    torch.cuda.empty_cache()   # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(SHARD_RANKS, "cuda:0", _pair_rank, "cuda:0", RES)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r, out in enumerate(ranks):
+        if out["caps"] != r0["caps"] or out["stats"] != r0["stats"] \
+                or not torch.equal(out["img"], r0["img"]) \
+                or out["launches"]["merge_cells"]:
+            raise AssertionError(f"pair caps sharded: rank {r} caps "
+                                 f"{out['caps']}, stats {out['stats']} vs "
+                                 f"rank 0 {r0['caps']}, {r0['stats']}")
+    n_shard = n // SHARD_RANKS
+    if "merge cap overflow" not in r0["out"] or r0["caps"]["pair_factor"] \
+            != R._grow_pairs(PAIR_TINY, r0["stats"][0], n_shard):
+        raise AssertionError(f"pair caps sharded: {r0['out']!r}, caps "
+                             f"{r0['caps']}, stats {r0['stats']}")
+    scfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES),
+                          merge_caps_frozen=True, **xla, **r0["caps"])
+    single = R._make_block_runner(scene, scfg, "vcm")(
+        0, 2, torch.zeros((RES, RES, 3), device=dev))
+    torch.testing.assert_close(r0["img"], single.accum.cpu(), rtol=1e-4,
+                               atol=1e-6)
+    if r0["stats"][0] != single.stats[0]:
+        raise AssertionError(f"pair caps sharded: pairs {r0['stats']} vs "
+                             f"single {single.stats}")
+    launches["pair_caps_sharded"] = [o["launches"] for o in ranks]
+    plog(f"two gloo ranks on cuda:0, vcm {RES}x{RES} x2 (one block) from "
+         f"pair_factor {PAIR_TINY}: rank 0 printed "
+         f"{r0['out'].strip()!r}; both grew to {r0['caps']} (JAX's rule "
+         f"over {n_shard} paths a rank, from the pairs summed over ranks, "
+         f"{r0['stats'][0]}); image within rtol 1e-4 / atol 1e-6 of the "
+         f"single process at those caps (max |err| "
+         f"{float((r0['img'] - single.accum.cpu()).abs().max()):.3g}); "
+         f"launches by rank {launches['pair_caps_sharded']}; {spawn_s:.1f} "
+         f"s with the spawn")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1836,12 +2172,15 @@ def main() -> int:
     phase_done("phase 13 (sharding, codec, supervisor)")
     matrix = check_matrix(torch, dev)
     phase_done("phase 14 (matrix)")
-    bench = check_bench(rays_iter1, occl_r["launches_per_iteration"])
+    bench, bench_pairs = check_bench(rays_iter1,
+                                     occl_r["launches_per_iteration"])
     phase_done("phase 15 (bench)")
     graph_r = check_graphs(torch, dev)
     phase_done("phase 16 (graphs against eager)")
     blocks = check_blocks(torch, dev)
     phase_done("phase 17 (blocks)")
+    pair_caps = check_pair_caps(torch, dev, bench_pairs, grads)
+    phase_done("phase 18 (pair merge at caps)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -1858,6 +2197,8 @@ def main() -> int:
         **{f"graphs_{alg}": r["launches"][name] for alg, r in
            graph_r.items()},
         **{path: n[name] for path, n in blocks.items()},
+        **{path: ([x[name] for x in n] if isinstance(n, list) else n[name])
+           for path, n in pair_caps.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

@@ -94,7 +94,7 @@ def _iteration(torch, scene, res: int, it: int, exchange: str, group,
         zeros = torch.zeros((res, res, 3), device=scene.device)
         block = runner(it, 1, zeros)
         return block.accum, block.stats
-    img, _, stats = sharding.sharded_render_iteration_with_stats(
+    img, _, _, stats = sharding.sharded_render_iteration_with_stats(
         group, scene, it, res, res, vm_exchange=exchange)
     return img, stats
 

@@ -27,16 +27,17 @@ On a card, :func:`render_block_with_stats` (the JAX package's
 ``render_block_with_stats``) runs each iteration as ONE CUDA graph
 (graphs.py): :func:`iteration_stage` holds the light walk
 (:func:`light_walk`), the splat flush, the camera stage
-(:func:`camera_walk`), the cell merge at static photon and query caps
-(ops/merge.py) and the framebuffer sums. It takes the iteration, the
-radius, r^2, the vm normalization and the two MIS weights as 0-dim device
-tensors, filled before each replay from :func:`compute_misc`'s host
-floats, so no value of one iteration is frozen into the capture, and it
-makes no host read: overflow and merge stats stay on the device until the
-block's end. :func:`render_iteration_core` is the per-stage form, for
-sharded ranks (the exchange sits between the stages) and the pair merge
-(host reads): there the light walk and the camera stage are each one graph
-and the rest runs eagerly between them.
+(:func:`camera_walk`), the merge at static caps (the cell merge,
+ops/merge.py, or the pair merge, :func:`merge_stage`) and the framebuffer
+sums. It takes the iteration, the radius, r^2, the vm normalization and
+the two MIS weights as 0-dim device tensors, filled before each replay
+from :func:`compute_misc`'s host floats, so no value of one iteration is
+frozen into the capture, and it makes no host read: overflow and merge
+stats stay on the device until the block's end.
+:func:`render_iteration_core` is the per-stage form, for sharded ranks
+(the exchange sits between the stages) and gradients: there the light walk
+and the camera stage are each one graph (eager under autograd) and the
+rest runs eagerly between them.
 """
 
 from __future__ import annotations
@@ -835,99 +836,247 @@ def camera_walk(
     return color, queries, rays
 
 
+def _pad_mult(x: int, m: int) -> int:
+    """Round x up to a multiple of m (query caps must split into chunks)."""
+    return -(-x // m) * m
+
+
+class _PhotonGrid(NamedTuple):
+    """The photons' bbox, cell size and full-width cell hashes (dead slots
+    in the sentinel cell ``num_cells``) with their per-cell counts."""
+    mins: list            # 3 x 0-dim f32
+    maxs: list
+    inv_cell: torch.Tensor
+    hashes: torch.Tensor  # [M] int64
+    count: torch.Tensor   # [num_cells] int64
+
+
+def _photon_grid(light_verts: StoredVertices, radius, num_cells: int):
+    """Hash every photon slot into cells of 2r (hashgrid.hxx:64) at full
+    width, positions detached (the JAX merge's stop_gradient), with no
+    host read: ``radius`` may be a 0-dim device tensor, and the cell size
+    is its reciprocal in f32, as the JAX package rounds it."""
+    flat = lambda a: a.reshape(-1)
+    pvalid = flat(light_verts.valid)
+    pos = [flat(c).detach() for c in light_verts.position]
+    big = 1e36
+    mins = [torch.where(pvalid, a, big).min() for a in pos]
+    maxs = [torch.where(pvalid, a, -big).max() for a in pos]
+    inv_cell = torch.reciprocal(radius * 2.0)
+    h = grid_ops._hash_cell(*(torch.floor((a - mn) * inv_cell).long()
+                              for a, mn in zip(pos, mins)), num_cells)
+    # Dead slots add 0 at their own position mod num_cells, not 1 at the
+    # sentinel: most slots are dead, and one hot counter serializes.
+    spread = torch.remainder(torch.arange(h.shape[0], device=h.device),
+                             num_cells)
+    count = torch.zeros((num_cells,), dtype=torch.int64,
+                        device=h.device).scatter_add_(
+        0, torch.where(pvalid, h, spread), pvalid.long())
+    return _PhotonGrid(mins, maxs, inv_cell,
+                       torch.where(pvalid, h, num_cells), count)
+
+
+def _probe_cells(grid: _PhotonGrid, radius, qpos, live, num_cells: int):
+    """The 8 probed cells of each query -> hashes [8, Q]: the query's cell
+    and its neighbours on the side of the cell centre it lies on
+    (hashgrid.hxx:124-138). ``live`` (the caller's) is narrowed to the
+    queries within r of the photon bbox (hashgrid.hxx:116-122, padded by
+    the radius: same-plane f32 hit points sit ulps outside the tight
+    bbox) -> (hashes, live)."""
+    for a, mn, mx in zip(qpos, grid.mins, grid.maxs):
+        live = live & (a >= mn - radius) & (a <= mx + radius)
+    rel = [(a - mn) * grid.inv_cell for a, mn in zip(qpos, grid.mins)]
+    base = [torch.floor(r).long() for r in rel]
+    side = [torch.where(r - torch.floor(r) < 0.5, -1, 1) for r in rel]
+    cells = [grid_ops._hash_cell(*(b + (s if bit & (1 << k) else 0)
+                                   for k, (b, s) in enumerate(zip(base,
+                                                                  side))),
+                                 num_cells) for bit in range(8)]
+    return torch.stack(cells), live
+
+
 def merge_stage(
     scene: SceneData, misc: VcmMisc, queries: StoredVertices,
-    light_verts: StoredVertices, ppm: bool, max_path_length: int,
-    min_path_length: int, n_paths: int, num_cells: int | None = None,
-    max_pairs: int = grid_ops.MAX_PAIRS, with_stats: bool = False,
+    light_verts: StoredVertices, num_cells: int, pair_cap: int, ppm: bool,
+    max_path_length: int, min_path_length: int, photon_cap: int,
+    query_cap: int, n_paths: int, merge_chunks: int = 1,
 ):
-    """Vertex merging by exact (query, photon) pair expansion -> color_add
-    V3 [n_paths]: the per-path merge radiance, scaled by the camera
-    throughput and the vm normalization. With ``with_stats``, returns
-    ``(color_add, stats)``, stats = int64 [candidate pairs, live photons,
-    live queries] as the JAX merge counts them.
+    """Vertex merging by (query, photon) pair expansion at static caps ->
+    (color_add V3 [n_paths], overflow int64, stats int64 [candidate
+    pairs, live photons, live queries]): the JAX package's XLA merge
+    (vcm.py::merge_stage), stage for stage, with no host read, so it runs
+    inside the iteration's CUDA graph (graphs.py).
 
-    ``n_paths`` is the number of query columns (the output length); the
-    photon table may have more columns (the sharded all-gather), and each
-    photon's path length comes from its own table's column count.
+    RangeQuery::Process (vertexcm.hxx:130-169): every light vertex within
+    the merge radius of a camera vertex contributes mis * f_s(camera,
+    -photon.in_dir) * photon throughput [tech. rep. (38)-(39)] (mis = 1 for
+    ppm), summed per query and scaled by the vm normalization and the
+    camera throughput.
 
-    Port of the JAX package's XLA merge (RangeQuery::Process,
-    vertexcm.hxx:130-169): photons are hashed into cells of 2r
-    (``num_cells`` buckets, default 8 per path as in the JAX render loop;
-    two probe cells of one query that share a bucket visit its photons
-    twice, as in the reference's grid) and stably sorted by cell; every live
-    query probes its nearest 2x2x2 cells, the candidates are expanded into
-    an explicit pair list (hashgrid.expand_pairs), filtered by the exact r^2
-    test and the path-length window (vertexcm.hxx:132-135), and the
-    survivors get the camera BSDF toward -photon.in_dir and the MIS weight
-    1/(w_light + 1 + w_camera) [tech. rep. (38)-(39)] (1 for ppm).
+    1. Photons are hashed at full width into ``num_cells`` cells of 2r
+       (dead slots in a sentinel cell) and sort-compacted by cell into
+       ``photon_cap`` rows; the per-cell counts come from the full-width
+       hashes. Two probe cells of one query that share a hash bucket
+       visit its photons twice, as in the reference's grid.
+    2. Queries are compacted by a stable sort on the validity bit into
+       ``query_cap`` rows; each live query within r of the photon bbox
+       probes its 2x2x2 cells, and 20 int32 fields a query hold its
+       position bits, path length and per-cell boundaries.
+    3. Per chunk of ``query_cap / merge_chunks`` queries, pairs are
+       expanded into ``pair_cap_c`` rows (pair_cap / merge_chunks, with
+       1.5x slack when chunked: pairs do not split evenly) by a segment
+       carry, tested for the exact r^2 and the path-length window
+       (vertexcm.hxx:132-135), and the survivors compacted into
+       ``surv_cap`` rows by one sort on flag | pair id.
+    4. The survivors' BSDF and MIS weights, summed per query and routed to
+       the owning path (framebuffer.deterministic_index_add).
+
+    Every truncation is JAX's: the first ``photon_cap`` photons in cell
+    order, the first ``query_cap`` queries, the first ``pair_cap_c`` pairs
+    and ``surv_cap`` survivors of a chunk; each one counts in
+    ``overflow``, and the caller renders again at grown caps for an exact
+    image. Indices past a cap land in a dump row, never outside a tensor.
+    The pair count is exact unless the photon or query cap overflowed.
+    ``n_paths`` is the query tables' column count; the photon table may
+    have more columns (the sharded all-gather): each side's path lengths
+    come from its own column count. The per-iteration scalars of ``misc``
+    may be Python floats or 0-dim float32 device tensors.
 
     Differentiable in the vertex payload (in_dir, normal, throughput,
     d_vcm, d_vm) and the materials; positions enter only the detached cell
-    and distance tests, as the JAX merge's stop_gradient keeps them.
-    Compaction sizes come from the live counts (host reads), so nothing can
-    overflow; candidate pairs are processed in query-range chunks of at
-    most ``max_pairs``.
-    """
-    dev = queries.valid.device
+    and distance tests, as the JAX merge's stop_gradient keeps them."""
     n = queries.valid.shape[1]
     n_ph = light_verts.valid.shape[1]
-    num_cells = 8 * n_paths if num_cells is None else num_cells
+    if n != n_paths:
+        raise ValueError(f"merge_stage: {n} query columns, n_paths {n_paths}")
+    if query_cap % merge_chunks:
+        raise ValueError(f"query_cap {query_cap} is not a multiple of "
+                         f"merge_chunks {merge_chunks}")
+    dev = queries.valid.device
     flat = lambda a: a.reshape(-1)
     gather = lambda v, idx: V3(*(flat(c)[idx] for c in v))
-    zero = torch.zeros((n_paths,), dtype=torch.float32, device=dev)
+    i32 = torch.int32
+    f2i = lambda a: a.contiguous().view(i32)
+    radius = cell_merge._dev_scalar(misc.radius, dev)
+    radius_sqr = cell_merge._dev_scalar(misc.radius_sqr, dev)
 
-    pvalid = flat(light_verts.valid)
+    # ---- 1. Photons: full-width hashes, one sort-compaction. ---------------
+    grid = _photon_grid(light_verts, radius, num_cells)
+    n_p = flat(light_verts.valid).sum()
+    ovf_p = (n_p - photon_cap).clamp_min(0)
+    ppos_s, src_p = grid_ops.sort_compact_planes(
+        grid.hashes, torch.stack([flat(c).detach()
+                                  for c in light_verts.position]),
+        photon_cap)
+    p_len = torch.div(src_p, n_ph, rounding_mode="floor") + 1
+    cell_start = torch.cumsum(grid.count, 0) - grid.count
+    # A pair's photon fields: position bits and path length, planar [4,
+    # photon_cap] (a gather by pair then reads each field contiguously).
+    p1 = torch.stack([f2i(ppos_s[0]), f2i(ppos_s[1]), f2i(ppos_s[2]),
+                      p_len.to(i32)])
+
+    # ---- 2. Queries: compaction, probe, 20 int32 fields a query. --------
     qvalid = flat(queries.valid)
-    n_p, n_q = (int(v) for v in torch.stack([pvalid.sum(),
-                                             qvalid.sum()]).tolist())
-    live = torch.tensor([n_p, n_q], dtype=torch.int64, device=dev)
-    if n_p == 0 or n_q == 0:
-        z = V3(zero, zero, zero)
-        return (z, torch.cat([live.new_zeros(1), live])) if with_stats else z
-
-    # ---- 1. Photons: the cell-hashed grid (positions detached). ----------
-    grid = grid_ops.build(V3(*(flat(c).detach() for c in light_verts.position)),
-                          pvalid, misc.radius, num_cells)
-    order = grid.sorted_idx[:n_p]                     # live, cell order
-    ppos = [flat(c).detach()[order] for c in light_verts.position]
-    p_len = torch.div(order, n_ph, rounding_mode="floor") + 1
-
-    # ---- 2. Queries: compact, probe the 2x2x2 neighbourhood. -------------
-    idx_q = torch.nonzero(qvalid).flatten()           # source order
+    n_q = qvalid.sum()
+    ovf_q = (n_q - query_cap).clamp_min(0)
+    qpos, idx_q = grid_ops.sort_compact_planes(
+        (~qvalid).to(torch.int64),
+        torch.stack([flat(c).detach() for c in queries.position]), query_cap)
+    qvalid_c = torch.arange(query_cap, device=dev) < n_q
     q_len = torch.div(idx_q, n, rounding_mode="floor") + 1
     q_path = torch.remainder(idx_q, n)
-    qpos = [flat(c).detach()[idx_q] for c in queries.position]
-    starts8, counts8 = grid_ops.query_cell_ranges(grid, num_cells, V3(*qpos))
+    cells, live = _probe_cells(grid, radius, list(qpos), qvalid_c,
+                               num_cells)
+    starts8 = cell_start[cells]                           # [8, query_cap]
+    counts8 = torch.where(live, grid.count[cells], 0)
+    per_q = counts8.sum(0)
+    # Inclusive per-cell boundaries b1..b8 and start-minus-prefix, so a
+    # pair finds its photon row as adj_j + rank by arithmetic alone.
+    incl = torch.cumsum(counts8, 0)
+    adj = starts8 - (incl - counts8)
+    # [xbits ybits zbits | len | b1..b8 | adj0..adj7], planar [20,
+    # query_cap]; the chunk's pair offset field goes in front below.
+    qrow20 = torch.cat([f2i(qpos[0])[None], f2i(qpos[1])[None],
+                        f2i(qpos[2])[None], q_len.to(i32)[None],
+                        incl.to(i32), adj.to(i32)])
 
-    # ---- 3+4. Expand, filter, evaluate, sum per query. ---------------------
+    # ---- 3+4. Per query chunk: expand, test, compact, evaluate, sum. -----
+    qc_n = query_cap // merge_chunks
+    pair_cap_c = max(pair_cap // merge_chunks
+                     + (pair_cap // (2 * merge_chunks)
+                        if merge_chunks > 1 else 0), 1024)
+    surv_cap = min(pair_cap_c, max(pair_cap_c // 4, 1024))
+    # Survivor keys hold the pair id below a flag bit at 2^30.
+    if pair_cap_c >= 1 << 30:
+        raise ValueError(f"{pair_cap_c} pair rows a chunk: at most 2^30 - 1 "
+                         f"(raise merge_chunks)")
+    p_iota = torch.arange(pair_cap_c, device=dev)
+    p32 = p_iota.to(i32)
     mats = scene.materials
-    acc = torch.zeros((n_q, 3), dtype=torch.float32, device=dev)
-    for q0, q1, c0, c1 in grid_ops.query_chunks(counts8.sum(1), max_pairs):
-        qc_idx, php, pair_ok, _, _ = grid_ops.expand_pairs(
-            starts8[q0:q1], counts8[q0:q1], c1 - c0)
-        qs = torch.div(qc_idx, 8, rounding_mode="floor") + q0
-        dx, dy, dz = (p[php] - q[qs] for p, q in zip(ppos, qpos))
-        tlen = p_len[php] + q_len[qs]
-        pair_ok = (pair_ok & (dx * dx + dy * dy + dz * dz
-                              <= misc.radius_sqr)
-                   & (tlen <= max_path_length)
-                   & (tlen >= min_path_length))
-        sel = torch.nonzero(pair_ok).flatten()
-        qs = qs[sel]
-        q_src = idx_q[qs]
-        p_src = order[php[sel]]
-        ones = torch.ones_like(qs, dtype=torch.bool)
+    ovf_pe = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    acc = []
+    for c in range(merge_chunks):
+        base = c * qc_n
+        per_q_ch = per_q[base:base + qc_n]
+        incl_q = torch.cumsum(per_q_ch, 0)
+        offs = incl_q - per_q_ch
+        total = incl_q[-1]
+        ovf_pe = ovf_pe + (total - pair_cap_c).clamp_min(0)
+        pairs = pairs + total
+        qrow = torch.cat([offs.to(i32)[None],
+                          qrow20[:, base:base + qc_n]])   # [21, qc_n]
+        # Segment carry, JAX's scatter-max of each non-empty query's id at
+        # its first pair and running max, in the form of two cumsums (a
+        # CUDA cummax is one slow generic scan): a pair's query is the
+        # r-th non-empty one (0 before the first), r the heads at or
+        # before it. Non-empty queries' offsets are distinct and rise with
+        # their ids; empty queries and offsets past the cap write to dump
+        # rows.
+        nonempty = per_q_ch > 0
+        ids = torch.zeros((qc_n + 2,), dtype=torch.int64, device=dev)
+        ids[torch.where(nonempty, torch.cumsum(nonempty, 0), qc_n + 1)] = \
+            torch.arange(qc_n, device=dev)
+        head = torch.zeros((pair_cap_c + 1,), dtype=i32, device=dev)
+        head.scatter_(0, torch.where(nonempty, offs, pair_cap_c).clamp_max(
+            pair_cap_c), 1)
+        qseg = ids[torch.cumsum(head[:pair_cap_c], 0, dtype=i32)]
+        qr = qrow[:, qseg]                                # [21, pair_cap_c]
+        rank = p_iota - qr[0]
+        ok = (p_iota < total) & (rank >= 0) & (rank < qr[12])
+        # Cell pick: the smallest j with rank < b_{j+1}.
+        php = qr[20]
+        for j in range(6, -1, -1):
+            php = torch.where(rank < qr[5 + j], qr[13 + j], php)
+        php = (php + rank).clamp(0, photon_cap - 1)
+        pr = p1[:, php]                                   # [4, pair_cap_c]
+        d = [pr[k].view(torch.float32) - qr[1 + k].view(torch.float32)
+             for k in range(3)]
+        tlen = pr[3] + qr[4]
+        ok = (ok & (d[0] * d[0] + d[1] * d[1] + d[2] * d[2] <= radius_sqr)
+              & (tlen <= max_path_length) & (tlen >= min_path_length))
+
+        # Survivors, in pair order, by one sort of (flag | pair id) keys.
+        key = torch.where(ok, p32, p32 | (1 << 30))
+        p_c = (torch.sort(key).values[:surv_cap] & ((1 << 30) - 1)).long()
+        n_surv = ok.sum()
+        ovf_pe = ovf_pe + (n_surv - surv_cap).clamp_min(0)
+        ok2 = torch.arange(surv_cap, device=dev) < n_surv
+        qs = qseg[p_c]                                    # chunk's query
+        q_src = idx_q[qs + base]
+        p_src = src_p[php[p_c]]
+
         cam_b = bsdf_ops.setup(
             mats, gather(queries.in_dir, q_src),
-            gather(queries.normal, q_src), flat(queries.mat_id)[q_src],
-            ones)
+            gather(queries.normal, q_src), flat(queries.mat_id)[q_src], ok2)
         ph_in = gather(light_verts.in_dir, p_src)
+        # The light vertex's continuation probability: its BSDF setup.
         ph_b = bsdf_ops.setup(
             mats, ph_in, gather(light_verts.normal, p_src),
-            flat(light_verts.mat_id)[p_src], ones)
+            flat(light_verts.mat_id)[p_src], ok2)
         factor, _, dir_pdf_w, rev_pdf_w = bsdf_ops.evaluate(
             mats, cam_b, -ph_in)
+        ok2 = ok2 & max_gt_zero(factor)
         dir_pdf_w = dir_pdf_w * cam_b.cont_prob
         rev_pdf_w = rev_pdf_w * ph_b.cont_prob
         if ppm:
@@ -939,18 +1088,19 @@ def merge_stage(
                         + flat(queries.d_vm)[q_src] * _mis(rev_pdf_w))
             mis = 1.0 / (w_light + 1.0 + w_camera)
         contrib = v3_where(
-            max_gt_zero(factor),
-            factor * gather(light_verts.throughput, p_src) * mis, 0.0)
-        acc = acc + deterministic_index_add(n_q, qs, contrib.to_array())
+            ok2, factor * gather(light_verts.throughput, p_src) * mis, 0.0)
+        # Each query lies in one chunk: its sum is this chunk's alone.
+        acc.append(deterministic_index_add(
+            qc_n, torch.where(ok2, qs, qc_n), contrib.to_array()))
 
     # Scale by the camera throughput and the vm normalization; route each
     # query to its path.
-    thr = gather(queries.throughput, idx_q).to_array()
-    acc = acc * thr * misc.vm_normalization
-    z = deterministic_index_add(n_paths, q_path, acc)
-    z = V3(z[:, 0], z[:, 1], z[:, 2])
-    return (z, torch.cat([counts8.sum().reshape(1), live])) if with_stats \
-        else z
+    acc = torch.cat(acc) * gather(queries.throughput, idx_q).to_array() \
+        * misc.vm_normalization
+    z = deterministic_index_add(n_paths, torch.where(qvalid_c, q_path,
+                                                     n_paths), acc)
+    return (V3(z[:, 0], z[:, 1], z[:, 2]), ovf_p + ovf_q + ovf_pe,
+            torch.stack([pairs, n_p, n_q]))
 
 
 MERGE_BACKENDS = ("auto", "pallas", "xla")
@@ -977,16 +1127,31 @@ def unpack_vertices(t: torch.Tensor) -> StoredVertices:
     )
 
 
+def merge_chunks_for(pair_factor: float, n: int) -> int:
+    """Query chunks of the pair merge for ``n`` paths: one per ~16M pair
+    rows (about 1.4 GB of int32 rows), the JAX package's rule
+    (render.py:419-424)."""
+    return max(1, -(-int(pair_factor * n) // (16 << 20)))
+
+
 def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
            min_path_length: int, n_paths_global: int, merge_backend: str,
-           vm_exchange: str, group, photon_cap: int | None = None,
-           query_cap: int | None = None):
+           vm_exchange: str, group, pair_factor: float = 24.0,
+           photon_factor: float | None = None,
+           query_factor: float | None = None, merge_chunks: int = 1):
     """The deferred merge of this process's queries -> (color_add V3 [n],
-    overflow int64, stats int64 [3]).
+    overflow int64, stats int64 [candidate pairs, live photons, live
+    queries]), with no host read.
 
-    The cell merge takes the static caps (None: the tables' slot counts,
-    which cannot overflow); the pair merge sizes its work from the live
-    counts and never overflows.
+    The pair merge (``merge_backend="xla"``) runs at the JAX package's
+    static caps (vcm.py:1335-1344): ``8 * n_paths_global`` hash cells,
+    ``pair_factor * n`` pair rows, photon rows ``photon_factor`` times
+    the global paths (all-gather, single process) or this rank's (each
+    ring hop), query rows ``query_factor * n`` (factors None: 3.0, the
+    JAX defaults), in ``merge_chunks`` query chunks; a truncation counts
+    in the overflow. The cell merge takes the factors' caps
+    (:func:`merge_caps`) in a single process and the tables' slot counts,
+    which nothing overflows, under ``group`` or with factors None.
 
     Single process: against its own photons. With ``group``, against every
     rank's: "allgather" gathers the packed tables in rank order, so the
@@ -994,30 +1159,38 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
     them resident and passes each rank's table on to rank + 1 between
     hops, W merges and W - 1 shifts (merging is additive over photons;
     pairs are summed over hops, photon and query counts maxed, as the JAX
-    package does). The hash grid of the pair merge keeps the global size,
-    8 cells per path (JAX vcm.py:1321)."""
+    package does)."""
     n = queries.valid.shape[1]
     if merge_backend == "xla":
-        def merge(lv):
-            color, stats = merge_stage(
-                scene, misc, queries, lv, ppm, max_path_length,
-                min_path_length, n, num_cells=8 * n_paths_global,
-                with_stats=True)
-            return color, torch.zeros_like(stats[0]), stats
+        pf = 3.0 if photon_factor is None else photon_factor
+        qf = 3.0 if query_factor is None else query_factor
+        query_cap = _pad_mult(int(qf * n), 8 * merge_chunks)
+
+        def merge(lv, photon_cap):
+            return merge_stage(
+                scene, misc, queries, lv, 8 * n_paths_global,
+                int(pair_factor * n), ppm, max_path_length, min_path_length,
+                _pad_mult(photon_cap, 8), query_cap, n, merge_chunks)
+
+        one = lambda lv: merge(lv, int(pf * n_paths_global))
+        hop = lambda lv: merge(lv, int(pf * n))
     else:
-        merge = lambda lv: cell_merge.merge_stage(
+        caps = (merge_caps(photon_factor, query_factor, n)
+                if group is None and photon_factor is not None
+                else (None, None))
+        one = hop = lambda lv: cell_merge.merge_stage(
             scene, misc, queries, lv, ppm, max_path_length, min_path_length,
-            n, photon_cap, query_cap, with_stats=True)
+            n, *caps, with_stats=True)
     if group is None:
-        return merge(verts)
+        return one(verts)
     if vm_exchange == "allgather":
-        return merge(unpack_vertices(
+        return one(unpack_vertices(
             comm.all_gather_columns(pack_vertices(verts), group)))
-    color, overflow, stats = merge(verts)
+    color, overflow, stats = hop(verts)
     visiting = pack_vertices(verts)
     for _ in range(comm.world_size(group) - 1):
         visiting = comm.ring_shift(visiting, group)
-        c, o, st = merge(unpack_vertices(visiting))
+        c, o, st = hop(unpack_vertices(visiting))
         color = color + c
         overflow = overflow + o
         stats = torch.stack([stats[0] + st[0], torch.maximum(stats[1], st[1]),
@@ -1045,8 +1218,10 @@ def render_iteration_core(
     merge_backend: str = "auto",
     vm_exchange: str = "allgather",
     group=None,
-    photon_cap: int | None = None,
-    query_cap: int | None = None,
+    pair_factor: float = 24.0,
+    photon_factor: float | None = None,
+    query_factor: float | None = None,
+    merge_chunks: int = 1,
 ):
     """One VCM-family iteration over the path ids ``pix``, stage by stage
     -> (this process's image [resY, resX, 3] f32, ray_count, merge
@@ -1065,10 +1240,9 @@ def render_iteration_core(
 
     ``merge_backend``: "auto" and "pallas" take the cell merge
     (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
-    CPU), the port of the JAX package's Pallas merge, at the static caps
-    ``photon_cap`` / ``query_cap`` (None: the slot counts, no overflow);
-    "xla" takes the differentiable pair-expansion :func:`merge_stage`, the
-    JAX package's XLA merge.
+    CPU), the port of the JAX package's Pallas merge; "xla" takes the
+    differentiable pair merge :func:`merge_stage`, the JAX package's XLA
+    merge. The caps: see :func:`_merge`.
 
     The ray count is path segments plus enabled shadow/connection rays,
     the reference-comparable work metric (bench.py's count)."""
@@ -1104,7 +1278,7 @@ def render_iteration_core(
         mc, overflow, stats = _merge(
             scene, misc, queries, verts, ppm, max_path_length,
             min_path_length, n_paths_global, merge_backend, vm_exchange,
-            group, photon_cap, query_cap)
+            group, pair_factor, photon_factor, query_factor, merge_chunks)
         color = color + mc
 
     # Camera contributions always land on the path's own pixel.
@@ -1128,17 +1302,25 @@ def render_iteration(
     ppm: bool = False,
     rng_kind: str = "threefry",
     merge_backend: str = "auto",
+    pair_factor: float = 24.0,
+    photon_factor: float | None = None,
+    query_factor: float | None = None,
+    merge_chunks: int = 1,
 ):
     """One VCM-family iteration over every pixel of the frame on the
     scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor):
     :func:`render_iteration_core` over ``arange(res_x * res_y)``, stage by
-    stage, with caps nothing can overflow."""
+    stage. The cell merge's tables are its slot counts (nothing
+    overflows); the pair merge runs at the factors' caps (the JAX
+    defaults 24 / 3 / 3), truncating as the JAX package's does."""
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
     img, rays, _, _ = render_iteration_core(
         scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
         min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
-        light_trace_only, ppm, rng_kind, merge_backend)
+        light_trace_only, ppm, rng_kind, merge_backend,
+        pair_factor=pair_factor, photon_factor=photon_factor,
+        query_factor=query_factor, merge_chunks=merge_chunks)
     return img, rays
 
 
@@ -1149,8 +1331,8 @@ def render_iteration(
 
 def merge_caps(photon_factor: float, query_factor: float,
                n: int) -> tuple[int, int]:
-    """(photon_cap, query_cap) rows of the merge tables for ``n`` paths:
-    the factors' share of the paths, as the JAX package sizes them
+    """(photon_cap, query_cap) rows of the cell merge's tables for ``n``
+    paths: the factors' share of the paths, as the JAX package sizes them
     (without its TPU tile padding)."""
     return max(1, int(photon_factor * n)), max(1, int(query_factor * n))
 
@@ -1159,15 +1341,23 @@ def iteration_static(res_x: int, res_y: int, base_seed: int,
                      max_path_length: int, min_path_length: int,
                      use_vc: bool, use_vm: bool, light_trace_only: bool,
                      ppm: bool, rng_kind: str, photon_factor: float,
-                     query_factor: float) -> tuple:
+                     query_factor: float, merge_backend: str = "auto",
+                     pair_factor: float = 24.0,
+                     merge_chunks: int = 1) -> tuple:
     """The static arguments of :func:`iteration_stage` (its graph key's
-    static part; render.py drops the graph of outgrown caps by it)."""
-    n = res_x * res_y
-    caps = merge_caps(photon_factor, query_factor, n) \
-        if use_vm and not light_trace_only else (0, 0)
-    return (float(np.float32(n)), res_x, res_y, base_seed, max_path_length,
-            min_path_length, use_vc, use_vm, light_trace_only, ppm, rng_kind,
-            *caps)
+    static part; render.py drops the graph of outgrown caps by it). The
+    merge's backend and caps are normalized: factors a merge does not read
+    are 0, so they neither split nor drop its graphs."""
+    merging = use_vm and not light_trace_only
+    pair = merging and merge_backend == "xla"
+    return (float(np.float32(res_x * res_y)), res_x, res_y, base_seed,
+            max_path_length, min_path_length, use_vc, use_vm,
+            light_trace_only, ppm, rng_kind,
+            "xla" if pair else "auto",
+            float(pair_factor) if pair else 0.0,
+            float(photon_factor) if merging else 0.0,
+            float(query_factor) if merging else 0.0,
+            merge_chunks if pair else 1)
 
 
 def iteration_stage(
@@ -1175,18 +1365,20 @@ def iteration_stage(
     mis_vm_weight, mis_vc_weight, light_sub_path_count: float, res_x: int,
     res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
     use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
-    rng_kind: str, photon_cap: int, query_cap: int,
+    rng_kind: str, merge_backend: str, pair_factor: float,
+    photon_factor: float, query_factor: float, merge_chunks: int,
 ):
     """One whole VCM-family iteration over every pixel -> (image [resY,
     resX, 3] f32, ray_count, merge overflow int64, merge stats int64 [3]),
-    all on the device: light walk, splat flush, camera stage, the cell
-    merge at the static caps, own-pixel accumulation.
+    all on the device: light walk, splat flush, camera stage, the merge at
+    its static caps (the cell merge, or the pair merge for
+    ``merge_backend="xla"``; :func:`_merge`), own-pixel accumulation.
 
     ``iteration`` and the five per-iteration scalars are 0-dim device
     tensors (graphs.stage fills them before each replay; compute_misc's
     floats, exactly); nothing here reads the host, so on a card the whole
     function is one CUDA graph. Same operations, in the same order, as
-    :func:`render_iteration_core` with the cell merge: the same bits."""
+    :func:`render_iteration_core` at the same caps: the same bits."""
     n = res_x * res_y
     dev = scene.device
     pix = torch.arange(n, dtype=torch.int64, device=dev)
@@ -1210,8 +1402,8 @@ def iteration_stage(
     if use_vm:
         mc, overflow, stats = _merge(
             scene, misc, queries, verts, ppm, max_path_length,
-            min_path_length, n, "auto", "allgather", None, photon_cap,
-            query_cap)
+            min_path_length, n, merge_backend, "allgather", None,
+            pair_factor, photon_factor, query_factor, merge_chunks)
         color = color + mc
     fb = add_color_at_pix(fb, pix, color)
     return fb.to_array(), rays + cam_rays, overflow, stats
@@ -1236,6 +1428,9 @@ def render_block_with_stats(
     query_factor: float = 3.0,
     rng_kind: str = "threefry",
     accum=None,
+    pair_factor: float = 24.0,
+    merge_chunks: int = 1,
+    merge_backend: str = "auto",
 ):
     """``block`` consecutive iterations, each one replay of the
     :func:`iteration_stage` graph on a card -> (image sum [resY, resX, 3],
@@ -1247,14 +1442,21 @@ def render_block_with_stats(
     The image sum starts at ``accum`` (default zeros, the JAX function's
     block sum) and adds the iterations one by one: render.py passes its
     running accumulator, so a render's bits do not depend on how its
-    iterations were cut into blocks. The caps are ``merge_caps`` of the
-    factors; the luminance is framebuffer.hxx:89-102's of the sum."""
+    iterations were cut into blocks. ``merge_backend``: "auto" (the
+    port's default) and "pallas" take the cell merge at
+    :func:`merge_caps` of the factors, "xla" the pair merge at
+    ``pair_factor`` and the factors, in ``merge_chunks`` query chunks;
+    the luminance is framebuffer.hxx:89-102's of the sum."""
+    if merge_backend not in MERGE_BACKENDS:
+        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
+                         f"not {merge_backend!r}")
     n = res_x * res_y
     dev = scene.device
     static = iteration_static(res_x, res_y, base_seed, max_path_length,
                               min_path_length, use_vc, use_vm,
                               light_trace_only, ppm, rng_kind, photon_factor,
-                              query_factor)
+                              query_factor, merge_backend, pair_factor,
+                              merge_chunks)
     acc = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
            if accum is None else accum)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1275,19 +1477,16 @@ def render_block_with_stats(
     return acc, rays, overflow, stats, total_luminance(acc)
 
 
-def merge_measure_iteration(
+def trace_iteration(
     scene: SceneData, iteration: int, res_x: int, res_y: int,
     base_seed: int = 1234, max_path_length: int = 10,
     min_path_length: int = 0, radius_factor: float = 0.003,
     radius_alpha: float = 0.75, use_vc: bool = True, ppm: bool = False,
     rng_kind: str = "threefry",
-) -> tuple[int, int]:
-    """The live photon and query counts of one merging iteration ->
-    (photons, queries), from one host read, outside any graph: the light
-    walk and the camera stage run eagerly. The counterpart of the JAX
-    package's ``merge_measure_iteration`` (vcm.py:1555-1597), whose caps
-    the counts size (render.py::_ensure_merge_caps); vertex counts do not
-    depend on the caps or the radius."""
+) -> tuple[StoredVertices, StoredVertices]:
+    """The light vertices and merge queries of one merging iteration ->
+    (vertices, queries), outside any graph: the light walk and the camera
+    stage run eagerly (the JAX package's ``trace_iteration``)."""
     n = res_x * res_y
     dev = scene.device
     pix = torch.arange(n, dtype=torch.int64, device=dev)
@@ -1303,9 +1502,55 @@ def merge_measure_iteration(
         scene, verts, pix, it, vm_w, vc_w, m.light_sub_path_count, res_x,
         base_seed, max_path_length, min_path_length, use_vc, True, ppm,
         rng_kind)
-    n_p, n_q = torch.stack([verts.valid.sum(), queries.valid.sum()]).tolist()
+    return verts, queries
+
+
+def merge_demand_iteration(
+    scene: SceneData, iteration: int, traced, res_x: int, res_y: int,
+    radius_factor: float = 0.003, radius_alpha: float = 0.75,
+) -> torch.Tensor:
+    """The exact demand of the pair merge on a traced iteration
+    (:func:`trace_iteration`) -> int64 [candidate pairs, live photons,
+    live queries] on the device: the JAX package's
+    ``merge_demand_iteration`` (vcm.py:1718-1795). No caps and no sort:
+    the same hash cells and 2x2x2 probe as :func:`merge_stage` (collisions
+    included), so the pairs equal ``stats[0]`` of an uncapped merge."""
+    verts, queries = traced
+    n = res_x * res_y
+    flat = lambda a: a.reshape(-1)
+    num_cells = 8 * n  # _merge's hash-cell count
+    m = compute_misc(scene, iteration, n, radius_factor, radius_alpha, True,
+                     True)
+    radius = cell_merge._dev_scalar(m.radius, scene.device)
+    grid = _photon_grid(verts, radius, num_cells)
+    qv = flat(queries.valid)
+    cells, live = _probe_cells(
+        grid, radius, [flat(c).detach() for c in queries.position], qv,
+        num_cells)
+    pairs = torch.where(live, grid.count[cells], 0).sum()
+    return torch.stack([pairs, flat(verts.valid).sum(), qv.sum()])
+
+
+def merge_measure_iteration(
+    scene: SceneData, iteration: int, res_x: int, res_y: int,
+    base_seed: int = 1234, max_path_length: int = 10,
+    min_path_length: int = 0, radius_factor: float = 0.003,
+    radius_alpha: float = 0.75, use_vc: bool = True, ppm: bool = False,
+    rng_kind: str = "threefry",
+) -> tuple[int, int, int]:
+    """The merge demand of one merging iteration -> (candidate pairs of
+    the pair merge, live photons, live queries), from one host read:
+    :func:`trace_iteration` and :func:`merge_demand_iteration`, whose
+    counts size the caps (render.py::_ensure_merge_caps); vertex counts
+    do not depend on the caps or the radius."""
+    traced = trace_iteration(scene, iteration, res_x, res_y, base_seed,
+                             max_path_length, min_path_length, radius_factor,
+                             radius_alpha, use_vc, ppm, rng_kind)
+    pairs, n_p, n_q = merge_demand_iteration(
+        scene, iteration, traced, res_x, res_y, radius_factor,
+        radius_alpha).tolist()
     merge_measure_iteration.calls += 1
-    return n_p, n_q
+    return pairs, n_p, n_q
 
 
 # Calls in this process (chip_smoke.py: a cached run measures nothing).

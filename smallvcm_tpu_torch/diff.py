@@ -8,10 +8,13 @@ Gradient strategy (ops/bsdf.py::setup): the lobe-selection and
 Russian-roulette probabilities are detached, so discrete decisions are
 constants and the survivors' 1/probability weights make the estimator's
 gradient unbiased. Continuous sampling transforms (the Phong lobe) give
-reparameterised gradients. Merging algorithms use the pair-expansion merge
-(``merge_backend="xla"``, as the JAX package's ``render_params`` does): the
-merge kernel is forward-only. On a card the closest-hit sweep is the kernel
-with its autograd backward (ops/sweep.py::_SweepKernelFn).
+reparameterised gradients. Merging algorithms use the pair merge at static
+caps (``merge_backend="xla"``, as the JAX package's ``render_params`` does;
+``pair_factor`` / ``photon_factor`` / ``query_factor``, the JAX defaults 24 /
+3 / 3, or the caps a render measured): the merge kernel is forward-only.
+A truncation at the caps is not retried here, as in the JAX package. On a
+card the closest-hit sweep is the kernel with its autograd backward
+(ops/sweep.py::_SweepKernelFn).
 :func:`sharded_loss_and_grad` takes the same step with paths sharded over a
 torch.distributed group (parallel/sharding.py).
 """
@@ -90,9 +93,15 @@ def render_params(
     min_path_length: int = 0,
     radius_factor: float = 0.003,
     radius_alpha: float = 0.75,
+    pair_factor: float = 24.0,
+    photon_factor: float = 3.0,
+    query_factor: float = 3.0,
 ):
     """One iteration of the given algorithm with params substituted ->
-    image [resY, resX, 3], differentiable in ``params``."""
+    image [resY, resX, 3], differentiable in ``params``. The merge caps
+    (pair, photon and query factors of the paths) are exposed so inverse
+    rendering at larger resolutions can take the caps a render measured
+    (render.py) instead of the defaults."""
     from .algorithms import pathtracer, vcm
     from .render import _VCM_FLAGS
 
@@ -108,7 +117,8 @@ def render_params(
         s, iteration, res_x, res_y, base_seed, max_path_length,
         min_path_length, radius_factor, radius_alpha,
         use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
-        merge_backend="xla",
+        merge_backend="xla", pair_factor=pair_factor,
+        photon_factor=photon_factor, query_factor=query_factor,
     )
     return img
 
@@ -127,11 +137,13 @@ def loss_and_grad(
     """L2 image loss against a target and its gradient w.r.t. params ->
     (loss scalar tensor, gradient Params).
 
-    Averages ``n_iterations`` stochastic iterations before the loss. Each
-    iteration runs under ``torch.utils.checkpoint`` (``jax.checkpoint`` in
-    the JAX package): its activations are dropped after the forward and
-    recomputed in the backward, so memory holds one iteration's graph at a
-    time. The counter-based RNG makes the recomputation exact.
+    ``kw`` are :func:`render_params`' keywords (the merge caps among
+    them). Averages ``n_iterations`` stochastic iterations before the
+    loss. Each iteration runs under ``torch.utils.checkpoint``
+    (``jax.checkpoint`` in the JAX package): its activations are dropped
+    after the forward and recomputed in the backward, so memory holds one
+    iteration's graph at a time. The counter-based RNG makes the
+    recomputation exact.
     """
     leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
 
@@ -162,6 +174,9 @@ def sharded_loss_and_grad(
     res_y: int,
     n_iterations: int = 1,
     vm_exchange: str = "allgather",
+    pair_factor: float = 24.0,
+    photon_factor: float = 3.0,
+    query_factor: float = 3.0,
     **kw,
 ):
     """``loss_and_grad`` with paths sharded over ``group`` -> (loss, gradient
@@ -171,7 +186,8 @@ def sharded_loss_and_grad(
     Port of the JAX package's ``sharded_loss_and_grad`` (mesh -> group).
     The forward pass is the sharded render (light vertices all-gathered or
     ring-exchanged for merging through the pair merge, the framebuffer
-    summed over ranks); each rank differentiates the replicated loss
+    summed over ranks; the pair merge at the caps of the three factors
+    over each rank's paths); each rank differentiates the replicated loss
     through its own paths, the collectives' backward rules carry the
     photons' gradients to the ranks that own them (parallel/comm.py), and
     the ranks' partial parameter gradients are summed once, here. With
@@ -195,7 +211,8 @@ def sharded_loss_and_grad(
         return sharding.sharded_render_iteration(
             group, s, it, res_x, res_y, use_vc=use_vc, use_vm=use_vm,
             light_trace_only=lt_only, ppm=ppm, vm_exchange=vm_exchange,
-            merge_backend="xla", **kw)
+            merge_backend="xla", pair_factor=pair_factor,
+            photon_factor=photon_factor, query_factor=query_factor, **kw)
 
     img = None
     with set_checkpoint_early_stop(False):

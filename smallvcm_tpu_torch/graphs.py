@@ -9,17 +9,15 @@ The stages are:
 
 - the whole iteration of the VCM family on one process
   (``algorithms/vcm.py::iteration_stage``: light walk, splat flush, camera
-  stage, the cell merge at static caps, framebuffer sums), replayed k
-  times for a block of k iterations (``vcm.render_block_with_stats``);
+  stage, the cell merge or the pair merge at static caps, framebuffer
+  sums), replayed k times for a block of k iterations
+  (``vcm.render_block_with_stats``);
 - the whole pass of pt and el (``pathtracer.render_pass``,
   ``eyelight.render_pass``), k replays a block;
 - the light walk and the camera stage on their own
-  (``vcm.light_walk``, ``camera_walk``) where the rest of the iteration
-  cannot be captured: on sharded ranks (the photon exchange's collectives
-  sit between them) and under the pair merge (``merge_backend="xla"``,
-  which sizes its work from live counts read on the host). The merge, the
-  splat flush and the framebuffer sums run eagerly between those two
-  graphs.
+  (``vcm.light_walk``, ``camera_walk``) on sharded ranks, where the photon
+  exchange's collectives sit between them: the merge, the splat flush and
+  the framebuffer sums run eagerly between those two graphs.
 
 What stays outside every graph: the sums over a block's iterations (a
 few launches an iteration), the per-iteration scalars' fills, and the

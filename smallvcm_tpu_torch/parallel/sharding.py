@@ -62,26 +62,39 @@ def sharded_render_iteration_with_stats(
     vm_exchange: str = "allgather",
     rng_kind: str = "threefry",
     merge_backend: str = "auto",
+    pair_factor: float = 24.0,
+    photon_factor: float = 3.0,
+    query_factor: float = 3.0,
+    merge_chunks: int = 1,
 ):
     """One VCM-family iteration with paths sharded over ``group`` ->
-    (image [resY, resX, 3] summed over ranks, ray_count, merge stats
-    int64 [candidate pairs, live photons, live queries]), all replicated
-    on every rank; counts are summed over ranks.
+    (image [resY, resX, 3] summed over ranks, ray_count, merge overflow
+    int64, merge stats int64 [candidate pairs, live photons, live
+    queries]), all replicated on every rank: the counts, the overflow and
+    the stats are summed over ranks, as the JAX package psums them
+    (vcm.py:1387-1391), so every rank reads the same numbers and grows
+    its caps alike.
 
     ``vm_exchange`` picks the photon exchange for merging: "allgather"
     gives every rank the whole photon table (one collective, the
     single-process table element for element); "ring" keeps photons
     resident and passes them around the ranks, merging one visiting table
-    at a time. Both are exact (merging is additive over photons).
-    Differentiable in the scene's parameters."""
+    at a time. Both are exact (merging is additive over photons). The pair
+    merge (``merge_backend="xla"``) runs at the caps of ``pair_factor``,
+    ``photon_factor`` and ``query_factor`` over this rank's paths (photons
+    over all of them under the all-gather) in ``merge_chunks`` query
+    chunks (algorithms/vcm.py::_merge); the cell merge's tables are the
+    slot counts. Differentiable in the scene's parameters."""
     n = res_x * res_y
     pix = shard_pix(n, group, scene.device)
-    img, rays, _, stats = vcm.render_iteration_core(
+    img, rays, overflow, stats = vcm.render_iteration_core(
         scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
         min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
-        light_trace_only, ppm, rng_kind, merge_backend, vm_exchange, group)
-    counts = comm.all_reduce_sum(torch.cat([rays.reshape(1), stats]), group)
-    return comm.framebuffer_sum(img, group), counts[0], counts[1:]
+        light_trace_only, ppm, rng_kind, merge_backend, vm_exchange, group,
+        pair_factor, photon_factor, query_factor, merge_chunks)
+    counts = comm.all_reduce_sum(
+        torch.cat([rays.reshape(1), overflow.reshape(1), stats]), group)
+    return comm.framebuffer_sum(img, group), counts[0], counts[1], counts[2:]
 
 
 def sharded_render_iteration(group, scene, iteration: int, res_x: int,

@@ -10,14 +10,19 @@ for all seven algorithms, with the JAX package's block runner:
   (overflow, merge stats, rays, luminance). On a card each iteration of
   the VCM family is ONE CUDA graph (``vcm.iteration_stage``, graphs.py)
   and each pass of el and pt another, replayed back to back.
-* Static merge caps: the cell merge's photon and query tables have static
-  widths (``photon_factor`` / ``query_factor`` times the paths), sized
-  from a measurement of iteration 0 (``vcm.merge_measure_iteration``,
-  x1.03, bucketed) and kept in the port's own cache,
+* Static merge caps: the merges' photon and query tables have static
+  widths (``photon_factor`` / ``query_factor`` times the paths) and the
+  pair merge (``merge_backend="xla"``) static pair rows (``pair_factor``
+  times the paths, in query chunks of ~16M pair rows:
+  ``vcm.merge_chunks_for``), sized from the exact demand of iteration 0
+  (``vcm.merge_measure_iteration``: photons and queries x1.03, pairs
+  x1.15, bucketed) and kept in the port's own cache,
   ``~/.cache/smallvcm_tpu_torch/caps.json`` (``SMALLVCM_TPU_TORCH_CACHE``
-  names another directory). On overflow the runner grows the caps to the
-  measured need (x1.1, bucketed, never shrinking), saves them, and renders
-  the SAME block again: the counter-based RNG makes that exact.
+  names another directory). On overflow the runner grows the caps by the
+  JAX package's rule (photons and queries to the need x1.1, pairs to the
+  need x1.1 or the old cap x1.26, bucketed, never shrinking), saves them,
+  and renders the SAME block again: the counter-based RNG makes that
+  exact.
 * Schedule: a pure function of the iterations done under ``-i`` (full
   blocks, then single iterations), so a resumed run reproduces the
   partition; under ``-t`` two single iterations, then blocks of 1 or the
@@ -28,13 +33,14 @@ for all seven algorithms, with the JAX package's block runner:
 
 With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
 group runs :func:`render` with the same configuration: each renders its
-path shard (parallel/sharding.py) and holds the summed image, one
-iteration a block, stage by stage (the photon exchange sits between the
-graphs of the light and camera stages). Under a time budget rank 0 decides
-each step and broadcasts it, so every rank runs the same number of
-iterations; only rank 0 prints. The pair merge (``merge_backend="xla"``)
-also runs stage by stage: it sizes its work from live counts read on the
-host.
+path shard (parallel/sharding.py) and holds the summed image, stage by
+stage (the photon exchange sits between the graphs of the light and camera
+stages), with one host read a block (under ``-t``, blocks of one). The
+pair merge runs there at the caps above, from the JAX defaults (sharded
+runs measure nothing and write no cache), and grows over the rank's share
+of the paths; the cell merge's tables are the slot counts. Under a time
+budget rank 0 decides each step and broadcasts it, so every rank runs the
+same number of iterations; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -104,13 +110,14 @@ class RenderConfig:
     min_path_length: int = 0
     resolution: tuple = (512, 512)
     rng_kind: str = "threefry"  # or "tea" (the reference's old_rng flavor)
-    # Static caps of the cell merge's photon and query tables, as shares
-    # of the paths (vcm.merge_caps).
+    # Static caps of the merges' photon and query tables and of the pair
+    # merge's pair rows, as shares of the paths (vcm.merge_caps, vcm._merge).
+    pair_factor: float = 24.0
     photon_factor: float = 3.0
     query_factor: float = 3.0
     # Photon merge: "auto"/"pallas" = the cell merge (the Hopper kernel on
     # CUDA, its plain version on the CPU); "xla" = the differentiable
-    # pair-expansion merge (algorithms/vcm.py::merge_stage).
+    # pair merge at static caps (algorithms/vcm.py::merge_stage).
     merge_backend: str = "auto"
     # Closest-hit sweep: "auto"/"pallas" = the Hopper kernel on CUDA, the
     # dense plain sweep on the CPU; "xla" names the dense sweep, which is
@@ -168,12 +175,48 @@ def check_backends(scene: SceneData, cfg: RenderConfig) -> None:
             "'auto' or 'pallas'")
 
 
+def merge_chunks(cfg: RenderConfig) -> int:
+    """Query chunks of the pair merge at ``cfg``'s pair cap (the JAX
+    package's rule, vcm.merge_chunks_for); 1 for the cell merge, which
+    never chunks."""
+    if cfg.merge_backend != "xla":
+        return 1
+    return vcm.merge_chunks_for(cfg.pair_factor,
+                                cfg.resolution[0] * cfg.resolution[1])
+
+
+def _pair_caps(cfg: RenderConfig) -> dict:
+    """The pair merge's caps of ``cfg`` as keywords of the VCM iteration
+    functions; none for the cell merge, whose stage-by-stage tables are
+    the slot counts."""
+    if cfg.merge_backend != "xla":
+        return {}
+    return dict(pair_factor=cfg.pair_factor,
+                photon_factor=cfg.photon_factor,
+                query_factor=cfg.query_factor, merge_chunks=merge_chunks(cfg))
+
+
+def _sharded_vcm_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
+                           iteration: int):
+    """This rank's share of one sharded VCM-family iteration -> (image,
+    rays, overflow, stats), summed over the group's ranks."""
+    res_x, res_y = cfg.resolution
+    use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
+    return sharding.sharded_render_iteration_with_stats(
+        cfg.group, scene, iteration, res_x, res_y, cfg.base_seed,
+        cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
+        cfg.radius_alpha, use_vc, use_vm, lt_only, ppm, cfg.vm_exchange,
+        cfg.rng_kind, cfg.merge_backend, **_pair_caps(cfg))
+
+
 def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                      iteration: int):
-    """One iteration of the resolved algorithm -> (image, ray_count); with
-    ``cfg.group``, this rank's shard, summed over the group's ranks. On a
-    card el's and pt's image and count are their graph's outputs, which
-    the next iteration overwrites: clone what you keep."""
+    """One iteration of the resolved algorithm, stage by stage -> (image,
+    ray_count); with ``cfg.group``, this rank's shard, summed over the
+    group's ranks. The pair merge runs at ``cfg``'s caps and a truncation
+    is not retried here (the block runner retries). On a card el's and
+    pt's image and count are their graph's outputs, which the next
+    iteration overwrites: clone what you keep."""
     res_x, res_y = cfg.resolution
     if cfg.group is not None:
         if alg in ("el", "pt"):
@@ -181,13 +224,7 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                 cfg.group, alg, scene, iteration, res_x, res_y,
                 cfg.base_seed, cfg.max_path_length, cfg.min_path_length,
                 cfg.rng_kind)
-        use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
-        img, rays, _ = sharding.sharded_render_iteration_with_stats(
-            cfg.group, scene, iteration, res_x, res_y, cfg.base_seed,
-            cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
-            cfg.radius_alpha, use_vc, use_vm, lt_only, ppm, cfg.vm_exchange,
-            cfg.rng_kind, cfg.merge_backend)
-        return img, rays
+        return _sharded_vcm_iteration(scene, cfg, alg, iteration)[:2]
     if alg == "el":
         return eyelight.render_iteration(
             scene, iteration, res_x, res_y, cfg.base_seed, cfg.rng_kind)
@@ -201,7 +238,7 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
         cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha,
         use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
         rng_kind=cfg.rng_kind, merge_backend=cfg.merge_backend,
-    )
+        **_pair_caps(cfg))
 
 
 def _maybe_inject_test_fault(done: int) -> None:
@@ -259,6 +296,14 @@ def _grow(factor: float, need: int, n: int) -> float:
     return max(factor, _bucket(need * 1.1, n))
 
 
+def _grow_pairs(factor: float, pairs: int, n: int) -> float:
+    """The pair factor after an overflow: the measured pairs x1.1 or the
+    old cap x1.26, bucketed, whichever is larger (render.py:474-476 of the
+    JAX package). The old cap's term grows it even when the pairs were
+    hidden by a photon or query overflow, or only a chunk overflowed."""
+    return max(_bucket(pairs * 1.1, n), _bucket(factor * n * 1.26, n))
+
+
 def _caps_cache_file() -> Path:
     root = os.environ.get("SMALLVCM_TPU_TORCH_CACHE",
                           os.path.expanduser("~/.cache/smallvcm_tpu_torch"))
@@ -287,11 +332,20 @@ def _caps_key(scene: SceneData, cfg: RenderConfig, alg: str,
     )
 
 
+CAPS_FIELDS = ("pair_factor", "photon_factor", "query_factor")
+
+
 def _load_cached_caps(key: str):
+    """The cached caps of ``key``, or None: a missing or unreadable file,
+    or an entry without every field of CAPS_FIELDS (one written before
+    the pair merge had caps) is a miss."""
     try:
-        return json.loads(_caps_cache_file().read_text()).get(key)
+        caps = json.loads(_caps_cache_file().read_text()).get(key)
     except (OSError, ValueError):
         return None
+    if not isinstance(caps, dict) or any(f not in caps for f in CAPS_FIELDS):
+        return None
+    return caps
 
 
 def _save_cached_caps(key: str, caps: dict) -> None:
@@ -314,36 +368,46 @@ def _save_cached_caps(key: str, caps: dict) -> None:
         pass
 
 
-def _ensure_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
-    """Freeze the photon and query caps of ``cfg`` before the first block
-    -> "frozen" (set by the caller or earlier), "cached" or "measured".
+def _caps_of(cfg: RenderConfig) -> dict:
+    return {f: getattr(cfg, f) for f in CAPS_FIELDS}
 
-    Sizes from the cache when the key is there, else measures iteration 0
-    (its merge radius is the largest, vertexcm.hxx:294-299; vertex counts
-    vary across iterations only by Monte Carlo noise) and takes x1.03,
-    bucketed. Correctness never depends on this: the block loop grows
-    the caps and renders the block again on overflow."""
+
+def _ensure_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
+    """Freeze the merge caps of ``cfg`` before the first block -> "frozen"
+    (set by the caller or earlier), "cached" or "measured".
+
+    Sizes from the cache when the key is there, else measures the exact
+    demand of iteration 0 (its merge radius is the largest,
+    vertexcm.hxx:294-299; vertex counts vary across iterations only by
+    Monte Carlo noise): photons and queries x1.03, the pair merge's pairs
+    x1.15, bucketed (the JAX package's render.py:246-324). The cell key
+    sizes ``pair_factor`` too, never below the configured one, so a later
+    pair-merge run of the configuration starts from a fitted pair cap.
+    Correctness never depends on this: the block loop grows the caps and
+    renders the block again on overflow."""
     if cfg.merge_caps_frozen:
         return "frozen"
     key = _caps_key(scene, cfg, alg, _merge_backend_key(cfg))
     cached = _load_cached_caps(key)
     if cached:
-        cfg.photon_factor = cached["photon_factor"]
-        cfg.query_factor = cached["query_factor"]
+        for f in CAPS_FIELDS:
+            setattr(cfg, f, cached[f])
         cfg.merge_caps_frozen = True
         return "cached"
     use_vc, _, _, ppm = _VCM_FLAGS[alg]
     res_x, res_y = cfg.resolution
     n = res_x * res_y
-    n_p, n_q = vcm.merge_measure_iteration(
+    pairs, n_p, n_q = vcm.merge_measure_iteration(
         scene, 0, res_x, res_y, cfg.base_seed, cfg.max_path_length,
         cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha, use_vc,
         ppm, cfg.rng_kind)
+    pair_factor = _bucket(pairs * 1.15, n)
+    cfg.pair_factor = (pair_factor if cfg.merge_backend == "xla"
+                       else max(cfg.pair_factor, pair_factor))
     cfg.photon_factor = _bucket(n_p * 1.03, n)
     cfg.query_factor = _bucket(n_q * 1.03, n)
     cfg.merge_caps_frozen = True
-    _save_cached_caps(key, dict(photon_factor=cfg.photon_factor,
-                                query_factor=cfg.query_factor))
+    _save_cached_caps(key, _caps_of(cfg))
     return "measured"
 
 
@@ -379,68 +443,92 @@ def _read_block(acc, rays, overflow, stats):
 def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     """Build run(start, k, accum) -> Block for the resolved algorithm.
 
-    Merging algorithms size their caps here (:func:`_ensure_merge_caps`).
-    The runner grows the caps and renders the same block again on
-    overflow (at most MAX_GROWS times, then raises), and reads the host
-    once a block (twice when a block overflows)."""
+    Merging algorithms in a single process size their caps here
+    (:func:`_ensure_merge_caps`). The runner grows the caps and renders
+    the same block again on overflow (at most MAX_GROWS times, then
+    raises), and reads the host once a block (twice when a block
+    overflows)."""
     res_x, res_y = cfg.resolution
     n = res_x * res_y
     dev = scene.device
+    zero = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=dev)
 
-    def zeros():
-        return (torch.zeros((), dtype=torch.int64, device=dev),
-                torch.zeros((3,), dtype=torch.int64, device=dev))
+    if alg in ("el", "pt"):
+        def run_iterations(start, k, accum):
+            acc, rays = accum, zero()
+            for j in range(k):
+                img, r = render_iteration(scene, cfg, alg, start + j)
+                acc = acc + img
+                rays = rays + r
+            return _read_block(acc, rays, zero(), zero(3))[1]
 
-    def run_iterations(start, k, accum):
-        # One iteration a step (sharded ranks, the pair merge), summed on
-        # the device; render_iteration's stats are not kept.
-        acc, rays = accum, torch.zeros((), dtype=torch.int64, device=dev)
-        for j in range(k):
-            img, r = render_iteration(scene, cfg, alg, start + j)
-            acc = acc + img
-            rays = rays + r
-        return _read_block(acc, rays, *zeros())[1]
-
-    if cfg.group is not None or alg in ("el", "pt") \
-            or cfg.merge_backend == "xla":
         return run_iterations
 
     use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
-    if use_vm:
+    group = cfg.group
+    if use_vm and group is None:
         _ensure_merge_caps(scene, cfg, alg)
     caps_key = _caps_key(scene, cfg, alg, _merge_backend_key(cfg))
+    # Caps grow over this process's share of the paths (the JAX package's
+    # n_shard). A sharded iteration's overflow and stats are summed over
+    # the group's ranks, so every rank grows to the same caps from the
+    # same numbers: no broadcast is needed.
+    n_shard = n if group is None else n // comm.world_size(group)
 
-    def run_block(start, k, accum):
-        for _ in range(MAX_GROWS + 1):
-            acc, rays, ovf, stats, _ = vcm.render_block_with_stats(
+    def static():
+        return vcm.iteration_static(
+            res_x, res_y, cfg.base_seed, cfg.max_path_length,
+            cfg.min_path_length, use_vc, use_vm, lt_only, ppm, cfg.rng_kind,
+            cfg.photon_factor, cfg.query_factor, cfg.merge_backend,
+            cfg.pair_factor, merge_chunks(cfg))
+
+    def render_block(start, k, accum):
+        if group is None:
+            return vcm.render_block_with_stats(
                 scene, start, res_x, res_y, k, cfg.base_seed,
                 cfg.max_path_length, cfg.min_path_length,
                 cfg.radius_factor, cfg.radius_alpha, use_vc=use_vc,
                 use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
                 photon_factor=cfg.photon_factor,
                 query_factor=cfg.query_factor, rng_kind=cfg.rng_kind,
-                accum=accum)
-            overflow, block = _read_block(acc, rays, ovf, stats)
+                accum=accum, pair_factor=cfg.pair_factor,
+                merge_chunks=merge_chunks(cfg),
+                merge_backend=cfg.merge_backend)[:4]
+        # Sharded: stage by stage, summed on the device, as the JAX
+        # package's sharded runner (render.py:425-449).
+        acc, rays, overflow, stats = accum, zero(), zero(), zero(3)
+        for j in range(k):
+            img, r, o, st = _sharded_vcm_iteration(scene, cfg, alg,
+                                                   start + j)
+            acc = acc + img
+            rays = rays + r
+            overflow = overflow + o
+            stats = torch.maximum(stats, st)
+        return acc, rays, overflow, stats
+
+    def run_block(start, k, accum):
+        for _ in range(MAX_GROWS + 1):
+            overflow, block = _read_block(*render_block(start, k, accum))
             if overflow == 0:
                 return block
-            # Grow every cap to the measured need, never shrinking, drop
-            # the old caps' graph and render the SAME block again: exact,
-            # because the RNG is counter-based.
-            _, n_p, n_q = block.stats
-            old_factors = (cfg.photon_factor, cfg.query_factor)
-            cfg.photon_factor = _grow(cfg.photon_factor, n_p, n)
-            cfg.query_factor = _grow(cfg.query_factor, n_q, n)
-            graphs.drop(vcm.iteration_stage, vcm.iteration_static(
-                res_x, res_y, cfg.base_seed, cfg.max_path_length,
-                cfg.min_path_length, use_vc, use_vm, lt_only, ppm,
-                cfg.rng_kind, *old_factors))
-            _save_cached_caps(caps_key, dict(
-                photon_factor=cfg.photon_factor,
-                query_factor=cfg.query_factor))
-            print(f"[smallvcm_tpu_torch] merge cap overflow; re-rendering "
-                  f"block at iteration {start} with "
-                  f"photon_factor={cfg.photon_factor} "
-                  f"query_factor={cfg.query_factor}", flush=True)
+            # Grow every cap by the JAX package's rule (render.py:470-481),
+            # never shrinking, drop the old caps' graph and render the
+            # SAME block again: exact, because the RNG is counter-based.
+            pairs, n_p, n_q = block.stats
+            old = static()
+            if cfg.merge_backend == "xla":
+                cfg.pair_factor = _grow_pairs(cfg.pair_factor, pairs, n_shard)
+            cfg.photon_factor = _grow(cfg.photon_factor, n_p, n_shard)
+            cfg.query_factor = _grow(cfg.query_factor, n_q, n_shard)
+            if group is None:
+                graphs.drop(vcm.iteration_stage, old)
+                _save_cached_caps(caps_key, _caps_of(cfg))
+            if is_coordinator():
+                print(f"[smallvcm_tpu_torch] merge cap overflow; "
+                      f"re-rendering block at iteration {start} with "
+                      f"pair_factor={cfg.pair_factor} "
+                      f"photon_factor={cfg.photon_factor} "
+                      f"query_factor={cfg.query_factor}", flush=True)
         raise RuntimeError(f"merge caps still overflow after {MAX_GROWS} "
                            f"grows at iteration {start}")
 
@@ -491,7 +579,9 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     ``block_cb(accum, iterations_done)`` fires after every block (the
     checkpoint hook). ``rays`` is the traced ray count of this call. With
     ``verbose``, prints one line per block: its iterations, the mean
-    luminance and image mean so far, its rays and its wall time. With
+    luminance and image mean so far, its rays and its wall time, and for
+    a merging algorithm the block's merge stats (the most candidate
+    pairs, live photons and live queries of an iteration) and caps. With
     ``cfg.group``, every rank of the group must call this with the same
     ``cfg``.
     """
@@ -500,13 +590,16 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     alg = resolve_algorithm(scene, cfg.algorithm)
     dev = scene.device
     runner = _make_block_runner(scene, cfg, alg)
+    merging = alg in _VCM_FLAGS and _VCM_FLAGS[alg][1]
     accum = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
              if accum is None else accum.to(dev))
     rays = 0
     done = start_iter
-    # Sharded ranks step one iteration at a time: under -t each rank's
-    # clock would choose its own block sizes.
-    auto_block = 1 if cfg.group is not None else auto_block_size(cfg, alg)
+    # Under -t sharded ranks step one iteration at a time: each rank's
+    # clock would choose its own block sizes. Under -i the schedule is a
+    # function of ``done`` alone, the same on every rank.
+    auto_block = (1 if cfg.group is not None and cfg.max_time > 0
+                  else auto_block_size(cfg, alg))
     verbose = verbose and is_coordinator()
     # Test-only fault injection (tests/test_torch_isolate.py), resolved once.
     fault_hook = (_maybe_inject_test_fault
@@ -520,10 +613,16 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
         rays += block.rays
         done += k
         if verbose:
-            print(f"  iter {done - k}..{done - 1}: "
-                  f"luminance={block.luminance / done:.1f} "
-                  f"mean={block.mean / done:.9g} rays={block.rays} "
-                  f"dt={time.perf_counter() - t0:.4f}s", flush=True)
+            line = (f"  iter {done - k}..{done - 1}: "
+                    f"luminance={block.luminance / done:.1f} "
+                    f"mean={block.mean / done:.9g} rays={block.rays} "
+                    f"dt={time.perf_counter() - t0:.4f}s")
+            if merging:
+                line += (" pairs={} photons={} queries={}".format(
+                    *block.stats) + f" pair_factor={cfg.pair_factor}"
+                    f" photon_factor={cfg.photon_factor}"
+                    f" query_factor={cfg.query_factor}")
+            print(line, flush=True)
         if block_cb is not None:
             block_cb(accum, done)
         if fault_hook is not None:

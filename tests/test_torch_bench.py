@@ -14,7 +14,8 @@
 * The JSON contract of the CPU rehearsal, ``--full`` with ``--history``,
   ``--device cuda`` without a card, the median/spread helper, the
   profiler's stage split on synthetic events, and every timing before the
-  first profiler session.
+  first profiler session; the pair count's caps (the block runner's,
+  with ``pair_factor``) in the JSON line and the history record.
 """
 
 from __future__ import annotations
@@ -101,7 +102,8 @@ def port():
     cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES))
     rays, prof = bench_torch.profile_iteration(ts, cfg)
     assert prof is None
-    counts = bench_torch.pair_counts(ts, RES, rays)
+    caps = bench_torch.merge_caps(ts, cfg)
+    counts = bench_torch.pair_counts(ts, RES, rays, caps)
     it = bench_torch.COUNT_ITERATION
     misc = tvcm.compute_misc(ts, it, N, 0.003, 0.75, True, True)
     pix = torch.arange(N)
@@ -115,6 +117,7 @@ def port():
                                      None)
     assert int(overflow) == 0
     return SimpleNamespace(scene=ts, misc=misc, rays=rays, counts=counts,
+                           caps=caps,
                            verts=verts, queries=queries, stats=stats,
                            stage_rays=int(light_rays) + int(cam_rays))
 
@@ -125,6 +128,7 @@ def test_bench_counts_against_jax_bench_call(golden, port):
     they come from)."""
     assert port.stage_rays == port.rays
     assert port.counts["candidate_pairs_pair_merge"] == int(port.stats[0])
+    assert port.counts["pair_merge_overflow"] == 0
     assert abs(port.rays - golden["rays"]) <= RAYS_GAP
     assert abs(port.counts["candidate_pairs_pair_merge"]
                - golden["candidate_pairs"]) <= PAIRS_GAP
@@ -206,6 +210,7 @@ FIELDS = ("metric", "value", "unit", "vs_baseline", "impl", "device",
           "ms_per_iter", "ms_per_iter_min", "ms_per_iter_max", "repeats",
           "iters", "first_iter_s", "second_iter_s", "capture_s",
           "rays_per_iter", "candidate_pairs_pair_merge",
+          "pair_merge_overflow", "merge_caps",
           "candidate_pairs_cell_merge", "launches_per_iter",
           "host_launch_calls_per_iter", "device_ms_per_iter", "busy_share",
           "stages", "kernels", "kernel_launches", "peak_allocated_gib",
@@ -241,6 +246,12 @@ def test_json_line_contract_on_cpu():
         1.6 / (rec["ms_per_iter"] / 1e3), rel=1e-12)
     assert np.isfinite(rec["image_mean"])
     assert out.stderr.splitlines()[0].startswith("[card] cpu")
+    # The pair count's caps: the runner's, with the chunk rule's count.
+    caps = rec["merge_caps"]
+    assert set(caps) == {"pair_factor", "photon_factor", "query_factor",
+                         "merge_chunks"}
+    assert caps["pair_factor"] >= 24.0 and caps["merge_chunks"] == 1
+    assert rec["pair_merge_overflow"] == 0
 
 
 def test_full_appends_one_history_record(tmp_path):
@@ -263,6 +274,10 @@ def test_full_appends_one_history_record(tmp_path):
         assert r["launches_per_iter"] is None and r["busy_share"] is None
     assert algs["pt"]["resolved"]["merge"] is None
     assert algs["vcm"]["resolved"]["merge"] == "cell"
+    assert algs["pt"]["resolved"]["caps"] is None
+    for alg in ("ppm", "bpm", "vcm"):
+        assert algs[alg]["resolved"]["caps"]["pair_factor"] >= 24.0
+    assert algs["vcm"]["resolved"]["caps"] == recs[0]["vcm"]["merge_caps"]
     assert recs[0]["vcm"] == json.loads(out.stdout)
     assert (ROOT / "BENCH_HISTORY.jsonl").read_bytes() == before
     assert (own.read_bytes() if own.exists() else None) == own_before
@@ -413,8 +428,9 @@ def test_every_timing_comes_before_the_first_profile(tmp_path, monkeypatch):
     monkeypatch.setattr(bench_torch, "time_algorithm", fake_time)
     monkeypatch.setattr(bench_torch, "profile_iteration", fake_profile)
     monkeypatch.setattr(
-        bench_torch, "pair_counts", lambda scene, res, rays: dict(
-            candidate_pairs_pair_merge=7, candidate_pairs_cell_merge=5))
+        bench_torch, "pair_counts", lambda scene, res, rays, caps: dict(
+            candidate_pairs_pair_merge=7, pair_merge_overflow=0,
+            candidate_pairs_cell_merge=5))
     history = tmp_path / "h.jsonl"
     assert bench_torch.main(["--device", "cpu", "--res", "8", "--full",
                              "--history", str(history)]) == 0

@@ -167,7 +167,7 @@ def test_forced_overflow_grows_caps_and_rerenders_same_bytes(capsys):
     # Grown to the need (x1.1, bucketed) of the worst iteration.
     assert cfg.photon_factor > 0.05 and cfg.query_factor > 0.05
     n_p, n_q = (max(tvcm.merge_measure_iteration(scene, it, RES, RES)[k]
-                    for it in range(3)) for k in (0, 1))
+                    for it in range(3)) for k in (1, 2))
     assert cfg.photon_factor == R._grow(0.05, n_p, N)
     assert cfg.query_factor == R._grow(0.05, n_q, N)
 
@@ -233,9 +233,11 @@ def test_caps_key_and_cache_round_trip(caps_cache, monkeypatch, tmp_path):
     cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES))
     assert R._ensure_merge_caps(scene, cfg, "vcm") == "measured"
     assert tvcm.merge_measure_iteration.calls == calls + 1
-    n_p, n_q = tvcm.merge_measure_iteration(scene, 0, RES, RES)
+    pairs, n_p, n_q = tvcm.merge_measure_iteration(scene, 0, RES, RES)
     assert (cfg.photon_factor, cfg.query_factor) == (
         R._bucket(n_p * 1.03, N), R._bucket(n_q * 1.03, N))
+    # The cell key sizes the pair merge's cap too, never below the default.
+    assert cfg.pair_factor == max(24.0, R._bucket(pairs * 1.15, N))
     assert cfg.merge_caps_frozen and caps_cache.exists()
     assert not (tmp_path / "jax").exists()
 
@@ -243,19 +245,17 @@ def test_caps_key_and_cache_round_trip(caps_cache, monkeypatch, tmp_path):
     calls = tvcm.merge_measure_iteration.calls
     assert R._ensure_merge_caps(scene, again, "vcm") == "cached"
     assert tvcm.merge_measure_iteration.calls == calls
-    assert (again.photon_factor, again.query_factor) == (
-        cfg.photon_factor, cfg.query_factor)
+    assert R._caps_of(again) == R._caps_of(cfg)
     assert R._ensure_merge_caps(scene, again, "vcm") == "frozen"
     # Another configuration is another key.
     other = R.RenderConfig(algorithm="vcm", resolution=(RES, RES),
                            base_seed=5)
     assert R._ensure_merge_caps(scene, other, "vcm") == "measured"
-    R._save_cached_caps("k", dict(photon_factor=1.5, query_factor=2.5))
-    assert R._load_cached_caps("k") == dict(photon_factor=1.5,
-                                            query_factor=2.5)
+    caps = dict(pair_factor=30.0, photon_factor=1.5, query_factor=2.5)
+    R._save_cached_caps("k", caps)
+    assert R._load_cached_caps("k") == caps
     assert R._load_cached_caps(R._caps_key(scene, cfg, "vcm", "pallas")) \
-        == dict(photon_factor=cfg.photon_factor,
-                query_factor=cfg.query_factor)
+        == R._caps_of(cfg)
 
 
 @pytest.mark.parametrize("alg", ["vcm", "pt"])

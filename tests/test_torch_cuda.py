@@ -325,10 +325,13 @@ def test_pair_merge_on_card_matches_cpu_and_cell_kernel(dev, span_radii):
     to = lambda v: vcm.StoredVertices(*(
         V3(*(c.to(dev) for c in f)) if isinstance(f, V3) else f.to(dev)
         for f in v))
-    want = vcm.merge_stage(scene, misc, q, lv, False, 7, 0, n)
-    assert float(want.x.abs().sum()) > 0.0
+    caps = (8 * n, 1024 * n, False, 7, 0, 5 * n, 4 * n, n)
+    want, w_ovf, w_stats = vcm.merge_stage(scene, misc, q, lv, *caps)
+    assert float(want.x.abs().sum()) > 0.0 and int(w_ovf) == 0
     scene_d = scene.to(dev)
-    got = vcm.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
+    got, g_ovf, g_stats = vcm.merge_stage(scene_d, misc, to(q), to(lv),
+                                          *caps)
+    assert int(g_ovf) == 0 and g_stats.tolist() == w_stats.tolist()
     before = M.merge_cells_kernel.launches
     cells = M.merge_stage(scene_d, misc, to(q), to(lv), False, 7, 0, n)
     assert M.merge_cells_kernel.launches == before + 1

@@ -10,6 +10,10 @@ and tracing refuses any host read outside the merge op. A dispatch
 recorder then refuses ``item``, ``nonzero``, ``masked_select`` and
 boolean indexing anywhere in the iteration: the merge's live counts and
 the splat flush's sentinel rows stay on the device.
+
+The pair merge (``merge_backend="xla"``, at static caps) needs no opaque
+op: its iteration is traced and replayed whole, and the recorder sees no
+host read in it either.
 """
 
 import pytest
@@ -67,7 +71,7 @@ def _block(scene, alg, it, **kw):
     return vcm.render_block_with_stats(
         scene, it, RES, RES, 1, SEED, MAX_PATH, 0, use_vc=use_vc,
         use_vm=use_vm, light_trace_only=lt_only, ppm=ppm, photon_factor=9.0,
-        query_factor=9.0, **kw)[:4]
+        query_factor=9.0, pair_factor=64.0, **kw)[:4]
 
 
 @pytest.mark.parametrize("alg", ["vcm", "ppm", "lt"])
@@ -95,3 +99,31 @@ def test_iteration_stage_makes_no_host_read(scene, monkeypatch, alg):
     with rec:
         _block(scene, alg, 2)
     assert rec.reads == []
+
+
+@pytest.mark.parametrize("alg,chunks", [("vcm", 1), ("bpm", 2)])
+def test_pair_merge_iteration_replays_bit_for_bit(scene, fx, monkeypatch,
+                                                 alg, chunks):
+    """The whole iteration with the pair merge at static caps, traced at
+    one iteration and replayed at three others, with nothing opaque: the
+    merge makes no host read for tracing to refuse."""
+    run = lambda it: _block(scene, alg, it, merge_backend="xla",
+                            merge_chunks=chunks, radius_factor=0.05)
+    _replays_equal_eager(fx, monkeypatch, run, f"{alg} xla iteration")
+    _, _, overflow, stats = run(1)
+    assert int(overflow) == 0 and int(stats[0]) > 0
+
+
+@pytest.mark.parametrize("photon_factor", [9.0, 0.05])
+def test_pair_merge_iteration_makes_no_host_read(scene, photon_factor):
+    """No item, nonzero, masked_select or boolean index in the iteration
+    with the pair merge, whether its caps hold or overflow."""
+    _misc(scene, 2)
+    rec = HostReadRecorder()
+    with rec:
+        _, _, overflow, _, _ = vcm.render_block_with_stats(
+            scene, 2, RES, RES, 1, SEED, MAX_PATH, 0, radius_factor=0.05,
+            photon_factor=photon_factor, query_factor=9.0,
+            pair_factor=64.0, merge_backend="xla")
+    assert rec.reads == []
+    assert (int(overflow) > 0) == (photon_factor < 1.0)

@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: hash grid and the pair-expansion merge.
 
-* The hash grid (build, query ranges, pair expansion, compaction) equals
-  the JAX package's exactly on the same inputs, and its candidate pairs
-  cover the brute-force r-neighbourhood.
+* The pair merge's hash grid (cell hashes and counts, the probed cells'
+  ranges, pair expansion) equals the JAX package's exactly on the same
+  inputs, and its candidate pairs cover the brute-force r-neighbourhood.
 * The port's pair merge (``algorithms/vcm.py::merge_stage``) and its cell
   merge (``ops/merge.py::merge_stage``, the plain version of the CUDA
   kernel on the CPU) are held against the JAX XLA ``vcm.merge_stage``,
@@ -58,35 +58,50 @@ def test_hash_cell_matches_jax_with_negative_cells():
         close(got, want)
 
 
+def _port_grid(pos, valid, queries, radius, num_cells, pad=None):
+    """The pair merge's grid pieces (vcm._photon_grid, vcm._probe_cells)
+    on points -> (grid, starts [Q, 8], counts [Q, 8]); the bbox pad is
+    the radius unless given."""
+    grid = tvcm._photon_grid(
+        tvcm.StoredVertices(*([tfrom_array(t(pos))] + [None] * 7
+                              + [t(valid)])), torch.tensor(
+            np.float32(radius)), num_cells)
+    pad = torch.tensor(np.float32(radius)) if pad is None else pad
+    cells, live = tvcm._probe_cells(grid, pad, list(t(queries).T),
+                                    torch.ones(len(queries), dtype=bool),
+                                    num_cells)
+    start = torch.cumsum(grid.count, 0) - grid.count
+    return grid, start[cells].T, torch.where(live, grid.count[cells], 0).T
+
+
 @pytest.mark.parametrize("seed,radius,num_cells", [(1, 0.05, 1024),
                                                    (2, 0.2, 64)])
 def test_grid_matches_jax(seed, radius, num_cells):
+    """The pair merge's cell hashes, counts and probed (start, count) rows
+    equal the JAX hash grid's, and so do the pairs expand_pairs lists."""
     pos = _points(seed, 3000)
     valid = np.random.default_rng(seed + 9).random(3000) < 0.8
     # Queries inside, at the edges and outside the particle bbox.
     queries = _points(seed + 1, 400, -0.1, 1.1)
     jg = jgrid.build(jfrom_array(jnp.asarray(pos)), jnp.asarray(valid),
                      jnp.float32(radius), num_cells)
-    tg = tgrid.build(tfrom_array(t(pos)), t(valid), radius, num_cells)
-    close(tg.sorted_idx, jg.sorted_idx)
-    close(tg.cell_start, jg.cell_start)
-    close(tg.cell_count, jg.cell_count)
-    assert int(tg.max_occupancy) == int(jg.max_occupancy)
-    assert np.float32(tg.inv_cell_size) == np.asarray(jg.inv_cell_size)
-    for f in ("bbox_min_x", "bbox_max_y", "bbox_min_z"):
-        close(getattr(tg, f), getattr(jg, f), rtol=0, atol=0)
+    # JAX's query_cell_ranges pads the bbox by half a cell.
+    pad = torch.tensor(np.float32(0.5) / np.asarray(jg.inv_cell_size))
+    grid, starts, counts = _port_grid(pos, valid, queries, radius,
+                                      num_cells, pad)
+    assert float(grid.inv_cell) == np.asarray(jg.inv_cell_size)
+    close(grid.count, jg.cell_count)
+    assert torch.equal(torch.sort(grid.hashes, stable=True).indices,
+                       torch.from_numpy(np.asarray(jg.sorted_idx,
+                                                   np.int64)))
+    for mine, theirs in zip(grid.mins + grid.maxs,
+                            (jg.bbox_min_x, jg.bbox_min_y, jg.bbox_min_z,
+                             jg.bbox_max_x, jg.bbox_max_y, jg.bbox_max_z)):
+        close(mine, theirs, rtol=0, atol=0)
 
     want = jgrid.query_cell_ranges(jg, num_cells,
-                                   jfrom_array(jnp.asarray(queries)),
-                                   jgrid.packed_ranges(jg))
-    got = tgrid.query_cell_ranges(tg, num_cells, tfrom_array(t(queries)),
-                                  tgrid.packed_ranges(tg))
-    close(got, want)
-    got_plain = tgrid.query_cell_ranges(tg, num_cells,
-                                        tfrom_array(t(queries)))
-    close(got_plain, want)
-
-    starts, counts = got
+                                   jfrom_array(jnp.asarray(queries)))
+    close((starts, counts), want)
     total = int(counts.sum())
     for cap in (total, total // 2, total + 77):
         w = jgrid.expand_pairs(*want, cap)
@@ -101,34 +116,25 @@ def test_grid_matches_jax(seed, radius, num_cells):
 
 
 def test_grid_pairs_cover_brute_force():
-    """Every (query, particle) pair within the radius is a candidate."""
+    """Every (query, particle) pair within the radius is a candidate of
+    the pair merge's grid."""
     pos = _points(2, 4000)
     valid = np.random.default_rng(3).random(4000) < 0.9
     queries = _points(4, 256, 0.1, 0.9)
     radius, num_cells = 0.05, 1024
-    g = tgrid.build(tfrom_array(t(pos)), t(valid), radius, num_cells)
-    starts, counts = tgrid.query_cell_ranges(g, num_cells,
-                                             tfrom_array(t(queries)))
+    grid, starts, counts = _port_grid(pos, valid, queries, radius,
+                                      num_cells)
     qc, ppos, ok, total, ovf = tgrid.expand_pairs(starts, counts,
                                                   int(counts.sum()))
     assert int(ovf) == 0 and bool(ok.all())
     q = (qc // 8).numpy()
-    p = g.sorted_idx[ppos].numpy()
+    p = torch.sort(grid.hashes, stable=True).indices[ppos].numpy()
     d2 = ((pos[p] - queries[q]) ** 2).sum(-1)
     keep = (d2 <= radius * radius) & valid[p]
     mine = set(zip(q[keep], p[keep]))
     d2_all = ((queries[:, None, :] - pos[None]) ** 2).sum(-1)
     qi, pi = np.nonzero((d2_all <= radius * radius) & valid[None])
     assert mine == set(zip(qi, pi)) and len(mine) > 100
-
-
-@pytest.mark.parametrize("cap", [10, 600, 2000])
-def test_compact_indices_matches_jax(cap):
-    valid = np.random.default_rng(cap).random(1000) < 0.6
-    w_idx, w_n, w_ovf = jgrid.compact_indices(jnp.asarray(valid), cap)
-    g_idx, g_n, g_ovf = tgrid.compact_indices(t(valid), cap)
-    close(g_idx, w_idx)
-    assert int(g_n) == int(w_n) and int(g_ovf) == int(w_ovf)
 
 
 # -- pair-expansion merge -----------------------------------------------------
@@ -154,7 +160,7 @@ def _jax_merge(js, misc, queries, light_verts, ppm, n, pair_factor):
         min_path_length=0, photon_cap=5 * n, query_cap=4 * n, n_paths=n,
     )
     assert int(ovf) == 0 and int(stats[0]) > 0
-    return want
+    return want, np.asarray(stats)
 
 
 @pytest.mark.parametrize("ppm", [False, True])
@@ -167,20 +173,24 @@ def test_pair_and_tile_merge_match_xla_merge(ppm, res, seed, span_radii,
                                              pair_factor):
     n = res * res
     js, ts, misc, queries, light_verts = _case(res, seed, span_radii)
-    want = _jax_merge(js, misc, queries, light_verts, ppm, n, pair_factor)
-    args = (ts, _port_misc(misc), _port_vertices(queries),
-            _port_vertices(light_verts), ppm, 7, 0, n)
-    # The JAX call's cell count: probe cells that collide in the hash
-    # visit their photons twice, in the reference's grid too.
-    pair = tvcm.merge_stage(*args, num_cells=2 * n)
+    want, jstats = _jax_merge(js, misc, queries, light_verts, ppm, n,
+                              pair_factor)
+    tm, tq, tl = (_port_misc(misc), _port_vertices(queries),
+                  _port_vertices(light_verts))
+    # The JAX call's cell count and caps: probe cells that collide in the
+    # hash visit their photons twice, in the reference's grid too.
+    pair_args = (ts, tm, tq, tl, 2 * n, pair_factor * n, ppm, 7, 0, 5 * n,
+                 4 * n, n)
+    pair, ovf, stats = tvcm.merge_stage(*pair_args)
+    assert int(ovf) == 0 and stats.tolist() == jstats.tolist()
     if span_radii < 10:
         assert float(pair.x.abs().sum()) > 0.0
     close(pair, want, rtol=3e-5, atol=1e-7)
-    close(TM.merge_stage(*args), want, rtol=3e-5, atol=1e-7)
-    # Chunked pair expansion (query ranges of at most 500 pairs) gives
-    # the same sums.
-    close(tvcm.merge_stage(*args, num_cells=2 * n, max_pairs=500), want,
-          rtol=3e-5, atol=1e-7)
+    close(TM.merge_stage(ts, tm, tq, tl, ppm, 7, 0, n), want, rtol=3e-5,
+          atol=1e-7)
+    # Four query chunks give the same sums.
+    close(tvcm.merge_stage(*pair_args, merge_chunks=4)[0], want, rtol=3e-5,
+          atol=1e-7)
 
 
 def test_pair_merge_empty_and_min_length():
@@ -188,15 +198,17 @@ def test_pair_merge_empty_and_min_length():
     args = (ts, _port_misc(misc), _port_vertices(queries))
     lv = _port_vertices(light_verts)
     dead = lv._replace(valid=torch.zeros_like(lv.valid))
-    got = tvcm.merge_stage(*args, dead, False, 7, 0, 64)
+    caps = (1024 * 64, False, 7, 0, 320, 256, 64)
+    got, ovf, stats = tvcm.merge_stage(*args, dead, 128, *caps)
     assert all(float(c.abs().sum()) == 0.0 for c in got)
+    assert int(ovf) == 0 and stats.tolist()[:2] == [0, 0]
     want, ovf, _ = jvcm.merge_stage(
         js, misc, queries, light_verts, num_cells=128, pair_cap=1024 * 64,
         ppm=False, max_path_length=6, min_path_length=4, photon_cap=320,
         query_cap=256, n_paths=64)
     assert int(ovf) == 0
-    close(tvcm.merge_stage(*args, lv, False, 6, 4, 64, num_cells=128), want,
-          rtol=3e-5, atol=1e-7)
+    close(tvcm.merge_stage(*args, lv, 128, 1024 * 64, False, 6, 4, 320, 256,
+                           64)[0], want, rtol=3e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("alg", ["vcm", "bpm"])

@@ -192,9 +192,12 @@ def test_merge_of_a_query_shard_against_every_photon(backend):
             assert int(overflow) == 0
             return color, stats
     else:
-        merge = lambda q, m: vcm.merge_stage(
-            scene, misc, q, verts, False, MAXLEN, 0, m, num_cells=8 * n,
-            with_stats=True)
+        def merge(q, m):
+            color, overflow, stats = vcm.merge_stage(
+                scene, misc, q, verts, 8 * n, 64 * m, False, MAXLEN, 0,
+                4 * n, 4 * m, m)
+            assert int(overflow) == 0
+            return color, stats
     full, full_stats = merge(queries, n)
     assert float(full.x.sum()) > 0.0
     half = n // 2
