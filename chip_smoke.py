@@ -115,9 +115,25 @@ Phases (each one raises on failure; nothing is caught):
     time and memory); phase 13 again with caps (two gloo ranks on one card
     from a tiny pair factor: the overflow summed over ranks grows both to
     the same caps, by JAX's rule over a rank's paths, and the image equals
-    the single process's at those caps within rtol 1e-4 / atol 1e-6).
+    the single process's at those caps within rtol 1e-4 / atol 1e-6);
+19. sharded iterations as one CUDA graph on NCCL, in processes of their
+    own (no other code of this script sees a process group): a one-rank
+    NCCL group on cuda:0 renders VCM 512x512 ``-i 8`` through
+    ``render()`` with the cell merge and with the pair merge, and pt ``-i
+    64``, cold and warm: one capture, one host sync a block, host launch
+    calls an iteration at most BLOCK_HOST_CALLS_MAX, the merge kernel once
+    an iteration, the NCCL and copy events of a profiled iteration,
+    ms/iteration, peak memory; each image bit for bit the warm run's and
+    the single process's at the same caps, and its first 8 iterations
+    bit for bit ``graphs.eager()``'s; the cell merge from caps 0.05
+    overflows, grows and renders the same bytes. Where two or more cards
+    are visible, two (and four) NCCL ranks render VCM with both exchanges
+    and pt, bit for bit their gloo twins (stage by stage) and within rtol
+    1e-4 / atol 1e-6 of the single process, with each rank's ms/iteration,
+    then ``scripts/torch_scaling.py --ranks 1 2 4``; with one card it says
+    so and claims no scaling.
 
-Phases 6-18 run on the graph path wherever it applies (every render of two
+Phases 6-19 run on the graph path wherever it applies (every render of two
 or more iterations captures at its second); phase 3 records its call sites
 and profiles under ``graphs.eager()``, since a replay runs no Python. The
 merge caps are cached in a directory of this run alone.
@@ -2105,6 +2121,296 @@ def check_pair_caps(torch, dev, bench_pairs: int, grad_steps: dict) -> dict:
     return launches
 
 
+# Phase 19: sharded iterations as one CUDA graph on an NCCL group.
+SHARDED_TINY = 0.05     # cell-merge photon and query factors that overflow
+# (name, algorithm, iterations, RenderConfig keywords): the one-rank NCCL
+# renders, then the renders of two or four ranks where the cards allow.
+SHARDED_ONE_CASES = (("vcm", "vcm", BLOCK_ITERS, {}),
+                     ("vcm_xla", "vcm", BLOCK_ITERS, {"merge_backend": "xla"}),
+                     ("pt", "pt", SIMPLE_BLOCK, {}))
+SHARDED_MULTI_CASES = (("vcm_allgather", "vcm", BLOCK_ITERS, {}),
+                       ("vcm_ring", "vcm", BLOCK_ITERS,
+                        {"vm_exchange": "ring"}),
+                       ("pt", "pt", SIMPLE_BLOCK, {}))
+
+
+def _group_entry(rank: int, world: int, backend: str, init: str,
+                 out_dir: str, fn, args):
+    import torch
+    import torch.distributed as dist
+
+    from smallvcm_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        torch.save(fn(*args), Path(out_dir) / f"result{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def spawn_group(world: int, backend: str, fn, *args) -> list:
+    """``fn(*args)`` in ``world`` new processes, rank r on cuda:r, joined in
+    one ``backend`` group through a file:// store (one rank too:
+    ``multihost.initialize`` makes no group for a single process) -> the
+    ranks' results in rank order. No process of this script but these
+    ever holds a group."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="svcm_group_") as tmp:
+        init = Path(tmp, "rendezvous").as_uri()
+        mp.start_processes(_group_entry,
+                           args=(world, backend, init, tmp, fn, args),
+                           nprocs=world, join=True, start_method="spawn")
+        return [torch.load(Path(tmp) / f"result{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def _sharded_graph_rank(cases, detail: bool) -> dict:
+    """Phase 19 in each rank of a group: every case through render(), cold
+    and warm; with ``detail``, its host syncs and launch calls a block, the
+    profiled device events of one iteration and the render under
+    ``graphs.eager()``, then the cell merge from tiny caps."""
+    import torch
+    import torch.distributed as dist
+
+    from bench_torch import block_host_counts
+    from smallvcm_tpu_torch import graphs
+    from smallvcm_tpu_torch import render as R
+    from smallvcm_tpu_torch.parallel import comm
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    group = dist.group.WORLD
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    out = dict(backend=str(dist.get_backend(group)),
+               world=comm.world_size(group), device=str(dev))
+    for name, alg, iters, kw in cases:
+        kw = dict(kw, group=group)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cold = _blocks_render(torch, scene, alg, iters, **kw)
+        rec = dict(img=cold.img.cpu(), rays=cold.rays, caps=R._caps_of(
+            cold.cfg), launches=cold.launches, captures=cold.captures,
+            cold_ms=1e3 * cold.secs / iters, out=cold.out, peak_gib=(
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                torch.cuda.max_memory_reserved(dev) / 2 ** 30))
+        warm = _blocks_render(torch, scene, alg, iters, **kw)
+        rec.update(warm_img=warm.img.cpu(), warm_captures=warm.captures,
+                   ms=1e3 * warm.secs / iters)
+        if detail:
+            block = R.auto_block_size(warm.cfg, alg)
+            host = block_host_counts(scene, warm.cfg, 0, block)
+            run = R._make_block_runner(scene, warm.cfg, alg)
+            acc = torch.zeros((RES, RES, 3), device=dev)
+            calls, events = launch_profile(torch, lambda: run(0, 1, acc))
+            # Eagerly, a block of BLOCK_ITERS at most (pt's 64 iterations
+            # would take ~16 s), against the graphs' render of that block.
+            short = iters if iters <= BLOCK_ITERS else BLOCK_ITERS
+            ref = cold if short == iters else _blocks_render(
+                torch, scene, alg, short, block_size=short, **kw)
+            with graphs.eager():
+                eager = _blocks_render(torch, scene, alg, short,
+                                       block_size=short, **kw)
+            rec.update(
+                eager_ref=dict(img=ref.img.cpu(), rays=ref.rays,
+                               launches=ref.launches, iters=short),
+                block=block, host_syncs=host["host_syncs"],
+                sync_sites=host["sync_sites"], host_calls_iter=host["host_launch_calls"] / block,
+                busy=host["busy_share"], profiled_calls=calls,
+                nccl_events={k: v for k, v in events.items()
+                             if "nccl" in k.lower()},
+                copy_events={k: v for k, v in events.items()
+                             if "memcpy" in k.lower()},
+                device_events=sum(events.values()),
+                eager_img=eager.img.cpu(), eager_rays=eager.rays,
+                eager_launches=eager.launches,
+                eager_ms=1e3 * eager.secs / short)
+        out[name] = rec
+    if detail:
+        forced = _blocks_render(torch, scene, "vcm", BLOCK_ITERS, group=group,
+                                photon_factor=SHARDED_TINY,
+                                query_factor=SHARDED_TINY)
+        out["overflow"] = dict(img=forced.img.cpu(), out=forced.out,
+                               caps=R._caps_of(forced.cfg),
+                               launches=forced.launches,
+                               ms=1e3 * forced.secs / BLOCK_ITERS)
+    return out
+
+
+def _single_render(torch, scene, alg: str, iters: int, caps: dict, **kw):
+    """The single process's render at ``caps``, frozen."""
+    return _blocks_render(torch, scene, alg, iters, merge_caps_frozen=True,
+                          **caps, **kw)
+
+
+def check_sharded_graphs(torch, dev) -> dict:
+    """Phase 19: sharded iterations as one CUDA graph on NCCL groups ->
+    the kernels' launches by path."""
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    t_phase = time.perf_counter()
+
+    def slog(msg):
+        log(f"[sharded-graph +{time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    launches = {}
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
+    torch.cuda.empty_cache()       # the rank shares cuda:0 with this process
+    (one,) = spawn_group(1, "nccl", _sharded_graph_rank, SHARDED_ONE_CASES,
+                         True)
+    slog(f"one-rank NCCL group on cuda:0 spawned and rendered in "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    for name, alg, iters, kw in SHARDED_ONE_CASES:
+        r = one[name]
+        single = _single_render(torch, scene, alg, iters, r["caps"], **kw)
+        block = r["block"]
+        fails = []
+        if r["captures"] != 1 or r["warm_captures"]:
+            fails.append(f"captures {r['captures']} cold, "
+                         f"{r['warm_captures']} warm")
+        if r["host_syncs"] != 1:
+            fails.append(f"{r['host_syncs']} host syncs a block (at "
+                         f"{r['sync_sites']})")
+        if r["host_calls_iter"] > BLOCK_HOST_CALLS_MAX:
+            fails.append(f"{r['host_calls_iter']} host launch calls an "
+                         f"iteration (at most {BLOCK_HOST_CALLS_MAX})")
+        merges = r["launches"]["merge_cells"]
+        if merges != (iters if name == "vcm" else 0) \
+                or r["launches"]["intersect_sweep"] <= 0:
+            fails.append(f"launches {r['launches']}")
+        if "overflow" in r["out"]:
+            fails.append(f"overflow: {r['out']!r}")
+        ref = r["eager_ref"]
+        for what, img, rays, counts, want in (
+                ("warm", r["warm_img"], r["rays"], r["launches"], r),
+                (f"graphs.eager() (-i {ref['iters']})", r["eager_img"],
+                 r["eager_rays"], r["eager_launches"], ref),
+                ("the single process", single.img.cpu(), single.rays,
+                 single.launches, r)):
+            if not torch.equal(img, want["img"]) or rays != want["rays"] \
+                    or counts != want["launches"]:
+                fails.append(
+                    f"against {what}: max |diff| "
+                    f"{float((img - want['img']).abs().max())}, rays {rays} "
+                    f"vs {want['rays']}, launches {counts} vs "
+                    f"{want['launches']}")
+        if fails:
+            raise AssertionError(f"sharded graph {name}: " + "; ".join(fails))
+        launches[f"sharded_graph_{name}"] = [r["launches"]]
+        slog(f"{name} {RES}x{RES} -i {iters} on a one-rank NCCL group: one "
+             f"block of {block}, {r['captures']} capture; "
+             f"{r['ms']:.2f} ms/iteration warm (cold {r['cold_ms']:.2f}, "
+             f"graphs.eager() -i {ref['iters']} {r['eager_ms']:.2f}; the "
+             f"single process "
+             f"{1e3 * single.secs / iters:.2f}); {r['host_syncs']} host sync "
+             f"a block; {r['host_calls_iter']:.2f} host launch calls an "
+             f"iteration; busy share {r['busy']:.4f}; one profiled "
+             f"iteration: {r['profiled_calls']} host launch calls, "
+             f"{r['device_events']} device events, NCCL kernels "
+             f"{r['nccl_events']}, copies {r['copy_events']}; launches "
+             f"{r['launches']}; caps {r['caps']}; peak {r['peak_gib'][0]:.3f} "
+             f"GiB allocated, {r['peak_gib'][1]:.3f} reserved; image bit for "
+             f"bit the warm run's and the single process's at the same caps "
+             f"(mean {float(r['img'].mean()):.6f}), the first "
+             f"{ref['iters']} iterations' the graphs.eager() render's")
+    forced = one["overflow"]
+    if "merge cap overflow" not in forced["out"] \
+            or not torch.equal(forced["img"], one["vcm"]["img"]) \
+            or min(forced["caps"]["photon_factor"],
+                   forced["caps"]["query_factor"]) <= SHARDED_TINY:
+        raise AssertionError(f"sharded graph overflow: {forced['out']!r}, "
+                             f"caps {forced['caps']}, image equal "
+                             f"{torch.equal(forced['img'], one['vcm']['img'])}")
+    launches["sharded_graph_overflow"] = [forced["launches"]]
+    slog(f"cell merge from caps {SHARDED_TINY}: {forced['out'].strip()!r}; "
+         f"grown to {forced['caps']}; image bit for bit the run that never "
+         f"overflowed; {forced['ms']:.2f} ms/iteration with the re-render")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        slog(f"{cards} card visible: two or more NCCL ranks need a card "
+             f"each; no multi-rank run and no scaling claimed")
+        return launches
+    launches.update(check_sharded_multi(torch, scene, slog))
+    return launches
+
+
+def check_sharded_multi(torch, scene, slog) -> dict:
+    """Phase 19 where two or more cards are visible: two (and four) NCCL
+    ranks, one graph an iteration, against their gloo twins (stage by
+    stage) and the single process, then ``scripts/torch_scaling.py
+    --ranks 1 2 4`` -> the kernels' launches by path."""
+    launches = {}
+    cards = torch.cuda.device_count()
+    for w in (2, 4):
+        if w > cards:
+            continue
+        runs = {b: spawn_group(w, b, _sharded_graph_rank,
+                               SHARDED_MULTI_CASES, False)
+                for b in ("nccl", "gloo")}
+        for name, alg, iters, kw in SHARDED_MULTI_CASES:
+            caps = runs["nccl"][0][name]["caps"]
+            single = _single_render(torch, scene, alg, iters, caps, **kw)
+            want = single.img.cpu()
+            nccl, gloo = (runs[b][0][name] for b in ("nccl", "gloo"))
+            for b, ranks in runs.items():
+                for k, o in enumerate(ranks):
+                    rec = o[name]
+                    if not torch.equal(rec["img"], gloo["img"]) \
+                            or rec["rays"] != single.rays:
+                        raise AssertionError(
+                            f"sharded graph {w} {b} ranks {name} rank {k}: "
+                            f"max |diff| vs gloo "
+                            f"{float((rec['img'] - gloo['img']).abs().max())}"
+                            f", rays {rec['rays']} vs {single.rays}")
+                    if alg == "pt" and not torch.equal(rec["img"], want):
+                        raise AssertionError(f"sharded graph {w} ranks pt: "
+                                             f"not bit for bit")
+                    torch.testing.assert_close(rec["img"], want, rtol=1e-4,
+                                               atol=1e-6)
+            if nccl["captures"] != 1 or nccl["warm_captures"] \
+                    or not torch.equal(nccl["warm_img"], nccl["img"]):
+                raise AssertionError(f"sharded graph {w} NCCL ranks {name}: "
+                                     f"{nccl['captures']} captures cold, "
+                                     f"{nccl['warm_captures']} warm, warm "
+                                     f"image equal "
+                                     f"{torch.equal(nccl['warm_img'], nccl['img'])}")
+            for b in runs:
+                launches[f"sharded_graph_{b}{w}_{name}"] = [
+                    o[name]["launches"] for o in runs[b]]
+            err = float((nccl["img"] - want).abs().max())
+            slog(f"{name} {RES}x{RES} -i {iters} on {w} ranks: NCCL "
+                 f"(one graph an iteration) "
+                 f"{[round(o[name]['ms'], 2) for o in runs['nccl']]} "
+                 f"ms/iteration by rank, gloo (stage by stage) "
+                 f"{[round(o[name]['ms'], 2) for o in runs['gloo']]}; the "
+                 f"single process {1e3 * single.secs / iters:.2f}; NCCL and "
+                 f"gloo images bit for bit; max |err| vs the single process "
+                 f"{err:.3g} (rtol 1e-4, atol 1e-6); caps {caps}; launches "
+                 f"by rank {launches[f'sharded_graph_nccl{w}_{name}']}")
+    check_scaling(slog)
+    return launches
+
+
+def check_scaling(slog) -> None:
+    """``scripts/torch_scaling.py --ranks 1 2 4`` (the rank counts the
+    visible cards allow): VCM 512x512 in blocks of 8, both exchanges."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_scaling.py"),
+         "--ranks", "1", "2", "4"], cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    log("\n".join("  | " + line for line in proc.stdout.splitlines()))
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_scaling: {proc.stderr[-2000:]}")
+    runs = json.loads(proc.stdout.splitlines()[-1])["runs"]
+    slog("torch_scaling.py --ranks 1 2 4: efficiency " + ", ".join(
+        f"{r['ranks']} ranks {r['exchange'] or ''} "
+        f"{r.get('efficiency', 'out of memory')}" for r in runs))
+
+
 def main() -> int:
     import torch
 
@@ -2181,6 +2487,8 @@ def main() -> int:
     phase_done("phase 17 (blocks)")
     pair_caps = check_pair_caps(torch, dev, bench_pairs, grads)
     phase_done("phase 18 (pair merge at caps)")
+    sharded_graphs = check_sharded_graphs(torch, dev)
+    phase_done("phase 19 (sharded graphs)")
 
     by_path = lambda name: {
         "vcm": launches[name],
@@ -2199,6 +2507,7 @@ def main() -> int:
         **{path: n[name] for path, n in blocks.items()},
         **{path: ([x[name] for x in n] if isinstance(n, list) else n[name])
            for path, n in pair_caps.items()},
+        **{path: [x[name] for x in n] for path, n in sharded_graphs.items()},
     }
     kernels = [
         dict(name="merge_cells", route="cuda",

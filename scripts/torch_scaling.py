@@ -8,23 +8,31 @@ The counterpart of ``scripts/scaling_bench.py`` (strong scaling) and of
 Strong scaling (the default): VCM, scene 0, 512x512, on 1, 2 and 4 ranks,
 one card a rank (NCCL, ``parallel/multihost.spawn``), with the all-gather
 and with the ring photon exchange. One rank renders in this process; a
-rank count above the visible cards is skipped, and said so. Each rank
-renders two warm iterations (on a card the first runs the trace stages
-eagerly and the second captures their CUDA graphs, graphs.py), then
-``--iters`` timed ones (default 5), each ended by a device synchronise.
-Printed: each rank's ms/iteration (median, min, max), the exchange's
-wall ms a call (the packed light-vertex table ``[17, 9, paths of one
-rank]`` exchanged alone, 5 calls) and its bytes a rank an iteration,
-the efficiency t_1 / (W t_W) of the median rank times, and the image's
-max |err| against one rank's.
+rank count above the visible cards is skipped, and said so. Every rank
+renders through render.py's block runner, blocks of ``--iters`` (default
+8) with one host read a block: on an NCCL group each iteration is one
+CUDA graph with the exchange, the merge and the sums over ranks inside
+(``vcm.sharded_iteration_stage``), so the graph is what is timed. Every
+run uses the same merge caps, the configuration's default factors (3.0
+photons and queries a path), frozen: the sharded runner measures nothing.
+One warm block (iteration 0 eager, 1 captures, the rest replay), then
+``--repeats`` timed blocks (default 5), each ended by its host read.
+Printed, for each rank: ms/iteration (the median block, min and max), on
+a card the host launch calls an iteration and the host syncs a block
+(``bench_torch.block_host_counts``: three more blocks), the NCCL kernels'
+device ms in one profiled iteration; then the exchange's own wall ms a
+call (the packed light-vertex table ``[17, 9, paths of one rank]``
+exchanged alone, 5 calls: a collective inside a graph cannot be timed
+alone) and its bytes a rank an iteration (counted through the graph's
+replays), the efficiency t_1 / (W t_W) of the slowest rank's median, peak
+memory, and the image's max |err| against one rank's.
 
-The sharded-memory regime: ``--res 2048 --exchange ring`` renders 2
-iterations (no warm one) on every visible card, ``--res 2048 --ranks 1``
-in one process through render.py's block runner (the merge caps measured
-or read from the cache first; the second iteration captures the
-whole-iteration graph); each rank's
-``torch.cuda.max_memory_allocated`` and ``max_memory_reserved`` (a
-graph's private memory pool stays reserved between replays), the image
+The sharded-memory regime: ``--res 2048 --exchange ring`` renders one
+block of 2 iterations (no warm one) on every visible card, ``--res 2048
+--ranks 1`` in one process (the merge caps measured or read from the
+cache first); each rank's ``torch.cuda.max_memory_allocated`` and
+``max_memory_reserved`` (a graph's private memory pool stays reserved
+between replays, the gathered photon table among its buffers), the image
 mean against the JAX package's record (artifacts/mesh2048_summary.json:
 8 virtual devices, ring, 2 iterations, same seed) and the per-shard
 account that ``render_2048_mesh.py`` printed, next to the port's own table
@@ -34,12 +42,13 @@ Every run also prints the cell merge's candidate pairs a path an iteration
 ring hop's cap on the paths of one shard).
 
     python scripts/torch_scaling.py [--ranks 1 2 4] [--exchange allgather
-        ring] [--iters 5] [--res 512] [--device cuda]
+        ring] [--iters 8] [--repeats 5] [--res 512] [--device cuda]
     python scripts/torch_scaling.py --res 2048 --exchange ring
     python scripts/torch_scaling.py --res 2048 --ranks 1
 
 ``--device cpu`` runs gloo ranks on the CPU (a rehearsal: no device
-numbers). The last line is a JSON object with every number printed.
+numbers; gloo ranks run stage by stage). The last line is a JSON object
+with every number printed.
 """
 
 from __future__ import annotations
@@ -82,26 +91,26 @@ def _exchange_ms(torch, comm, group, dev, n_rank: int, exchange: str):
     return statistics.median(times)
 
 
-def _iteration(torch, scene, res: int, it: int, exchange: str, group,
-               runner):
-    """One VCM iteration of the whole frame (summed over the group's
-    ranks) -> (image, merge stats [candidate pairs, photons, queries]).
-    One process renders through ``runner``, render.py's block runner, with
-    a block of 1: the whole iteration as one CUDA graph on a card."""
-    from smallvcm_tpu_torch.parallel import sharding
+def _nccl_device_ms(torch, run, start: int, accum) -> float:
+    """Device ms of the NCCL kernels in one profiled block of one
+    iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    if group is None:
-        zeros = torch.zeros((res, res, 3), device=scene.device)
-        block = runner(it, 1, zeros)
-        return block.accum, block.stats
-    img, _, _, stats = sharding.sharded_render_iteration_with_stats(
-        group, scene, it, res, res, vm_exchange=exchange)
-    return img, stats
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(start, 1, accum)
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "nccl" in e.name.lower()) / 1e3
 
 
-def rank_run(device: str, res: int, iters: int, exchange: str,
-             warm: bool) -> dict:
-    """One rank's share (or the single process): render, time, measure."""
+def rank_run(device: str, res: int, iters: int, repeats: int,
+             exchange: str, warm: bool) -> dict:
+    """One rank's share (or the single process): render blocks through
+    render.py's block runner, time them, measure."""
     import torch
 
     from smallvcm_tpu_torch import render as R
@@ -112,62 +121,72 @@ def rank_run(device: str, res: int, iters: int, exchange: str,
     dev = multihost.rank_device(device)
     w = 1 if group is None else comm.world_size(group)
     scene = load_cornell_box((res, res), SCENE_CONFIGS[0], device=dev)
-    runner = None
-    if group is None:
-        runner = R._make_block_runner(
-            scene, R.RenderConfig(algorithm="vcm", resolution=(res, res)),
-            "vcm")
+    # The memory regime sizes the single process's caps (at 2048x2048 the
+    # default factors would not fit); strong scaling freezes the defaults
+    # for every rank count alike.
+    cfg = R.RenderConfig(algorithm="vcm", resolution=(res, res),
+                         block_size=iters, vm_exchange=exchange, group=group,
+                         merge_caps_frozen=warm)
+    run = R._make_block_runner(scene, cfg, "vcm")
     out = dict(device=str(dev), world=w,
                backend=None if group is None else
                str(torch.distributed.get_backend(group)))
-    it = 0
+    accum = torch.zeros((res, res, 3), device=dev)
+    done = 0
     if warm:
-        for it in range(2):
-            _iteration(torch, scene, res, it, exchange, group, runner)
-        it += 1
+        accum = run(done, iters, accum).accum
+        done += iters
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     comm.all_gather_columns.bytes = comm.ring_shift.bytes = 0
-    acc, ms, pairs = None, [], 0
+    ms, pairs = [], 0
     try:
-        for k in range(iters):
+        for _ in range(repeats):
             _sync(torch, dev)
             t0 = time.perf_counter()
-            img, stats = _iteration(torch, scene, res, it + k, exchange,
-                                    group, runner)
-            _sync(torch, dev)
-            ms.append(1e3 * (time.perf_counter() - t0))
-            acc = img if acc is None else acc + img
-            pairs += int(stats[0])
+            block = run(done, iters, accum)    # ends in its host read
+            ms.append(1e3 * (time.perf_counter() - t0) / iters)
+            accum = block.accum
+            done += iters
+            pairs += block.stats[0]
     except torch.cuda.OutOfMemoryError as e:
         out["out_of_memory"] = str(e).splitlines()[0]
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
         return out
     out.update(
-        ms=ms, image=(acc / iters).cpu(),
-        pairs_per_path=pairs / (iters * res * res),
+        ms=ms, image=(accum / done).cpu(),
+        pairs_per_path=pairs / (repeats * res * res),
+        exchange_bytes=(comm.all_gather_columns.bytes
+                        + comm.ring_shift.bytes) // (repeats * iters),
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else None),
         peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
                              if dev.type == "cuda" else None),
-        exchange_bytes=(comm.all_gather_columns.bytes
-                        + comm.ring_shift.bytes) // iters)
+        caps=R._caps_of(cfg))
+    if dev.type == "cuda" and warm:
+        from bench_torch import block_host_counts
+
+        host = block_host_counts(scene, cfg, done, iters)
+        out.update(host_launch_calls_per_iter=host["host_launch_calls"]
+                   / iters, host_syncs_per_block=host["host_syncs"],
+                   busy_share=host["busy_share"],
+                   nccl_device_ms=_nccl_device_ms(torch, run, done, accum))
     if group is not None:
         out["exchange_ms"] = _exchange_ms(torch, comm, group, dev,
                                           res * res // w, exchange)
     return out
 
 
-def run(w: int, device: str, res: int, iters: int, exchange: str,
-        warm: bool) -> list:
+def run(w: int, device: str, res: int, iters: int, repeats: int,
+        exchange: str, warm: bool) -> list:
     """The ranks' results of one configuration, in rank order."""
     from smallvcm_tpu_torch.parallel import multihost
 
     if w == 1:
-        return [rank_run(device, res, iters, exchange, warm)]
+        return [rank_run(device, res, iters, repeats, exchange, warm)]
     return multihost.spawn(w, device, rank_run, device, res, iters,
-                           exchange, warm)
+                           repeats, exchange, warm)
 
 
 def account(res: int, w: int) -> dict:
@@ -200,6 +219,12 @@ def summarize(ranks: list) -> dict:
         peak_reserved_GiB=[None if r["peak_reserved_bytes"] is None
                            else round(r["peak_reserved_bytes"] / 2 ** 30, 3)
                            for r in ranks],
+        host_launch_calls_per_iter=[r.get("host_launch_calls_per_iter")
+                                    for r in ranks],
+        host_syncs_per_block=[r.get("host_syncs_per_block") for r in ranks],
+        busy_share=[r.get("busy_share") for r in ranks],
+        nccl_device_ms=[r.get("nccl_device_ms") for r in ranks],
+        caps=ranks[0]["caps"],
         backend=ranks[0]["backend"])
 
 
@@ -218,7 +243,10 @@ def main(argv=None) -> int:
                     help="rank counts (default 1 2 4; at 2048: every card)")
     ap.add_argument("--exchange", nargs="+", default=["allgather", "ring"],
                     choices=["allgather", "ring"])
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=8,
+                    help="iterations a block (at 2048: 2)")
+    ap.add_argument("--repeats", type=int, default=5,
+                    help="timed blocks (at 2048: 1, no warm block)")
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -236,9 +264,10 @@ def main(argv=None) -> int:
         n_cards = None
         print("[card] cpu: gloo ranks, no device numbers", flush=True)
     ranks = args.ranks or ([n_cards or 1] if memory else [1, 2, 4])
-    iters, warm = (2, False) if memory else (args.iters, True)
-    result = dict(res=args.res, iterations=iters, warm_iteration=warm,
-                  device=dev.type, runs=[])
+    iters, repeats, warm = ((2, 1, False) if memory
+                            else (args.iters, args.repeats, True))
+    result = dict(res=args.res, block=iters, repeats=repeats,
+                  warm_block=warm, device=dev.type, runs=[])
     base = None
     for w in ranks:
         if n_cards is not None and w > n_cards:
@@ -247,7 +276,8 @@ def main(argv=None) -> int:
             continue
         for exchange in (args.exchange if w > 1 else args.exchange[:1]):
             t0 = time.perf_counter()
-            out = run(w, args.device, args.res, iters, exchange, warm)
+            out = run(w, args.device, args.res, iters, repeats, exchange,
+                      warm)
             row = dict(ranks=w, exchange=exchange if w > 1 else None,
                        wall_s=round(time.perf_counter() - t0, 1),
                        account=account(args.res, w))
@@ -283,7 +313,12 @@ def main(argv=None) -> int:
                   f"{[round(x, 1) for x in row['rank_ms_max']]}; exchange "
                   f"{row['exchange_bytes']} B a rank an iteration, "
                   f"{row['exchange_ms']} ms a call; candidate pairs "
-                  f"{row['pairs_per_path']:.2f} a path; efficiency "
+                  f"{row['pairs_per_path']:.2f} a path; host launch calls "
+                  f"an iteration {row['host_launch_calls_per_iter']}, host "
+                  f"syncs a block {row['host_syncs_per_block']}, busy share "
+                  f"{row['busy_share']}, NCCL kernels' device ms in one "
+                  f"iteration {row['nccl_device_ms']}; caps {row['caps']}; "
+                  f"efficiency "
                   f"{row.get('efficiency')}; peak GiB {row['peak_GiB']} "
                   f"allocated, {row['peak_reserved_GiB']} reserved; "
                   f"mean {row['mean']:.6f}"

@@ -1149,9 +1149,13 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
     the global paths (all-gather, single process) or this rank's (each
     ring hop), query rows ``query_factor * n`` (factors None: 3.0, the
     JAX defaults), in ``merge_chunks`` query chunks; a truncation counts
-    in the overflow. The cell merge takes the factors' caps
-    (:func:`merge_caps`) in a single process and the tables' slot counts,
-    which nothing overflows, under ``group`` or with factors None.
+    in the overflow. The cell merge takes the same photon and query rows
+    (:func:`merge_caps` of the factors over the global paths or a hop's,
+    and this process's queries), in a single process and under
+    ``group`` alike: a live count above a cap counts in the overflow,
+    which the sharded callers sum over ranks, so every rank grows to the
+    same caps (render.py). With factors None its tables are the slot
+    counts, which nothing overflows.
 
     Single process: against its own photons. With ``group``, against every
     rank's: "allgather" gathers the packed tables in rank order, so the
@@ -1175,12 +1179,16 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
         one = lambda lv: merge(lv, int(pf * n_paths_global))
         hop = lambda lv: merge(lv, int(pf * n))
     else:
-        caps = (merge_caps(photon_factor, query_factor, n)
-                if group is None and photon_factor is not None
-                else (None, None))
-        one = hop = lambda lv: cell_merge.merge_stage(
-            scene, misc, queries, lv, ppm, max_path_length, min_path_length,
-            n, *caps, with_stats=True)
+        def cells(lv, photons):
+            caps = ((None, None) if photon_factor is None else (
+                merge_caps(photon_factor, query_factor, photons)[0],
+                merge_caps(photon_factor, query_factor, n)[1]))
+            return cell_merge.merge_stage(
+                scene, misc, queries, lv, ppm, max_path_length,
+                min_path_length, n, *caps, with_stats=True)
+
+        one = lambda lv: cells(lv, n_paths_global)
+        hop = lambda lv: cells(lv, n)
     if group is None:
         return one(verts)
     if vm_exchange == "allgather":
@@ -1360,28 +1368,22 @@ def iteration_static(res_x: int, res_y: int, base_seed: int,
             merge_chunks if pair else 1)
 
 
-def iteration_stage(
-    scene: SceneData, iteration, radius, radius_sqr, vm_normalization,
-    mis_vm_weight, mis_vc_weight, light_sub_path_count: float, res_x: int,
-    res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
-    use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
-    rng_kind: str, merge_backend: str, pair_factor: float,
-    photon_factor: float, query_factor: float, merge_chunks: int,
+def _iteration_body(
+    scene: SceneData, pix, n_paths_global: int, iteration, radius,
+    radius_sqr, vm_normalization, mis_vm_weight, mis_vc_weight,
+    light_sub_path_count: float, res_x: int, res_y: int, base_seed: int,
+    max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
+    light_trace_only: bool, ppm: bool, rng_kind: str, merge_backend: str,
+    pair_factor: float, photon_factor: float, query_factor: float,
+    merge_chunks: int, vm_exchange: str, group,
 ):
-    """One whole VCM-family iteration over every pixel -> (image [resY,
-    resX, 3] f32, ray_count, merge overflow int64, merge stats int64 [3]),
-    all on the device: light walk, splat flush, camera stage, the merge at
-    its static caps (the cell merge, or the pair merge for
-    ``merge_backend="xla"``; :func:`_merge`), own-pixel accumulation.
-
-    ``iteration`` and the five per-iteration scalars are 0-dim device
-    tensors (graphs.stage fills them before each replay; compute_misc's
-    floats, exactly); nothing here reads the host, so on a card the whole
-    function is one CUDA graph. Same operations, in the same order, as
-    :func:`render_iteration_core` at the same caps: the same bits."""
-    n = res_x * res_y
+    """The stages of one iteration over the path ids ``pix`` -> (this
+    process's image, ray_count, merge overflow, merge stats), with the
+    per-iteration scalars as 0-dim device tensors: light walk, splat
+    flush, camera stage, the merge at its static caps (:func:`_merge`,
+    with ``group`` through ``vm_exchange``), own-pixel accumulation. The
+    operations, and their order, of :func:`render_iteration_core`."""
     dev = scene.device
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
     misc = VcmMisc(radius, radius_sqr, vm_normalization, mis_vm_weight,
                    mis_vc_weight, light_sub_path_count)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1402,11 +1404,90 @@ def iteration_stage(
     if use_vm:
         mc, overflow, stats = _merge(
             scene, misc, queries, verts, ppm, max_path_length,
-            min_path_length, n, merge_backend, "allgather", None,
-            pair_factor, photon_factor, query_factor, merge_chunks)
+            min_path_length, n_paths_global, merge_backend, vm_exchange,
+            group, pair_factor, photon_factor, query_factor, merge_chunks)
         color = color + mc
     fb = add_color_at_pix(fb, pix, color)
     return fb.to_array(), rays + cam_rays, overflow, stats
+
+
+def iteration_stage(
+    scene: SceneData, iteration, radius, radius_sqr, vm_normalization,
+    mis_vm_weight, mis_vc_weight, light_sub_path_count: float, res_x: int,
+    res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
+    use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
+    rng_kind: str, merge_backend: str, pair_factor: float,
+    photon_factor: float, query_factor: float, merge_chunks: int,
+):
+    """One whole VCM-family iteration over every pixel -> (image [resY,
+    resX, 3] f32, ray_count, merge overflow int64, merge stats int64 [3]),
+    all on the device: light walk, splat flush, camera stage, the merge at
+    its static caps (the cell merge, or the pair merge for
+    ``merge_backend="xla"``; :func:`_merge`), own-pixel accumulation.
+
+    ``iteration`` and the five per-iteration scalars are 0-dim device
+    tensors (graphs.stage fills them before each replay; compute_misc's
+    floats, exactly); nothing here reads the host, so on a card the whole
+    function is one CUDA graph. Same operations, in the same order, as
+    :func:`render_iteration_core` at the same caps: the same bits."""
+    n = res_x * res_y
+    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+    return _iteration_body(
+        scene, pix, n, iteration, radius, radius_sqr, vm_normalization,
+        mis_vm_weight, mis_vc_weight, light_sub_path_count, res_x, res_y,
+        base_seed, max_path_length, min_path_length, use_vc, use_vm,
+        light_trace_only, ppm, rng_kind, merge_backend, pair_factor,
+        photon_factor, query_factor, merge_chunks, "allgather", None)
+
+
+def sharded_static(static: tuple, vm_exchange: str, group) -> tuple:
+    """The static arguments of :func:`sharded_iteration_stage`:
+    :func:`iteration_static`'s, then the photon exchange, the group's size,
+    this rank and the group itself (by identity), so that graphs of other
+    groups and exchanges stay apart."""
+    return (*static, vm_exchange, comm.world_size(group), comm.rank(group),
+            group)
+
+
+def sharded_iteration_stage(
+    scene: SceneData, iteration, radius, radius_sqr, vm_normalization,
+    mis_vm_weight, mis_vc_weight, light_sub_path_count: float, res_x: int,
+    res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
+    use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
+    rng_kind: str, merge_backend: str, pair_factor: float,
+    photon_factor: float, query_factor: float, merge_chunks: int,
+    vm_exchange: str, world: int, rank: int, group,
+):
+    """One whole VCM-family iteration on this rank's path shard ``[rank *
+    n / W, (rank + 1) * n / W)`` of ``group`` -> (image summed over the
+    ranks, ray_count, overflow, stats [3]), every output summed over the
+    ranks and replicated: the counterpart of the JAX package's
+    ``_vcm_program`` (sharding.py:144-191), whose ``psum``s
+    (vcm.py:1387-1391) are :func:`comm.framebuffer_sum` of the image and
+    one :func:`comm.all_reduce_sum` of [rays, overflow, stats].
+
+    The stages of :func:`iteration_stage` on the shard, with the photon
+    exchange inside: the all-gather, or W merges and W - 1 ring shifts in
+    a static loop (:func:`_merge`), the merges at their static caps. The
+    same operations, in the same order, as the stage-by-stage
+    ``parallel/sharding.py::sharded_render_iteration_with_stats`` at the
+    same caps: the same bits. Nothing here reads the host, so on an NCCL
+    group's card the whole function, collectives included, is one CUDA
+    graph (graphs.stage; the key's :func:`sharded_static` part holds the
+    exchange, W, the rank and the group)."""
+    n = res_x * res_y
+    m = n // world
+    pix = torch.arange(rank * m, (rank + 1) * m, dtype=torch.int64,
+                       device=scene.device)
+    img, rays, overflow, stats = _iteration_body(
+        scene, pix, n, iteration, radius, radius_sqr, vm_normalization,
+        mis_vm_weight, mis_vc_weight, light_sub_path_count, res_x, res_y,
+        base_seed, max_path_length, min_path_length, use_vc, use_vm,
+        light_trace_only, ppm, rng_kind, merge_backend, pair_factor,
+        photon_factor, query_factor, merge_chunks, vm_exchange, group)
+    counts = comm.all_reduce_sum(
+        torch.cat([rays.reshape(1), overflow.reshape(1), stats]), group)
+    return comm.framebuffer_sum(img, group), counts[0], counts[1], counts[2:]
 
 
 def render_block_with_stats(
@@ -1431,9 +1512,14 @@ def render_block_with_stats(
     pair_factor: float = 24.0,
     merge_chunks: int = 1,
     merge_backend: str = "auto",
+    group=None,
+    vm_exchange: str = "allgather",
 ):
     """``block`` consecutive iterations, each one replay of the
-    :func:`iteration_stage` graph on a card -> (image sum [resY, resX, 3],
+    :func:`iteration_stage` graph on a card (with ``group``, of the
+    :func:`sharded_iteration_stage` graph of this rank, the photon
+    exchange ``vm_exchange`` and the sums over ranks inside it) ->
+    (image sum [resY, resX, 3],
     ray_count, overflow_sum, stats_max, luminance), all device tensors:
     the counterpart of the JAX package's ``render_block_with_stats``
     (vcm.py:1647-1715). Overflow is summed so that any overflowing
@@ -1446,10 +1532,17 @@ def render_block_with_stats(
     port's default) and "pallas" take the cell merge at
     :func:`merge_caps` of the factors, "xla" the pair merge at
     ``pair_factor`` and the factors, in ``merge_chunks`` query chunks;
-    the luminance is framebuffer.hxx:89-102's of the sum."""
+    the luminance is framebuffer.hxx:89-102's of the sum. With
+    ``group`` every rank calls this alike and every output is the
+    group's, replicated; the group must be capturable on a card (NCCL:
+    ``comm.capturable``), since a gloo group's collectives stage through
+    host memory (render.py runs those ranks stage by stage)."""
     if merge_backend not in MERGE_BACKENDS:
         raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
                          f"not {merge_backend!r}")
+    if vm_exchange not in VM_EXCHANGES:
+        raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
+                         f"not {vm_exchange!r}")
     n = res_x * res_y
     dev = scene.device
     static = iteration_static(res_x, res_y, base_seed, max_path_length,
@@ -1457,6 +1550,18 @@ def render_block_with_stats(
                               light_trace_only, ppm, rng_kind, photon_factor,
                               query_factor, merge_backend, pair_factor,
                               merge_chunks)
+    fn = iteration_stage
+    if group is not None:
+        if dev.type == "cuda" and not comm.capturable(group):
+            raise ValueError(
+                "a gloo group's collectives stage through host memory and "
+                "cannot run inside a CUDA graph: render its iterations "
+                "stage by stage (parallel/sharding.py)")
+        w = comm.world_size(group)
+        if n % w != 0:
+            raise ValueError(f"path count {n} not divisible by {w} devices")
+        fn, static = sharded_iteration_stage, sharded_static(
+            static, vm_exchange, group)
     acc = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
            if accum is None else accum)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1467,7 +1572,7 @@ def render_block_with_stats(
         m = compute_misc(scene, it, n, radius_factor, radius_alpha, use_vc,
                          use_vm)
         img, r, o, st = graphs.stage(
-            iteration_stage, scene, (),
+            fn, scene, (),
             (it, m.radius, m.radius_sqr, m.vm_normalization,
              m.mis_vm_weight, m.mis_vc_weight), static)
         acc = acc + img

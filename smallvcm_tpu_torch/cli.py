@@ -172,7 +172,7 @@ def main(argv=None) -> int:
         return _render_main(args, device, group)
     finally:
         if group is not None and fresh:
-            torch.distributed.destroy_process_group()
+            multihost.shutdown()
 
 
 def _render_main(args, device, group) -> int:

@@ -14,10 +14,17 @@ The stages are:
   (``vcm.render_block_with_stats``);
 - the whole pass of pt and el (``pathtracer.render_pass``,
   ``eyelight.render_pass``), k replays a block;
+- the whole iteration of the VCM family on a sharded rank of an NCCL
+  group (``vcm.sharded_iteration_stage``: the same stages on the rank's
+  paths, with the photon exchange, the merge at static caps and the sums
+  over ranks inside the graph, the counterpart of the JAX package's
+  ``_vcm_program``), and the whole pass of a sharded el or pt rank with
+  its framebuffer sum (``parallel/sharding.py::simple_stage``);
 - the light walk and the camera stage on their own
-  (``vcm.light_walk``, ``camera_walk``) on sharded ranks, where the photon
-  exchange's collectives sit between them: the merge, the splat flush and
-  the framebuffer sums run eagerly between those two graphs.
+  (``vcm.light_walk``, ``camera_walk``) on sharded ranks of a gloo group,
+  whose collectives stage through host memory and cannot be captured:
+  the merge, the exchange, the splat flush and the framebuffer sums run
+  eagerly between those two graphs.
 
 What stays outside every graph: the sums over a block's iterations (a
 few launches an iteration), the per-iteration scalars' fills, and the
@@ -69,10 +76,14 @@ requires grad (``diff.py``'s gradients, the sweep's autograd Function in
 back to eager launches on a card: a failed capture or replay raises.
 
 The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``)
-are bumped by their wrappers in Python, which run at capture and not at
-replay. So a capture takes its increments back and records them, and each
-replay adds them: the counters count launches on the device, the merge's
-one a replay of the whole-iteration graph.
+and the exchanges' ``.bytes`` counters (``parallel/comm.py``) are bumped
+in Python, which runs at capture and not at replay. So a capture takes
+its increments back and records them, and each replay adds them: the
+counters count launches and bytes on the device, the merge's one a
+replay of the whole-iteration graph.
+
+The first call of a sharded key runs eagerly too, so its collectives
+create the group's NCCL communicator before any capture.
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from torch.utils import _pytree as pytree
 
 from .ops import merge as merge_ops
 from .ops import sweep as sweep_ops
+from .parallel import comm
 
 _EAGER = 0
 
@@ -103,9 +115,23 @@ def eager():
         _EAGER -= 1
 
 
-def _kernel_counters():
-    return (sweep_ops.sweep_kernel, sweep_ops.occluded_kernel,
-            merge_ops.merge_cells_kernel)
+def _counters():
+    """(holder, attribute) of each counter bumped in Python beside a device
+    launch or transfer: the kernels' launches, the exchanges' bytes."""
+    return ((sweep_ops.sweep_kernel, "launches"),
+            (sweep_ops.occluded_kernel, "launches"),
+            (merge_ops.merge_cells_kernel, "launches"),
+            (comm.all_gather_columns, "bytes"),
+            (comm.ring_shift, "bytes"))
+
+
+def _read_counters() -> list:
+    return [getattr(h, a) for h, a in _counters()]
+
+
+def _add_counters(values) -> None:
+    for (h, a), v in zip(_counters(), values):
+        setattr(h, a, getattr(h, a) + v)
 
 
 def _scene_leaves(scene):
@@ -148,15 +174,16 @@ def _scalar(value, dev):
 
 class _Graph:
     """A captured stage: the graph, its input and output tensors and the
-    kernel launches one replay makes."""
+    counters' increments (:func:`_counters`) one replay makes."""
 
-    def __init__(self, graph, inputs, scalars, outputs, out_spec, launches):
+    def __init__(self, graph, inputs, scalars, outputs, out_spec,
+                 increments):
         self.graph = graph
         self.inputs = inputs
         self.scalars = scalars
         self.outputs = outputs
         self.out_spec = out_spec
-        self.launches = launches
+        self.increments = increments
 
     def replay(self, flat_in, scalars):
         for buf, t in zip(self.inputs, flat_in):
@@ -165,8 +192,7 @@ class _Graph:
         for buf, v in zip(self.scalars, scalars):
             buf.fill_(v)
         self.graph.replay()
-        for counter, n in zip(_kernel_counters(), self.launches):
-            counter.launches += n
+        _add_counters(self.increments)
         stage.replays += 1
         return pytree.tree_unflatten(self.outputs, self.out_spec)
 
@@ -220,6 +246,17 @@ def drop(fn, static: tuple) -> int:
     return len(keys)
 
 
+def drop_group(group) -> int:
+    """Forget every stage whose static values hold ``group`` (the sharded
+    graphs, which captured its collectives) -> the number dropped. A
+    group's NCCL communicator must outlive the graphs that launch its
+    kernels: see ``parallel/multihost.py::shutdown``."""
+    keys = [k for k in _ENTRIES if any(v is group for v in k[5])]
+    for k in keys:
+        _drop(k)
+    return len(keys)
+
+
 def _owned(t) -> bool:
     """Is ``t`` an output tensor of a captured graph?"""
     return any(t is o for e in _ENTRIES.values() if e.graph is not None
@@ -230,8 +267,7 @@ def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
     global _CAPTURING
     inputs = [t if _owned(t) else t.clone() for t in flat_in]
     bufs = [_scalar(v, dev) for v in scalars]
-    counters = _kernel_counters()
-    before = [c.launches for c in counters]
+    before = _read_counters()
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
     _CAPTURING = True
@@ -239,17 +275,16 @@ def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = fn(scene, *pytree.tree_unflatten(inputs, in_spec), *bufs,
                      *static)
-        launches = [c.launches - b for c, b in zip(counters, before)]
+        increments = [c - b for c, b in zip(_read_counters(), before)]
     finally:
         _CAPTURING = False
-        for c, b in zip(counters, before):
-            c.launches = b
+        _add_counters([b - c for c, b in zip(_read_counters(), before)])
         while _DEAD:
             _drop(_DEAD.pop())
     stage.captures += 1
     stage.capture_s += time.perf_counter() - t0
     outputs, out_spec = pytree.tree_flatten(out)
-    return _Graph(graph, inputs, bufs, outputs, out_spec, launches)
+    return _Graph(graph, inputs, bufs, outputs, out_spec, increments)
 
 
 def stage(fn, scene, tensors: tuple, scalars: tuple, static: tuple):

@@ -23,9 +23,21 @@ branch. gloo moves CUDA tensors only for broadcast and all-reduce, so
 under gloo every exchange here stages a card's tensor through host memory
 explicitly (:func:`_staged`); the kernels still run on the rank's card.
 
+On NCCL every forward here can be captured into a CUDA graph
+(:func:`capturable`): the all-gather writes into one preallocated
+``[W, ...]`` tensor, the all-reduce into a clone, the ring's shift into an
+empty buffer, and nothing passes through the host. The sharded iteration
+therefore runs as one graph with its collectives inside
+(algorithms/vcm.py::sharded_iteration_stage). gloo stages through host
+memory and is never captured. Backwards always run eagerly: autograd never
+runs as a graph.
+
 ``all_gather_columns.bytes`` and ``ring_shift.bytes`` count the bytes each
 call brought to this rank (plain integers, like the kernels' launch
-counters; chip_smoke.py reads them).
+counters; chip_smoke.py reads them). They are bumped in Python, which a
+graph replay does not run, so graphs.py treats them as it treats the
+kernels' ``.launches``: a capture takes its increments back and each
+replay adds them.
 """
 
 from __future__ import annotations
@@ -36,6 +48,19 @@ import torch.distributed as dist
 
 def _group(group):
     return dist.group.WORLD if group is None else group
+
+
+# PyTorch 2.13 renamed all_gather_into_tensor to all_gather_single; either
+# gathers into one preallocated tensor, the ranks' inputs concatenated.
+_all_gather_tensor = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
+
+
+def capturable(group=None) -> bool:
+    """Can the group's collectives run inside a CUDA graph? NCCL's can;
+    gloo's stage CUDA tensors through host memory and cannot. The sharded
+    runners choose by this, statically, never by a failed capture."""
+    return dist.get_backend(_group(group)) == dist.Backend.NCCL
 
 
 def world_size(group=None) -> int:
@@ -96,12 +121,13 @@ def framebuffer_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _gather_stack(t: torch.Tensor, group) -> torch.Tensor:
-    """[W, *t.shape]: every rank's ``t`` in rank order, on ``t``'s
-    device."""
-    buf = _wire(t, group)
-    parts = [torch.empty_like(buf) for _ in range(world_size(group))]
-    dist.all_gather(parts, buf, group=_group(group))
-    return torch.stack(parts).to(t.device)
+    """[W, *t.shape]: every rank's ``t`` in rank order, on ``t``'s device,
+    gathered by one collective into one preallocated tensor."""
+    buf = _wire(t, group).reshape(-1)
+    w = world_size(group)
+    out = buf.new_empty((w * buf.numel(),))
+    _all_gather_tensor(out, buf, group=_group(group))
+    return out.view(w, *t.shape).to(t.device)
 
 
 class _AllGatherColumns(torch.autograd.Function):

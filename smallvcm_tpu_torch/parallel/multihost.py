@@ -16,6 +16,9 @@ has a card of its own, and gloo on the CPU or when ranks share a card
 CUDA tensors through host memory (parallel/comm.py); the coordinator says
 so when it picks gloo for CUDA ranks.
 
+A rank leaves its group through :func:`shutdown`, which drops the CUDA
+graphs that captured the group's collectives before the communicator goes.
+
 Failure model (as the JAX package's): fail-fast. A rank that raises
 brings the job down with a non-zero exit (:func:`spawn` stops the other
 ranks); inter-iteration state is only (framebuffer, iteration, seed), so a
@@ -24,6 +27,7 @@ job resumes bit for bit from its last checkpoint (checkpoint.py).
 
 from __future__ import annotations
 
+import gc
 import os
 import socket
 import tempfile
@@ -33,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from .. import graphs
 from ..device import resolve_device
 
 
@@ -102,6 +107,21 @@ def initialize(coordinator_address: str | None = None,
     return dist.group.WORLD
 
 
+def shutdown() -> None:
+    """Leave the job's process group. The CUDA graphs that captured its
+    collectives go first, and the card finishes its work: ranks that
+    destroyed an NCCL group under live graphs which had replayed its
+    kernels waited in ``destroy_process_group`` until killed (four H100s,
+    NCCL 2.28.9); with the graphs dropped first they left in under a
+    second."""
+    group = dist.group.WORLD
+    if graphs.drop_group(group):
+        gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
 def global_group():
     """The job's process group, or None outside a multi-process job."""
     return dist.group.WORLD if dist.is_initialized() else None
@@ -120,7 +140,7 @@ def _rank_entry(rank: int, world: int, device, init: str, out_dir: str,
     try:
         torch.save(fn(*args), Path(out_dir) / f"result{rank}.pt")
     finally:
-        dist.destroy_process_group()
+        shutdown()
 
 
 def spawn(world_size: int, device, fn, *args) -> list:

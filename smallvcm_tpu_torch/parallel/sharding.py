@@ -17,10 +17,27 @@ contiguous path shard: rank r renders global path ids
 
 Unlike the JAX package, which swaps both Pallas kernels for XLA under a
 mesh, every rank runs the port's kernels on its own card: the cell merge,
-the closest-hit sweep and the any-hit sweep. Neither trace stage
-communicates, so each rank captures its own CUDA graphs of them for its
-``pix`` shard (graphs.py); the all-gather, the ring and the framebuffer sum
-stay eager, around the merge.
+the closest-hit sweep and the any-hit sweep.
+
+How an iteration runs on a rank depends on the group's backend, chosen
+statically (``comm.capturable``):
+
+- NCCL: the whole iteration is ONE CUDA graph, collectives included, the
+  counterpart of the JAX package's one ``shard_map`` program an iteration
+  (``_vcm_program``): ``vcm.sharded_iteration_stage`` for the VCM family
+  (light walk, splat flush, camera stage, the photon exchange, the merge
+  at static caps, the own-pixel add, the sums over ranks), replayed by
+  ``vcm.render_block_with_stats(group=...)``, and :func:`simple_stage` for
+  el and pt (the pass and its sums).
+- gloo: its collectives stage CUDA tensors through host memory and cannot
+  be captured, so an iteration runs stage by stage
+  (:func:`sharded_render_iteration_with_stats`): the light walk and the
+  camera stage as graphs, the exchange, the merge and the sums eagerly
+  between and after them.
+
+Either way the merges run at static caps over the factors' share of the
+paths, and their overflow and stats are summed over the ranks, so every
+rank grows to the same caps (render.py).
 
 The JAX package's ``training_step_spec`` has no counterpart: every rank
 holds the whole scene, so parameters are replicated by construction, and
@@ -31,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import graphs
 from ..algorithms import eyelight, pathtracer, vcm
 from . import comm
 
@@ -40,8 +58,7 @@ def shard_pix(n: int, group, device) -> torch.Tensor:
     w, r = comm.world_size(group), comm.rank(group)
     if n % w != 0:
         raise ValueError(f"path count {n} not divisible by {w} devices")
-    m = n // w
-    return torch.arange(r * m, (r + 1) * m, dtype=torch.int64, device=device)
+    return _shard_ids(n, w, r, device)
 
 
 def sharded_render_iteration_with_stats(
@@ -63,11 +80,12 @@ def sharded_render_iteration_with_stats(
     rng_kind: str = "threefry",
     merge_backend: str = "auto",
     pair_factor: float = 24.0,
-    photon_factor: float = 3.0,
-    query_factor: float = 3.0,
+    photon_factor: float | None = None,
+    query_factor: float | None = None,
     merge_chunks: int = 1,
 ):
-    """One VCM-family iteration with paths sharded over ``group`` ->
+    """One VCM-family iteration with paths sharded over ``group``, stage by
+    stage ->
     (image [resY, resX, 3] summed over ranks, ray_count, merge overflow
     int64, merge stats int64 [candidate pairs, live photons, live
     queries]), all replicated on every rank: the counts, the overflow and
@@ -79,12 +97,15 @@ def sharded_render_iteration_with_stats(
     gives every rank the whole photon table (one collective, the
     single-process table element for element); "ring" keeps photons
     resident and passes them around the ranks, merging one visiting table
-    at a time. Both are exact (merging is additive over photons). The pair
-    merge (``merge_backend="xla"``) runs at the caps of ``pair_factor``,
-    ``photon_factor`` and ``query_factor`` over this rank's paths (photons
-    over all of them under the all-gather) in ``merge_chunks`` query
-    chunks (algorithms/vcm.py::_merge); the cell merge's tables are the
-    slot counts. Differentiable in the scene's parameters."""
+    at a time. Both are exact (merging is additive over photons). Both
+    merges run at the caps of ``photon_factor`` and ``query_factor`` over
+    this rank's paths (photons over all of them under the all-gather), the
+    pair merge also at ``pair_factor`` in ``merge_chunks`` query chunks
+    (algorithms/vcm.py::_merge); with the factors None the pair merge
+    takes the JAX defaults (3.0) and the cell merge its tables' slot
+    counts. Differentiable in the scene's parameters. On an NCCL group
+    ``vcm.sharded_iteration_stage`` computes the same bits as one CUDA
+    graph."""
     n = res_x * res_y
     pix = shard_pix(n, group, scene.device)
     img, rays, overflow, stats = vcm.render_iteration_core(
@@ -105,6 +126,31 @@ def sharded_render_iteration(group, scene, iteration: int, res_x: int,
         group, scene, iteration, res_x, res_y, **kw)[0]
 
 
+def _shard_ids(n: int, world: int, rank: int, device) -> torch.Tensor:
+    m = n // world
+    return torch.arange(rank * m, (rank + 1) * m, dtype=torch.int64,
+                        device=device)
+
+
+def simple_stage(scene, iteration, algorithm: str, res_x: int, res_y: int,
+                 base_seed: int, max_path_length: int, min_path_length: int,
+                 rng_kind: str, world: int, rank: int, group):
+    """One el or pt pass over this rank's pixels with its sums over the
+    group -> (image, ray_count), replicated, with the iteration a 0-dim
+    int64 device tensor and no host read: on an NCCL group's card ONE CUDA
+    graph (graphs.stage), the JAX package's ``_SIMPLE_PROGRAMS``
+    (sharding.py:194-250)."""
+    pix = _shard_ids(res_x * res_y, world, rank, scene.device)
+    if algorithm == "el":
+        img, rays = eyelight.render_pass(scene, pix, iteration, res_x, res_y,
+                                         base_seed, rng_kind)
+    else:
+        img, rays = pathtracer.render_pass(
+            scene, pix, iteration, res_x, res_y, base_seed, max_path_length,
+            min_path_length, rng_kind)
+    return comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
+
+
 def sharded_simple_iteration(
     group,
     algorithm: str,
@@ -121,16 +167,25 @@ def sharded_simple_iteration(
     sharded over ``group`` -> (image, ray_count), replicated. Each rank
     renders its pixels into a full-frame image; every pixel has one owner,
     so the sum adds exact zeros and the image equals the single-process
-    image bit for bit."""
+    image bit for bit. On an NCCL group the pass and its sums are one
+    graph (:func:`simple_stage`); on gloo the pass is a graph and the sums
+    run after it. On a card the outputs are a graph's, which the next
+    iteration overwrites: clone what you keep."""
     n = res_x * res_y
     pix = shard_pix(n, group, scene.device)
+    if algorithm not in ("el", "pt"):
+        raise ValueError(f"algorithm must be 'el' or 'pt', not {algorithm!r}")
+    if comm.capturable(group):
+        return graphs.stage(
+            simple_stage, scene, (), (iteration,),
+            (algorithm, res_x, res_y, base_seed, max_path_length,
+             min_path_length, rng_kind, comm.world_size(group),
+             comm.rank(group), group))
     if algorithm == "el":
         img, rays = eyelight.render_core(scene, iteration, pix, res_x, res_y,
                                          base_seed, rng_kind)
-    elif algorithm == "pt":
+    else:
         img, rays = pathtracer.render_core(
             scene, iteration, pix, res_x, res_y, base_seed, max_path_length,
             min_path_length, rng_kind)
-    else:
-        raise ValueError(f"algorithm must be 'el' or 'pt', not {algorithm!r}")
     return comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)

@@ -33,14 +33,21 @@ for all seven algorithms, with the JAX package's block runner:
 
 With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
 group runs :func:`render` with the same configuration: each renders its
-path shard (parallel/sharding.py) and holds the summed image, stage by
-stage (the photon exchange sits between the graphs of the light and camera
-stages), with one host read a block (under ``-t``, blocks of one). The
-pair merge runs there at the caps above, from the JAX defaults (sharded
-runs measure nothing and write no cache), and grows over the rank's share
-of the paths; the cell merge's tables are the slot counts. Under a time
-budget rank 0 decides each step and broadcasts it, so every rank runs the
-same number of iterations; only rank 0 prints.
+path shard (parallel/sharding.py) and holds the summed image, with one
+host read a block (under ``-t``, blocks of one). On an NCCL group each
+iteration is ONE CUDA graph with the photon exchange, the merge and the
+sums over ranks inside it (``vcm.sharded_iteration_stage``; el and pt:
+``sharding.simple_stage``), the counterpart of the JAX package's one
+program an iteration. On a gloo group, whose collectives stage through
+host memory and cannot be captured, an iteration runs stage by stage (the
+photon exchange sits between the graphs of the light and camera stages).
+The choice is static, by the group's backend (``comm.capturable``). Both
+merges run there at the caps above, from the configured factors (sharded
+runs measure nothing and write no cache); the overflow and stats are
+summed over the ranks, so every rank grows to the same caps over its
+share of the paths. Under a time budget rank 0 decides each step and
+broadcasts it, so every rank runs the same number of iterations; only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -185,12 +192,15 @@ def merge_chunks(cfg: RenderConfig) -> int:
                                 cfg.resolution[0] * cfg.resolution[1])
 
 
-def _pair_caps(cfg: RenderConfig) -> dict:
-    """The pair merge's caps of ``cfg`` as keywords of the VCM iteration
-    functions; none for the cell merge, whose stage-by-stage tables are
+def _caps_kw(cfg: RenderConfig) -> dict:
+    """The merge caps of ``cfg`` as keywords of the VCM iteration
+    functions: the pair merge's, and the cell merge's under a group; none
+    for the single process's stage-by-stage cell merge, whose tables are
     the slot counts."""
     if cfg.merge_backend != "xla":
-        return {}
+        return ({} if cfg.group is None else
+                dict(photon_factor=cfg.photon_factor,
+                     query_factor=cfg.query_factor))
     return dict(pair_factor=cfg.pair_factor,
                 photon_factor=cfg.photon_factor,
                 query_factor=cfg.query_factor, merge_chunks=merge_chunks(cfg))
@@ -198,23 +208,25 @@ def _pair_caps(cfg: RenderConfig) -> dict:
 
 def _sharded_vcm_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                            iteration: int):
-    """This rank's share of one sharded VCM-family iteration -> (image,
-    rays, overflow, stats), summed over the group's ranks."""
+    """This rank's share of one sharded VCM-family iteration, stage by
+    stage -> (image, rays, overflow, stats), summed over the group's
+    ranks."""
     res_x, res_y = cfg.resolution
     use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
     return sharding.sharded_render_iteration_with_stats(
         cfg.group, scene, iteration, res_x, res_y, cfg.base_seed,
         cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
         cfg.radius_alpha, use_vc, use_vm, lt_only, ppm, cfg.vm_exchange,
-        cfg.rng_kind, cfg.merge_backend, **_pair_caps(cfg))
+        cfg.rng_kind, cfg.merge_backend, **_caps_kw(cfg))
 
 
 def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                      iteration: int):
     """One iteration of the resolved algorithm, stage by stage -> (image,
     ray_count); with ``cfg.group``, this rank's shard, summed over the
-    group's ranks. The pair merge runs at ``cfg``'s caps and a truncation
-    is not retried here (the block runner retries). On a card el's and
+    group's ranks. The pair merge, and under a group the cell merge too,
+    runs at ``cfg``'s caps and a truncation is not retried here (the
+    block runner retries). On a card el's and
     pt's image and count are their graph's outputs, which the next
     iteration overwrites: clone what you keep."""
     res_x, res_y = cfg.resolution
@@ -238,7 +250,7 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
         cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha,
         use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
         rng_kind=cfg.rng_kind, merge_backend=cfg.merge_backend,
-        **_pair_caps(cfg))
+        **_caps_kw(cfg))
 
 
 def _maybe_inject_test_fault(done: int) -> None:
@@ -447,7 +459,9 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     (:func:`_ensure_merge_caps`). The runner grows the caps and renders
     the same block again on overflow (at most MAX_GROWS times, then
     raises), and reads the host once a block (twice when a block
-    overflows)."""
+    overflows). A VCM-family iteration is one graph replay in a single
+    process and on an NCCL group's rank, and runs stage by stage on a
+    gloo group's rank."""
     res_x, res_y = cfg.resolution
     n = res_x * res_y
     dev = scene.device
@@ -474,16 +488,23 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     # the group's ranks, so every rank grows to the same caps from the
     # same numbers: no broadcast is needed.
     n_shard = n if group is None else n // comm.world_size(group)
+    # One graph an iteration, or (a gloo group) stage by stage: static.
+    one_graph = group is None or comm.capturable(group)
 
-    def static():
-        return vcm.iteration_static(
+    def stage_key():
+        """The iteration graph's function and static key at the caps."""
+        static = vcm.iteration_static(
             res_x, res_y, cfg.base_seed, cfg.max_path_length,
             cfg.min_path_length, use_vc, use_vm, lt_only, ppm, cfg.rng_kind,
             cfg.photon_factor, cfg.query_factor, cfg.merge_backend,
             cfg.pair_factor, merge_chunks(cfg))
+        if group is None:
+            return vcm.iteration_stage, static
+        return vcm.sharded_iteration_stage, vcm.sharded_static(
+            static, cfg.vm_exchange, group)
 
     def render_block(start, k, accum):
-        if group is None:
+        if one_graph:
             return vcm.render_block_with_stats(
                 scene, start, res_x, res_y, k, cfg.base_seed,
                 cfg.max_path_length, cfg.min_path_length,
@@ -493,8 +514,9 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
                 query_factor=cfg.query_factor, rng_kind=cfg.rng_kind,
                 accum=accum, pair_factor=cfg.pair_factor,
                 merge_chunks=merge_chunks(cfg),
-                merge_backend=cfg.merge_backend)[:4]
-        # Sharded: stage by stage, summed on the device, as the JAX
+                merge_backend=cfg.merge_backend, group=group,
+                vm_exchange=cfg.vm_exchange)[:4]
+        # A gloo group: stage by stage, summed on the device, as the JAX
         # package's sharded runner (render.py:425-449).
         acc, rays, overflow, stats = accum, zero(), zero(), zero(3)
         for j in range(k):
@@ -515,13 +537,14 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
             # never shrinking, drop the old caps' graph and render the
             # SAME block again: exact, because the RNG is counter-based.
             pairs, n_p, n_q = block.stats
-            old = static()
+            old = stage_key()
             if cfg.merge_backend == "xla":
                 cfg.pair_factor = _grow_pairs(cfg.pair_factor, pairs, n_shard)
             cfg.photon_factor = _grow(cfg.photon_factor, n_p, n_shard)
             cfg.query_factor = _grow(cfg.query_factor, n_q, n_shard)
+            if one_graph:
+                graphs.drop(*old)
             if group is None:
-                graphs.drop(vcm.iteration_stage, old)
                 _save_cached_caps(caps_key, _caps_of(cfg))
             if is_coordinator():
                 print(f"[smallvcm_tpu_torch] merge cap overflow; "

@@ -250,6 +250,61 @@ def test_blocks_equal_eager_and_single_iterations_on_card(dev, alg,
         assert torch.equal(forced[0], got[0]) and forced[1] == got[1]
 
 
+@pytest.fixture
+def nccl_group(dev, tmp_path):
+    """A one-rank NCCL group on the card (a file:// store), destroyed with
+    the graphs that hold it."""
+    import torch.distributed as dist
+
+    from smallvcm_tpu_torch.parallel import multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    dist.init_process_group("nccl", init_method=(tmp_path / "rdv").as_uri(),
+                            rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.parametrize("alg,kw", [("vcm", {}), ("vcm", {"vm_exchange":
+                                                        "ring"}),
+                                    ("vcm", {"merge_backend": "xla"}),
+                                    ("pt", {})])
+def test_one_rank_nccl_graph_equals_eager_on_card(dev, nccl_group, alg, kw,
+                                                  tmp_path, monkeypatch):
+    """A block of four on a one-rank NCCL group through render(): each
+    iteration ONE CUDA graph with its collectives inside (one capture),
+    bit for bit the same render under graphs.eager() and the single
+    process's at the same caps, with equal rays and kernel launches."""
+    from smallvcm_tpu_torch import graphs
+
+    monkeypatch.setenv("SMALLVCM_TPU_TORCH_CACHE", str(tmp_path))
+    scene = load_cornell_box((16, 16), SCENE_CONFIGS[0], device=dev)
+    counters = (S.sweep_kernel, S.occluded_kernel, M.merge_cells_kernel)
+
+    def run(**extra):
+        cfg = R.RenderConfig(algorithm=alg, iterations=4, block_size=4,
+                             resolution=(16, 16), **kw, **extra)
+        before = [c.launches for c in counters]
+        img, _, done, rays = R.render(scene, cfg)
+        assert done == 4
+        return img, rays, [c.launches - b for c, b in zip(counters, before)]
+
+    captures = graphs.stage.captures
+    got = run(group=nccl_group)
+    assert graphs.stage.captures == captures + 1
+    cell_merge = alg == "vcm" and kw.get("merge_backend") != "xla"
+    assert got[2][2] == (4 if cell_merge else 0)
+    with graphs.eager():
+        eager = run(group=nccl_group)
+    single = run(merge_caps_frozen=True)
+    assert float(got[0].mean()) > 0.0
+    for other in (eager, single):
+        assert torch.equal(other[0], got[0]) and other[1:] == got[1:]
+
+
 def test_sweep_autograd_matches_plain(dev):
     """The kernel's autograd Function against the plain sweep's autograd,
     on the card: distances to rtol 1e-6, ray gradients to rtol 1e-5."""

@@ -35,14 +35,12 @@ import dataclasses
 import gc
 import weakref
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
-from smallvcm_tpu.core import rng as jrng
 from smallvcm_tpu_torch import graphs
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import eyelight, pathtracer, vcm
@@ -239,6 +237,12 @@ def test_render_through_traced_stages_equals_eager(scene, fx, monkeypatch):
 ])
 def test_tensor_iteration_rng_equals_int_and_jax(generator, iteration, stage,
                                                  bounce):
+    # JAX is imported here: tests/test_torch_sharded_graph.py's ranks
+    # import this module and need only the port.
+    import jax.numpy as jnp
+
+    from smallvcm_tpu.core import rng as jrng
+
     ids = np.random.default_rng(iteration % 97).integers(
         0, 2 ** 32, size=1024, dtype=np.uint64).astype(np.uint32)
     pid = torch.from_numpy(ids.astype(np.int64))
