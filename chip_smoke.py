@@ -47,8 +47,11 @@ Phases (each one raises on failure; nothing is caught):
     (pt, bpm); one forward+backward of pt and vcm at full size with time,
     peak memory and sweep launches; the sweep kernel's autograd Function
     against the plain sweep's autograd on 262,144 rays;
-12. ``--report -i 1 --resolution 64 64`` on the card: 28 BMPs and
-    index.html;
+12. ``--report -i 1 --resolution 64 64`` on the card, every combination
+    in this process: 28 BMPs and index.html, its time beside the
+    subprocess report; scene 0's seven BMPs byte for byte those of fresh
+    CLI processes with the same flags; device memory reserved after the
+    report at most one combination's peak above the level before it;
 13. sharding: two gloo ranks sharing cuda:0 (``multihost.spawn``, a
     file:// rendezvous) render VCM 512x512 with the all-gather and with
     the ring photon exchange and pt, 2 iterations each, against the
@@ -131,12 +134,18 @@ Phases (each one raises on failure; nothing is caught):
     and pt, bit for bit their gloo twins (stage by stage) and within rtol
     1e-4 / atol 1e-6 of the single process, with each rank's ms/iteration,
     then ``scripts/torch_scaling.py --ranks 1 2 4``; with one card it says
-    so and claims no scaling.
+    so and claims no scaling. Every group is joined under a deadline sized
+    from its cases and bounded by what is left of the script's time (as
+    is torch_scaling.py); a group that overruns has its ranks' stacks
+    dumped and their output raised, and each group logs how long its ranks
+    took to leave it.
 
-Phases 6-19 run on the graph path wherever it applies (every render of two
-or more iterations captures at its second); phase 3 records its call sites
-and profiles under ``graphs.eager()``, since a replay runs no Python. The
-merge caps are cached in a directory of this run alone.
+Every phase prints its time (``[time]``) and the script its total, which
+must stay inside the 1200 s its check allows. Phases 6-19 run on the
+graph path wherever it applies (every render of two or more iterations
+captures at its second); phase 3 records its call sites and profiles
+under ``graphs.eager()``, since a replay runs no Python. The merge caps
+are cached in a directory of this run alone.
 
 The last three lines are the card's name and power limit, a JSON object
 with per-kernel numbers (time, plain time, bound, launches per path) and
@@ -148,11 +157,14 @@ beside this script.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import gc
 import io
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -203,6 +215,19 @@ MERGE_OPS_CANDIDATE = 9
 MERGE_OPS_PASS = 71
 MERGE_QUERY_FIELDS = 25
 MERGE_PHOTON_FIELDS = 9
+
+
+# The script's own time limit (the card's check runs it under 1200 s):
+# spawned groups and subprocesses get what is left of it, less EXIT_MARGIN_S
+# for the lines after them.
+SCRIPT_LIMIT_S = 1200.0
+EXIT_MARGIN_S = 20.0
+_T0 = time.monotonic()
+
+
+def time_left() -> float:
+    """Seconds this script may still spend before its limit."""
+    return _T0 + SCRIPT_LIMIT_S - EXIT_MARGIN_S - time.monotonic()
 
 
 def log(*a):
@@ -1012,27 +1037,92 @@ def check_gradients(torch, dev):
     return steps
 
 
-def check_report(torch):
-    """Phase 12: --report -i 1 --resolution 64 64 on the card."""
-    from smallvcm_tpu_torch import cli
-    from smallvcm_tpu_torch.report import REPORT_JOBS
+REPORT_RES = 64
+# Phase 12 when the report ran one CLI subprocess a combination, four at a
+# time (NVIDIA H100 80GB HBM3, 700 W): the time to compare with.
+SUBPROCESS_REPORT_S = 198.4
 
-    torch.cuda.empty_cache()  # the report's subprocesses share the card
+
+def check_report(torch):
+    """Phase 12: --report -i 1 --resolution 64 64 in this process on the
+    card; scene 0's seven BMPs against fresh CLI processes'; device memory
+    reserved after the report against before it and one combination's
+    peak."""
+    from smallvcm_tpu_torch import cli
+    from smallvcm_tpu_torch.render import ALGORITHMS
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    # Each combination's peak reserved memory above the level it started
+    # from: the report empties the allocator's cache between combinations.
+    peaks = {}
+    render_one = cli.render_one
+
+    def measured(args, scene_id, alg, filename, device):
+        start = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out = render_one(args, scene_id, alg, filename, device)
+        peaks[filename] = torch.cuda.max_memory_reserved() - start
+        return out
+
+    flags = ["-i", "1", "--resolution", str(REPORT_RES), str(REPORT_RES),
+             "--device", "cuda"]
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         buf = io.StringIO()
-        with contextlib.chdir(tmp), contextlib.redirect_stdout(buf):
-            rc = cli.main(["--report", "-i", "1", "--resolution", "64", "64",
-                           "--device", "cuda"])
+        cli.render_one = measured
+        t0 = time.perf_counter()
+        try:
+            with contextlib.chdir(tmp), contextlib.redirect_stdout(buf):
+                rc = cli.main(["--report", *flags])
+        finally:
+            cli.render_one = render_one
         secs = time.perf_counter() - t0
+        after = torch.cuda.memory_reserved()
         bmps = sorted(p.name for p in Path(tmp).glob("*.bmp"))
         index = (Path(tmp) / "index.html").read_text()
-    if rc != 0 or len(bmps) != 28 or not all(b in index for b in bmps):
-        raise AssertionError(f"report: rc {rc}, {len(bmps)} BMPs\n"
-                             + buf.getvalue()[-2000:])
-    log(f"[report] 28 BMPs + index.html at 64x64 x1 on the card in "
-        f"{secs:.1f} s (one CLI subprocess per combination, "
-        f"{REPORT_JOBS} at a time)")
+        if rc != 0 or len(bmps) != 28 or len(peaks) != 28 \
+                or not all(b in index for b in bmps):
+            raise AssertionError(f"report: rc {rc}, {len(bmps)} BMPs\n"
+                                 + buf.getvalue()[-2000:])
+        log(f"[report] 28 BMPs + index.html at {REPORT_RES}x{REPORT_RES} x1 "
+            f"on the card in this process in {secs:.1f} s (one CLI "
+            f"subprocess a combination: {SUBPROCESS_REPORT_S} s)")
+        # Scene 0's seven combinations again, each in a fresh CLI process
+        # with the report's flags: the same bytes.
+        t1 = time.perf_counter()
+        names = {alg: cli.build_default_filename(SCENE_CONFIGS[0], alg)
+                 for alg in ALGORITHMS}
+        fresh = Path(tmp, "fresh")
+        fresh.mkdir()
+        procs = {alg: subprocess.Popen(
+            [sys.executable, "-m", "smallvcm_tpu_torch.cli", "-s", "0",
+             "-a", alg, "-o", str(fresh / name), *flags], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for alg, name in names.items()}
+        for alg, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"report: fresh cli -a {alg}: rc "
+                                     f"{proc.returncode}\n{err[-2000:]}")
+        differ = [alg for alg, name in names.items()
+                  if Path(tmp, name).read_bytes()
+                  != (fresh / name).read_bytes()]
+        if differ:
+            raise AssertionError(f"report: scene 0 BMP bytes differ from a "
+                                 f"fresh CLI process's for {differ}")
+    one = max(peaks.values())
+    mib = lambda n: f"{n / 2 ** 20:.1f} MiB"
+    if after - before > one:
+        raise AssertionError(f"report: {mib(after)} reserved after it, "
+                             f"{mib(before)} before, more than one "
+                             f"combination's peak {mib(one)} apart")
+    log(f"[report] scene 0's 7 BMPs byte for byte those of fresh CLI "
+        f"processes (7 at once, {time.perf_counter() - t1:.1f} s); device "
+        f"memory reserved {mib(before)} before the report, {mib(after)} "
+        f"after it; one combination's peak at most {mib(one)} (the largest "
+        f"{max(peaks, key=peaks.get)})")
 
 
 def _timed_ms(torch, fn, reps: int = 5) -> float:
@@ -2141,29 +2231,96 @@ def _group_entry(rank: int, world: int, backend: str, init: str,
 
     from smallvcm_tpu_torch.parallel import multihost
 
+    # Everything the rank prints, NCCL's own lines included, goes to its
+    # log; SIGUSR1 dumps its Python stacks there (spawn_group on overrun).
+    logf = open(Path(out_dir) / f"rank{rank}.log", "w")
+    os.dup2(logf.fileno(), 1)
+    os.dup2(logf.fileno(), 2)
+    faulthandler.register(signal.SIGUSR1, file=logf, all_threads=True)
+    t0 = time.perf_counter()
+    say = lambda msg: print(f"[rank {rank} +{time.perf_counter() - t0:.2f} "
+                            f"s] {msg}", flush=True)
     torch.cuda.set_device(rank)
     dist.init_process_group(backend, init_method=init, rank=rank,
                             world_size=world)
+    say(f"joined a {backend} group of {world}")
     try:
         torch.save(fn(*args), Path(out_dir) / f"result{rank}.pt")
+        say("results saved")
     finally:
         multihost.shutdown()
+        say("left the group")
 
 
-def spawn_group(world: int, backend: str, fn, *args) -> list:
+# A group's deadline (seconds): start-up and teardown, then for each case
+# a fixed share (the first iterations: caps, the library's load, the
+# capture) and, for each of its renders (cold and warm, and the eager one
+# with ``detail``), a time an iteration about 10x the graphs' (the gloo
+# twins run stage by stage).
+GROUP_START_S = 90.0
+GROUP_CASE_S = 30.0
+GROUP_ITER_S = {"vcm": 1.0, "pt": 0.3}
+
+
+def group_deadline(cases, detail: bool) -> float:
+    renders = 3 if detail else 2
+    return GROUP_START_S + sum(
+        GROUP_CASE_S + renders * iters * GROUP_ITER_S[alg]
+        for _, alg, iters, _ in cases) + (
+        GROUP_CASE_S + 2 * BLOCK_ITERS * GROUP_ITER_S["vcm"] if detail else 0)
+
+
+def spawn_group(world: int, backend: str, fn, *args,
+                deadline_s: float) -> list:
     """``fn(*args)`` in ``world`` new processes, rank r on cuda:r, joined in
     one ``backend`` group through a file:// store (one rank too:
     ``multihost.initialize`` makes no group for a single process) -> the
     ranks' results in rank order. No process of this script but these
-    ever holds a group."""
+    ever holds a group.
+
+    The ranks must all have left within ``deadline_s`` (and what is left
+    of the script's time): otherwise their Python stacks are dumped to
+    their logs, they are killed, and the error names the ranks still
+    running with what each had printed. A rank that raises stops the
+    others and its error is raised here."""
     import torch
     import torch.multiprocessing as mp
 
+    deadline_s = min(deadline_s, time_left())
     with tempfile.TemporaryDirectory(prefix="svcm_group_") as tmp:
         init = Path(tmp, "rendezvous").as_uri()
-        mp.start_processes(_group_entry,
-                           args=(world, backend, init, tmp, fn, args),
-                           nprocs=world, join=True, start_method="spawn")
+        ctx = mp.start_processes(_group_entry,
+                                 args=(world, backend, init, tmp, fn, args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        end = time.monotonic() + deadline_s
+        while not ctx.join(timeout=max(0.0, min(5.0, end - time.monotonic()))):
+            if time.monotonic() < end:
+                continue
+            stuck = [r for r, proc in enumerate(ctx.processes)
+                     if proc.is_alive()]
+            for r in stuck:
+                os.kill(ctx.processes[r].pid, signal.SIGUSR1)
+            time.sleep(2.0)
+            for proc in ctx.processes:
+                proc.kill()
+                proc.join()
+            logs = "\n".join(
+                f"--- rank {r} ---\n"
+                + Path(tmp, f"rank{r}.log").read_text(errors="replace")[-6000:]
+                for r in range(world) if Path(tmp, f"rank{r}.log").exists())
+            raise TimeoutError(
+                f"{backend} group of {world}: ranks {stuck} still running "
+                f"after {deadline_s:.0f} s; what each rank printed:\n{logs}")
+        # How long each rank took to leave its group (its shutdown).
+        left = []
+        for r in range(world):
+            stamps = {what: float(t) for t, what in re.findall(
+                r"\+([0-9.]+) s\] (results saved|left)",
+                Path(tmp, f"rank{r}.log").read_text())}
+            left.append(round(stamps["left"] - stamps["results saved"], 2))
+        log(f"[group] {backend} x {world}: each rank left its group "
+            f"{left} s after saving its results")
         return [torch.load(Path(tmp) / f"result{r}.pt", weights_only=False)
                 for r in range(world)]
 
@@ -2260,7 +2417,8 @@ def check_sharded_graphs(torch, dev) -> dict:
     scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0], device=dev)
     torch.cuda.empty_cache()       # the rank shares cuda:0 with this process
     (one,) = spawn_group(1, "nccl", _sharded_graph_rank, SHARDED_ONE_CASES,
-                         True)
+                         True, deadline_s=group_deadline(SHARDED_ONE_CASES,
+                                                         True))
     slog(f"one-rank NCCL group on cuda:0 spawned and rendered in "
          f"{time.perf_counter() - t_phase:.1f} s")
     for name, alg, iters, kw in SHARDED_ONE_CASES:
@@ -2348,9 +2506,14 @@ def check_sharded_multi(torch, scene, slog) -> dict:
     for w in (2, 4):
         if w > cards:
             continue
-        runs = {b: spawn_group(w, b, _sharded_graph_rank,
-                               SHARDED_MULTI_CASES, False)
-                for b in ("nccl", "gloo")}
+        runs = {}
+        for b in ("nccl", "gloo"):
+            t0 = time.perf_counter()
+            runs[b] = spawn_group(
+                w, b, _sharded_graph_rank, SHARDED_MULTI_CASES, False,
+                deadline_s=group_deadline(SHARDED_MULTI_CASES, False))
+            slog(f"{w} {b} ranks spawned, rendered and left their group in "
+                 f"{time.perf_counter() - t0:.1f} s")
         for name, alg, iters, kw in SHARDED_MULTI_CASES:
             caps = runs["nccl"][0][name]["caps"]
             single = _single_render(torch, scene, alg, iters, caps, **kw)
@@ -2395,13 +2558,29 @@ def check_sharded_multi(torch, scene, slog) -> dict:
     return launches
 
 
+def run_bounded(cmd, timeout: float) -> subprocess.CompletedProcess:
+    """``cmd`` in a session of its own, its stdout and stderr captured; on
+    overrun the whole session (the ranks it spawned too) is killed and
+    ``subprocess.TimeoutExpired`` raised."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
 def check_scaling(slog) -> None:
     """``scripts/torch_scaling.py --ranks 1 2 4`` (the rank counts the
-    visible cards allow): VCM 512x512 in blocks of 8, both exchanges."""
-    proc = subprocess.run(
+    visible cards allow): VCM 512x512 in blocks of 8, both exchanges,
+    within what is left of the script's time."""
+    proc = run_bounded(
         [sys.executable, str(ROOT / "scripts" / "torch_scaling.py"),
-         "--ranks", "1", "2", "4"], cwd=ROOT, capture_output=True,
-        text=True, timeout=900)
+         "--ranks", "1", "2", "4"], timeout=time_left())
     log("\n".join("  | " + line for line in proc.stdout.splitlines()))
     if proc.returncode != 0:
         raise AssertionError(f"torch_scaling: {proc.stderr[-2000:]}")
@@ -2489,6 +2668,8 @@ def main() -> int:
     phase_done("phase 18 (pair merge at caps)")
     sharded_graphs = check_sharded_graphs(torch, dev)
     phase_done("phase 19 (sharded graphs)")
+    log(f"[time] total: {time.monotonic() - _T0:.1f} s (limit "
+        f"{SCRIPT_LIMIT_S:.0f} s)")
 
     by_path = lambda name: {
         "vcm": launches[name],

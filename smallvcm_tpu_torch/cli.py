@@ -177,9 +177,30 @@ def main(argv=None) -> int:
 
 def _render_main(args, device, group) -> int:
     """Render, and on the coordinator report and save the image."""
-    say = print if multihost.is_coordinator() else (lambda *a, **k: None)
+    say = print if multihost.is_coordinator() else None
     algorithm = args.algorithm or "vcm"
-    scene_config = SCENE_CONFIGS[args.scene_id]
+    output = args.output_name or build_default_filename(
+        SCENE_CONFIGS[args.scene_id], algorithm)
+    if not (output.endswith(".bmp") or output.endswith(".hdr")):
+        output += ".bmp"
+    render_one(args, args.scene_id, algorithm, output, device, group,
+               checkpoint=args.checkpoint, verbose=args.verbose, say=say)
+    return 0
+
+
+def render_one(args, scene_id: int, algorithm: str, output: str, device,
+               group=None, checkpoint: str = "", verbose: bool = False,
+               say=None):
+    """Render one (scene, algorithm) with the settings of the parsed
+    ``args`` (resolution, -i/-t, seed, path lengths, radius, generator,
+    backends, block) on ``device``, and on the coordinator save it to
+    ``output`` -> (elapsed seconds, iterations).
+
+    ``checkpoint`` resumes from and saves to that file; ``say`` prints the
+    CLI's progress lines (None: nothing is printed). The CLI and the
+    report (report.py, one call a combination) both render through it."""
+    say = say or (lambda *a, **k: None)
+    scene_config = SCENE_CONFIGS[scene_id]
     scene = load_cornell_box(tuple(args.resolution), scene_config, device)
     scene_name, _ = get_scene_name(scene_config)
     cfg = RenderConfig(
@@ -199,11 +220,6 @@ def _render_main(args, device, group) -> int:
         group=group,
     )
 
-    output = args.output_name or build_default_filename(scene_config,
-                                                        algorithm)
-    if not (output.endswith(".bmp") or output.endswith(".hdr")):
-        output += ".bmp"
-
     say(f"Scene:   {scene_name}")
     say(f"Device:  {device}" + (
         "" if group is None else
@@ -217,22 +233,22 @@ def _render_main(args, device, group) -> int:
         say("Switching from PPM to BPM (scene mixes specular and "
             "non-specular materials)")
     say(f"Running: {ALGORITHM_NAMES[algorithm]}...",
-        end="\n" if args.verbose else " ", flush=True)
-    if args.checkpoint:
+        end="\n" if verbose else " ", flush=True)
+    if checkpoint:
         from .checkpoint import render_resumable
 
         img, elapsed, iters, rays = render_resumable(
-            scene, cfg, checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every, verbose=args.verbose,
+            scene, cfg, checkpoint_path=checkpoint,
+            checkpoint_every=args.checkpoint_every, verbose=verbose,
         )
     else:
-        img, elapsed, iters, rays = render(scene, cfg, verbose=args.verbose)
+        img, elapsed, iters, rays = render(scene, cfg, verbose=verbose)
     say(f"done in {elapsed:.2f} s ({iters} iterations, {rays} rays)")
 
     if multihost.is_coordinator():
         save_image(img, output)
     say(f"Saved:   {output}")
-    return 0
+    return elapsed, iters
 
 
 if __name__ == "__main__":

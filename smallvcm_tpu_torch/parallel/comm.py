@@ -5,8 +5,12 @@ inside ``shard_map`` (smallvcm_tpu/algorithms/vcm.py:1107-1118, 1344-1391)
 and of their transpose rules, over a ``torch.distributed`` process group
 whose ranks own contiguous path shards (parallel/sharding.py):
 
-* :func:`framebuffer_sum`: all-reduce (sum) forward, **identity** backward.
-  Every rank computes the same replicated loss from the summed image, so a
+* :func:`framebuffer_sum`: every rank's image gathered and summed in rank
+  order forward, **identity** backward. An all-reduce's order is the
+  backend's: from three ranks on, NCCL's and gloo's sums of the same
+  images differ in the last bit (four H100s), so the images are gathered
+  and added left to right, the same bits on every backend. Every rank
+  computes the same replicated loss from the summed image, so a
   rank's upstream gradient is already the full one; all-reducing it too
   (as ``torch.distributed.nn.functional.all_reduce`` does) would give W
   times the gradient. The ranks' partial parameter gradients are summed
@@ -24,7 +28,7 @@ under gloo every exchange here stages a card's tensor through host memory
 explicitly (:func:`_staged`); the kernels still run on the rank's card.
 
 On NCCL every forward here can be captured into a CUDA graph
-(:func:`capturable`): the all-gather writes into one preallocated
+(:func:`capturable`): the all-gathers write into one preallocated
 ``[W, ...]`` tensor, the all-reduce into a clone, the ring's shift into an
 empty buffer, and nothing passes through the host. The sharded iteration
 therefore runs as one graph with its collectives inside
@@ -107,7 +111,12 @@ def broadcast_flag(value: bool, group=None) -> bool:
 class _FramebufferSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return all_reduce_sum(x, group)
+        # ((x_0 + x_1) + x_2) + ...: the same bits on every backend.
+        parts = _gather_stack(x, group)
+        out = parts[0].clone()
+        for k in range(1, parts.shape[0]):
+            out = out + parts[k]
+        return out
 
     @staticmethod
     def backward(ctx, grad):

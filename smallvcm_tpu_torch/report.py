@@ -5,80 +5,42 @@ renders every combination, saves gamma-2.2 BMPs with the reference's
 default filenames, and emits the thumbnail matrix with the good/poor
 border colours and the 4-way PPM/BPM/BPT/VCM split per scene.
 
-Every combination renders in its own subprocess through the port's CLI, on
-the ``--device`` the report was given; with ``-i`` up to ``REPORT_JOBS`` of
-them at once, with ``-t`` one at a time. Results (elapsed/iterations)
-persist in ``report_state.json`` and ``index.html`` is rewritten after
-every combination, so a killed run resumes where it left off and always
-leaves a viewable report behind. A combination that fails is reported and
-the run exits non-zero at the end; it is never retried with another
-backend, which would hide a kernel failure.
+Every combination renders in this process, one after another, through the
+CLI's render (``cli.render_one``) on the ``--device`` the report was given,
+with the report's flags; ``--devices``, ``--isolate`` and ``--checkpoint``
+are ignored, as the JAX package's report ignores them. Each combination
+has the device to itself: the previous one's scene, image and CUDA graphs
+are released (the graphs through their finalizers, graphs.py) and the
+allocator's cache emptied before the next starts, so ``-t`` budgets compare
+like with like. Results (elapsed/iterations) persist in
+``report_state.json`` and ``index.html`` is rewritten after every
+combination, so a killed run resumes where it left off and always leaves a
+viewable report behind. A combination that raises is reported and the
+others still render; the run exits non-zero at the end. It is never
+retried, nor rendered on another backend or the CPU, which would hide a
+kernel failure. A CUDA fault that poisons the context fails every
+combination after it as well: the state file keeps what finished, and a
+re-run in a fresh process resumes from there.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
-import re
-import subprocess
-import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
+from . import cli
+from .device import resolve_device
 from .io.html import (GOOD_ALGORITHMS, GREEN, NONE, POOR_ALGORITHMS, RED,
                       HtmlWriter)
 from .render import ALGORITHM_NAMES, ALGORITHMS
 from .scene.scene import SCENE_CONFIGS, get_scene_name
 
-# The CLI's "done in 1.23 s (4 iterations, 5678 rays)" line.
-_DONE_RE = re.compile(r"done in ([0-9.]+) s \((\d+) iterations?[,)]")
-
 STATE_FILE = "report_state.json"
-
-# Combinations rendered at once when the budget is an iteration count.
-REPORT_JOBS = 4
-
-
-def _render_combo(scene_id: int, alg: str, filename: str, args):
-    """Render one (scene, algorithm) via the CLI in a subprocess.
-
-    Returns (elapsed_seconds, iterations); raises RuntimeError when the
-    subprocess fails or writes no image."""
-    # The report typically runs with cwd set to the OUTPUT directory;
-    # make the package importable in the child regardless.
-    env = dict(os.environ)
-    pkg_root = str(Path(__file__).resolve().parent.parent)
-    env["PYTHONPATH"] = (
-        pkg_root + os.pathsep + env["PYTHONPATH"]
-        if env.get("PYTHONPATH") else pkg_root
-    )
-    cmd = [
-        sys.executable, "-m", "smallvcm_tpu_torch.cli",
-        "-s", str(scene_id), "-a", alg, "-o", filename,
-        "--resolution", str(args.resolution[0]), str(args.resolution[1]),
-        "--seed", str(args.seed),
-        "--max-path-length", str(args.max_path_length),
-        "--min-path-length", str(args.min_path_length),
-        "--radius-factor", str(args.radius_factor),
-        "--radius-alpha", str(args.radius_alpha),
-        "--device", args.device,
-        # One process per combination: the report runs several at once.
-        "--devices", "1",
-    ]
-    if args.max_time > 0:
-        cmd += ["-t", str(args.max_time)]
-    else:
-        cmd += ["-i", str(args.iterations)]
-
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env)
-    m = _DONE_RE.search(proc.stdout or "")
-    if proc.returncode == 0 and m and os.path.exists(filename):
-        return float(m.group(1)), int(m.group(2))
-    raise RuntimeError(
-        f"report combo scene {scene_id} alg {alg} failed "
-        f"(rc={proc.returncode}): {(proc.stderr or '').strip()[-400:]}"
-    )
 
 
 def _effective_settings(args) -> dict:
@@ -95,6 +57,9 @@ def _effective_settings(args) -> dict:
         "min_path_length": args.min_path_length,
         "radius_factor": args.radius_factor,
         "radius_alpha": args.radius_alpha,
+        "rng_kind": args.rng_kind,
+        "merge_backend": args.merge_backend,
+        "trace_backend": args.trace_backend,
         "device": args.device,
     }
 
@@ -112,8 +77,6 @@ def _save_state(state: dict) -> None:
 
 def _write_html(results: dict, args) -> None:
     """(Re)build index.html from every completed combination so far."""
-    from .cli import build_default_filename
-
     html = HtmlWriter("index.html")
     split_acronyms = ["PPM", "BPM", "BPT", "VCM"]
     resolution = tuple(args.resolution)
@@ -124,7 +87,7 @@ def _write_html(results: dict, args) -> None:
         split_files = ["", "", "", ""]
         split_borders = [NONE] * 4
         for alg in ALGORITHMS:
-            filename = build_default_filename(scene_config, alg)
+            filename = cli.build_default_filename(scene_config, alg)
             rec = results.get(filename)
             if rec is None:
                 continue
@@ -147,43 +110,44 @@ def _write_html(results: dict, args) -> None:
     html.close()
 
 
-def full_report(args) -> None:
-    from .cli import build_default_filename
+def _release(device: torch.device) -> None:
+    """Free what the last combination left: its scene, image and graphs
+    (their finalizers run once the scene's tensors die), and the device
+    memory the allocator kept cached for them."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
 
+
+def full_report(args) -> None:
     state = _load_state()
     start = time.time()
     settings = _effective_settings(args)
-    combos = [(scene_id, alg, build_default_filename(config, alg))
-              for scene_id, config in enumerate(SCENE_CONFIGS)
-              for alg in ALGORITHMS]
-    todo = [c for c in combos
-            if not (c[2] in state and os.path.exists(c[2])
-                    and state[c[2]].get("settings") == settings)]
-    # Each subprocess spends most of its life importing torch and loading
-    # CUDA modules, not rendering. With an iteration count the images do
-    # not depend on what else runs, so REPORT_JOBS combinations run at
-    # once; under a time budget (-t) each has the device to itself, as
-    # the reference's equal-time comparison needs.
+    device = resolve_device(args.device)
     failed = []
-    with ThreadPoolExecutor(1 if args.max_time > 0 else REPORT_JOBS) as pool:
-        running = {c: pool.submit(_render_combo, *c, args) for c in todo}
-        for scene_id, alg, filename in combos:
-            if alg == ALGORITHMS[0]:
-                print(f"Scene: {get_scene_name(SCENE_CONFIGS[scene_id])[0]}")
-            if (scene_id, alg, filename) not in running:
+    for scene_id, config in enumerate(SCENE_CONFIGS):
+        print(f"Scene: {get_scene_name(config)[0]}")
+        for alg in ALGORITHMS:
+            filename = cli.build_default_filename(config, alg)
+            rec = state.get(filename)
+            if rec is not None and os.path.exists(filename) \
+                    and rec.get("settings") == settings:
                 print(f"Running {ALGORITHM_NAMES[alg]}... "
-                      f"already done ({state[filename]['elapsed']:.2f} s)",
-                      flush=True)
+                      f"already done ({rec['elapsed']:.2f} s)", flush=True)
                 continue
             print(f"Running {ALGORITHM_NAMES[alg]}... ", end="", flush=True)
             try:
-                elapsed, iters = running[scene_id, alg, filename].result()
-            except RuntimeError as e:
+                elapsed, iters = cli.render_one(args, scene_id, alg,
+                                                filename, device)
+            except Exception as e:
                 # Keep going: every other combo still renders and the HTML
-                # stays viewable; a re-run retries only the failures.
-                print(f"FAILED ({e})", flush=True)
+                # stays viewable; a re-run renders only the failures.
+                print(f"FAILED ({type(e).__name__}: {e})", flush=True)
                 failed.append(filename)
                 continue
+            finally:
+                _release(device)
             print(f"done in {elapsed:.2f} s")
             state[filename] = {"elapsed": elapsed, "iters": iters,
                                "scene": scene_id, "alg": alg,

@@ -380,7 +380,9 @@ def test_pair_merge_on_card_matches_cpu_and_cell_kernel(dev, span_radii):
     to = lambda v: vcm.StoredVertices(*(
         V3(*(c.to(dev) for c in f)) if isinstance(f, V3) else f.to(dev)
         for f in v))
-    caps = (8 * n, 1024 * n, False, 7, 0, 5 * n, 4 * n, n)
+    # The dense case (6 radii) has 1,329,797 candidate pairs: a pair cap of
+    # 2048 rows a path holds them, so nothing overflows on either device.
+    caps = (8 * n, 2048 * n, False, 7, 0, 5 * n, 4 * n, n)
     want, w_ovf, w_stats = vcm.merge_stage(scene, misc, q, lv, *caps)
     assert float(want.x.abs().sum()) > 0.0 and int(w_ovf) == 0
     scene_d = scene.to(dev)
