@@ -13,9 +13,11 @@ Phases (each one raises on failure; nothing is caught):
    closest-hit entry on 262,144 random rays in scene 0 (time, bound and
    the issue ceiling without FMA); then one 512x512 scene-0 VCM iteration
    with every intersect and occluded call recorded: the closest-hit entry
-   on every bounce and the any-hit entry on every shadow-ray call, with
-   rays, active fraction and kernel ms per call site, a 2,097,152-ray
-   connection-sized launch, and the sweeps' device ms and the kernel
+   on every bounce and the any-hit entry on every shadow-ray call (also
+   in CUDA graph replays with each call's masks and points), with rays,
+   active fraction, kernel ms and bound per call site, the 2,097,152-ray
+   connection launch as recorded, with one live lane and with every lane
+   active, and the sweeps' device ms and the kernel
    launches of one iteration from torch.profiler (the iteration as one
    graph, and eagerly);
 4. the merge kernel against its plain version on every row of the merge
@@ -459,14 +461,55 @@ def occlusion_work(torch, S, scene, p, d, dist, active):
     return n_bytes, n_ops
 
 
+def check_occlusion_replays(torch, S, scene, shapes) -> int:
+    """The any-hit kernel in CUDA graph replays: for each (lanes, points)
+    shape of the iteration's calls, one graph captured on copies of its
+    first call's operands, then replayed with every call of that shape
+    copied in, the first last, each replay's answer held against
+    occluded_plain bit for bit -> replays."""
+    from smallvcm_tpu_torch.core.vec3 import V3
+
+    replays = 0
+    for group in shapes.values():
+        first = group[0]
+        static = (V3(*(a.clone() for a in first[0])),
+                  V3(*(a.clone() for a in first[1])), first[2].clone(),
+                  first[3].clone())
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            S.occluded_kernel(scene, *static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = S.occluded_kernel(scene, *static)
+        dst = (*static[0], *static[1], static[2], static[3])
+        for p, d, dist, active in group[1:] + group[:1]:
+            for a, b in zip(dst, (*p, *d, dist, active)):
+                a.copy_(b)
+            graph.replay()
+            want = S.occluded_plain(scene, p, d, dist, active)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"occlusion in a graph replay ({dist.numel()} lanes): "
+                    f"{int((out != want).sum())} lanes differ from "
+                    "occluded_plain")
+            replays += 1
+        del graph
+    return replays
+
+
 def check_occlusion(torch, dev):
     """Phase 3, real rays: record one 512x512 scene-0 VCM iteration's
     intersect and occluded calls; hold the closest-hit kernel against
     sweep_plain on every bounce and the any-hit kernel against
-    occluded_plain on every shadow-ray call, bit for bit; time both per
-    call site; time a 2,097,152-ray connection-sized launch; profile the
-    sweeps' device time and the launches of one iteration, with its trace
-    stages as graphs and eagerly."""
+    occluded_plain on every shadow-ray call, bit for bit, eagerly and in
+    graph replays with each call's masks and points; time both per call
+    site, the any-hit one beside its bound; time the 2,097,152-ray
+    connection launch as recorded, with one live lane and with every lane
+    active; profile the sweeps' device time and the launches of one
+    iteration, with its trace stages as graphs and eagerly."""
     from smallvcm_tpu_torch import graphs
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.core.vec3 import V3
@@ -486,7 +529,7 @@ def check_occlusion(torch, dev):
     n_hit = sum(c[1][0].x.numel() for c in calls["intersect"])
 
     sites, tot = {}, dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
-    biggest = None
+    biggest, shapes = None, {}
     for site, args in calls["occluded"]:
         _, p, d, dist, active = S.occlusion_operands(*args)
         got = S.occluded_kernel(scene, p, d, dist, active)
@@ -504,40 +547,49 @@ def check_occlusion(torch, dev):
             scene, p, d, dist, active), 1)
         n_bytes, n_ops = occlusion_work(torch, S, scene, p, d, dist, active)
         r = sites.setdefault(site, dict(calls=0, rays=0, active=0, ms=0.0,
-                                        closest_hit_ms=0.0))
-        r["calls"] += 1
-        r["rays"] += dist.numel()
-        r["active"] += int(active.sum())
-        r["ms"] += ms
-        r["closest_hit_ms"] += hit
+                                        closest_hit_ms=0.0, bytes=0, ops=0))
+        for key, v in (("calls", 1), ("rays", dist.numel()),
+                       ("active", int(active.sum())), ("ms", ms),
+                       ("closest_hit_ms", hit), ("bytes", n_bytes),
+                       ("ops", n_ops)):
+            r[key] += v
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bytes"] += n_bytes
         tot["ops"] += n_ops
+        shapes.setdefault((dist.numel(), p.x.numel()), []).append(
+            (p, d, dist, active))
         if biggest is None or dist.numel() > biggest[2].numel():
             biggest = (p, d, dist, active, org)
     for site, r in sites.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
         log(f"[occlusion] {site}: {r['calls']} calls, {r['rays']} rays, "
             f"active {r['active'] / r['rays']:.3f}; any-hit kernel "
-            f"{r['ms']:.4f} ms, closest-hit kernel on the same rays "
-            f"{r['closest_hit_ms']:.4f} ms")
+            f"{r['ms']:.4f} ms, bound {1e3 * r['bound_ms']:.2f} us by "
+            f"{r['bound_by']}, kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it; closest-hit "
+            f"kernel on the same rays {r['closest_hit_ms']:.4f} ms")
+    n_replays = check_occlusion_replays(torch, S, scene, shapes)
 
     p, d, dist, active, org = biggest
+    one = torch.zeros_like(active)
+    one[int(active.nonzero()[0, 0])] = True
     every = torch.ones_like(active)
-    big = dict(
-        masked=time_cuda(torch, lambda: S.occluded_kernel(
-            scene, p, d, dist, active), 20),
-        all_active=time_cuda(torch, lambda: S.occluded_kernel(
-            scene, p, d, dist, every), 20),
-        closest_hit=time_cuda(torch, lambda: S.sweep_kernel(scene, org, d),
-                              20))
+    big = {name: time_cuda(torch, lambda: S.occluded_kernel(
+        scene, p, d, dist, mask), 20)
+        for name, mask in (("masked", active), ("one_lane", one),
+                           ("all_active", every))}
+    big["closest_hit"] = time_cuda(torch, lambda: S.sweep_kernel(
+        scene, org, d), 20)
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
     log(f"[occlusion] {dist.numel()} connection rays in one launch (active "
         f"{float(active.float().mean()):.3f}): any-hit {big['masked']:.4f} "
-        f"ms, every lane active {big['all_active']:.4f} ms, closest hit "
+        f"ms, one live lane {big['one_lane']:.4f} ms, every lane active "
+        f"{big['all_active']:.4f} ms, closest hit "
         f"{big['closest_hit']:.4f} ms")
     log(f"[occlusion] {len(calls['occluded'])} calls of one iteration, every "
-        f"lane equal to occluded_plain: kernel {tot['ms']:.4f} ms, plain "
+        f"lane equal to occluded_plain, eagerly and in {n_replays} graph "
+        f"replays: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.3f} ms; bound {1e3 * b_ms:.2f} us by {b_by} "
         f"({tot['bytes']} B, {tot['ops']} ops), kernel at "
         f"{100 * b_ms / tot['ms']:.1f}% of it; closest hit on the "
@@ -557,7 +609,7 @@ def check_occlusion(torch, dev):
     return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 per_site=sites, connection_launch_ms=big,
-                closest_hit_bounce_ms=hit_ms,
+                graph_replays=n_replays, closest_hit_bounce_ms=hit_ms,
                 sweep_device_ms_per_iteration=sum(sweeps.values()),
                 launches_per_iteration=launches,
                 eager_launches_per_iteration=eager_launches)

@@ -11,9 +11,11 @@ the ptxas lines of its build and:
 
 - the closest-hit kernel's ms on 262,144 and on 2,097,152 random rays;
 - one 512x512 scene-0 VCM iteration with every ``intersect`` and
-  ``occluded`` call recorded: per call site, the rays and the ms of the
-  checkout's own ``occluded`` call (whatever it launches); the closest-hit
-  kernel's ms summed over the iteration's bounces;
+  ``occluded`` call recorded: per call site, the calls, rays, active
+  share, kernel launches and the ms of the checkout's own ``occluded``
+  call (whatever it launches); the largest call's ms as recorded, with one
+  live lane and with every lane active; the closest-hit kernel's ms summed
+  over the iteration's bounces;
 - from torch.profiler over one warm VCM iteration: the sweep kernels'
   device ms and the kernel launches;
 - unless ``--quick``: VCM (8 iterations), pt (8) and bpt (2) at 512x512
@@ -86,17 +88,36 @@ def child(root: Path, quick: bool) -> int:
         out[f"closest_hit_random_{n}_ms"] = ab.time_cuda(
             torch, lambda: hit(org, dirn), 50)
     cfg = R.RenderConfig(algorithm="vcm", iterations=1, resolution=(res, res))
+    # Size the merge caps first: a measuring iteration's calls are not the
+    # iteration's.
+    R._ensure_merge_caps(scene, cfg, "vcm")
     calls = ab.record_iteration(torch, scene, cfg)
     out["closest_hit_bounce_ms"] = sum(
         ab.time_cuda(torch, lambda: hit(*args), 20)
         for _, args in calls["intersect"])
-    sites = {}
+    sites, biggest = {}, None
     for site, args in calls["occluded"]:
-        r = sites.setdefault(site, dict(calls=0, rays=0, ms=0.0))
+        r = sites.setdefault(site, dict(calls=0, rays=0, active=0, ms=0.0,
+                                        launches=0))
+        before = S.occluded_kernel.launches
+        I.occluded(scene, *args)
+        r["launches"] += S.occluded_kernel.launches - before
+        shape, _, _, _, active = S.occlusion_operands(*args)
         r["calls"] += 1
-        r["rays"] += args[2].numel()
+        r["rays"] += active.numel()
+        r["active"] += int(active.sum())
         r["ms"] += ab.time_cuda(torch, lambda: I.occluded(scene, *args), 20)
+        if biggest is None or active.numel() > biggest[3].numel():
+            biggest = (*args[:3], active.reshape(shape))
     out["occluded_call_ms"] = sites
+    point, dirn, dist, active = biggest
+    one = torch.zeros_like(active)
+    one.view(-1)[int(active.reshape(-1).nonzero()[0, 0])] = True
+    out["connection_call"] = dict(rays=active.numel(), active=int(
+        active.sum()), **{name: ab.time_cuda(torch, lambda: I.occluded(
+            scene, point, dirn, dist, mask), 20) for name, mask in (
+            ("masked_ms", active), ("one_lane_ms", one),
+            ("all_active_ms", torch.ones_like(active)))})
     by_name, launches, device_ms = ab.profile_iteration(torch, scene, cfg)
     out["sweep_kernels_device_ms"] = {
         k: v for k, v in by_name.items() if "sweep_kernel" in k}
@@ -149,14 +170,24 @@ def main(roots) -> int:
         same = {alg: res["renders"][alg]["sha256"] == first[alg]["sha256"]
                 for alg in res["renders"]}
         failed += not all(same.values())
+        sites, conn = res["occluded_call_ms"], res["connection_call"]
         print(f"[run {i}] closest hit "
               + ", ".join(f"{v:.4f} ms ({k.split('_')[3]} random rays)"
                           for k, v in res.items()
                           if k.startswith("closest_hit_random"))
               + f", {res['closest_hit_bounce_ms']:.4f} ms (one iteration's "
               f"bounces); occluded calls "
-              + ", ".join(f"{k} {v['ms']:.4f} ms / {v['rays']} rays"
+              + ", ".join(f"{k} {v['ms']:.4f} ms / {v['calls']} calls, "
+                          f"{v['rays']} rays, active "
+                          f"{v['active'] / v['rays']:.3f}, "
+                          f"{v['launches']} launches"
                           for k, v in res["occluded_call_ms"].items())
+              + f" (all {sum(v['ms'] for v in sites.values()):.4f} ms); "
+              f"the {conn['rays']}-ray call: masked (active "
+              f"{conn['active'] / conn['rays']:.3f}) "
+              f"{conn['masked_ms']:.4f} ms, one live lane "
+              f"{conn['one_lane_ms']:.4f} ms, every lane "
+              f"{conn['all_active_ms']:.4f} ms"
               + f"; sweep device {res['sweep_device_ms_per_iteration']:.4f} "
               f"ms/iteration, {res['launches_per_iteration']} launches, "
               f"device {res['device_ms_per_iteration']:.2f} ms; "

@@ -34,11 +34,27 @@
 //   bit for bit those of the branch-free form.
 // - Shadow rays take the any-hit entry: origin offset and tmax are formed
 //   in the kernel (one IEEE op each, as the torch ops round), a ray stops
-//   at its first primitive with 0 < t < tmax, and inactive lanes write
-//   false without testing anything. The block first compacts its active
-//   lanes (warp ballots and a prefix count in shared memory), so only
-//   ceil(active / 32) warps of a block do the work. The shadow-ray origin
-//   may be broadcast: point i of the sweep is point[i % n_point].
+//   at its first primitive with 0 < t < tmax, and inactive lanes are
+//   answered false without testing anything. The shadow-ray origin may be
+//   broadcast: point i of the sweep is point[i % n_point].
+//
+// The any-hit entry's calls are masked: 4-17% of a call's lanes are live
+// on the main path. What bounds a call there is its live rays' arithmetic
+// (~60 IEEE f32 operations a triangle, as above) in too few warps to fill
+// the card, plus a fixed cost of ~3 us a call (launch, mask read, zero
+// answers, two block barriers: a 262,144-lane call with no live lane).
+// A block that compacted only its own 256 lanes ran ~10 live rays in one
+// part-empty warp at 4% active, so a call's time followed its lanes. So a
+// block takes a window of 256 x V lanes, V = 1, 2 or 4 chosen by the host
+// from the lanes and the SM count (ops/sweep.py::occluded_plan: the
+// widest window that leaves 3 blocks an SM): one V-byte load of the mask
+// and one V-byte store of zero answers a thread, a prefix count over the
+// block, a list of the live lanes in shared memory in lane order, and all
+// the block's warps drain that list in full warps, writing 1 where a ray
+// is blocked. Wider windows (8, 16) packed sparse masks a little better
+// but left a call whose lanes are all live too few blocks to balance
+// (6-13% slower than V = 1), so V stops at 4. No atomics and no host
+// read: the plan is static, so a CUDA graph's capture keeps it.
 //
 // Scene block (f32, kBlockFloats): tri[kMaxTri][12] = p0 xyz | p1 xyz |
 // p2 xyz | normal xyz, then sph[kMaxSph][4] = centre xyz | radius.
@@ -53,6 +69,9 @@ namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+// Lanes a thread of the any-hit kernel: 1, 2 or 4 (a block's window is
+// kBlock of them; ops/sweep.py::occluded_plan picks one).
+constexpr int kMaxLanes = 4;
 constexpr int kMaxTri = 32;
 constexpr int kMaxSph = 4;
 constexpr int kTriFloats = 12;
@@ -156,35 +175,14 @@ __global__ void __launch_bounds__(kBlock) intersect_sweep_kernel(
   prim_out[i] = best_p;
 }
 
-__global__ void __launch_bounds__(kBlock) occluded_sweep_kernel(
-    const __grid_constant__ Scene s, const float* __restrict__ px_p,
+// The any-hit test of live lane j: ray j from point[j % n_point] offset by
+// EPS_RAY along its direction meets a primitive at 0 < t < tmax.
+__device__ __forceinline__ bool ray_blocked(
+    const Scene& s, const float* __restrict__ px_p,
     const float* __restrict__ py_p, const float* __restrict__ pz_p,
     int n_point, const float* __restrict__ dx_p,
     const float* __restrict__ dy_p, const float* __restrict__ dz_p,
-    const float* __restrict__ dist_p, const uint8_t* __restrict__ active,
-    uint8_t* __restrict__ out, int m) {
-  __shared__ int s_count[kWarps];
-  __shared__ int s_lane[kBlock];
-
-  // Compact the block's active lanes into s_lane[0, total).
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < m && active[i] != 0;
-  if (i < m && !live) out[i] = 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned ballot = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) s_count[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    base += w < warp ? s_count[w] : 0;
-    total += s_count[w];
-  }
-  if (live) s_lane[base + __popc(ballot & ((1u << lane) - 1u))] = i;
-  __syncthreads();
-  if (threadIdx.x >= total) return;
-
-  const int j = s_lane[threadIdx.x];
+    const float* __restrict__ dist_p, int j) {
   const int jp = j < n_point ? j : j % n_point;
   const float dx = dx_p[j], dy = dy_p[j], dz = dz_p[j];
   const float ox = px_p[jp] + dx * kEpsRay;
@@ -205,7 +203,94 @@ __global__ void __launch_bounds__(kBlock) occluded_sweep_kernel(
     if (k >= s.n_sph || blocked) break;
     blocked = sph_t(s, k, ox, oy, oz, dx, dy, dz) < tmax;
   }
-  out[j] = blocked ? 1 : 0;
+  return blocked;
+}
+
+static_assert(kBlock * kMaxLanes <= 65536, "window lanes index as uint16");
+
+// V mask or answer bytes as one load or store.
+template <int V> struct Bytes;
+template <> struct Bytes<1> { using T = uint8_t; };
+template <> struct Bytes<2> { using T = uint16_t; };
+template <> struct Bytes<4> { using T = uint32_t; };
+
+// One block takes a window of kBlock * V lanes; thread t owns lanes
+// [t * V, t * V + V) of it. Each thread reads its V mask bytes and writes
+// V zero answers (one V-byte load and store), the block lists its live
+// lanes in shared memory in lane order, and all its warps test the listed
+// rays in full warps, writing 1 where a ray is blocked. A window that
+// crosses the end of the lanes, or a mask or answer pointer not aligned to
+// V bytes, takes one byte at a time instead.
+template <int V>
+__global__ void __launch_bounds__(kBlock) occluded_sweep_kernel(
+    const __grid_constant__ Scene s, const float* __restrict__ px_p,
+    const float* __restrict__ py_p, const float* __restrict__ pz_p,
+    int n_point, const float* __restrict__ dx_p,
+    const float* __restrict__ dy_p, const float* __restrict__ dz_p,
+    const float* __restrict__ dist_p, const uint8_t* __restrict__ active,
+    uint8_t* __restrict__ out, int m) {
+  using T = typename Bytes<V>::T;
+  constexpr int kWindow = kBlock * V;
+  __shared__ int s_count[kWarps];
+  __shared__ uint16_t s_list[kWindow];
+
+  const long long first = (long long)blockIdx.x * kWindow + threadIdx.x * V;
+  const bool wide = first + V <= m &&
+                    ((reinterpret_cast<uintptr_t>(active) |
+                      reinterpret_cast<uintptr_t>(out)) % V) == 0;
+
+  // Bit k of `live`: lane first + k is active.
+  unsigned live = 0;
+  if (wide) {
+    const T v = *reinterpret_cast<const T*>(active + first);
+    *reinterpret_cast<T*>(out + first) = T{};
+    uint8_t b[V];
+    memcpy(b, &v, V);
+#pragma unroll
+    for (int k = 0; k < V; ++k) live |= (b[k] != 0 ? 1u : 0u) << k;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (first + k < m) {
+        live |= (active[first + k] != 0 ? 1u : 0u) << k;
+        out[first + k] = 0;
+      }
+    }
+  }
+
+  // Prefix count of live lanes over the block: in the warp, then warps.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int count = __popc(live);
+  int incl = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) s_count[warp] = incl;
+  __syncthreads();
+  int pos = incl - count, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    pos += w < warp ? s_count[w] : 0;
+    total += s_count[w];
+  }
+  while (live) {
+    const int k = __ffs(live) - 1;
+    live &= live - 1;
+    s_list[pos++] = (uint16_t)(threadIdx.x * V + k);
+  }
+  __syncthreads();
+
+  // The zero answers above come first: __syncthreads orders a block's
+  // global writes.
+  const long long base = (long long)blockIdx.x * kWindow;
+  for (int k = threadIdx.x; k < total; k += kBlock) {
+    const int j = (int)(base + s_list[k]);
+    if (ray_blocked(s, px_p, py_p, pz_p, n_point, dx_p, dy_p, dz_p, dist_p,
+                    j))
+      out[j] = 1;
+  }
 }
 
 // Copy the host block into the kernel's by-value scene; false if the
@@ -242,13 +327,24 @@ extern "C" int svcm_occluded_sweep(
     const float* block, int n_tri, int n_sph, const float* px,
     const float* py, const float* pz, int n_point, const float* dx,
     const float* dy, const float* dz, const float* dist,
-    const uint8_t* active, uint8_t* out, int m, void* stream) {
+    const uint8_t* active, uint8_t* out, int m, int lanes_per_thread,
+    void* stream) {
   Scene s;
   if (!load_scene(&s, block, n_tri, n_sph)) return (int)cudaErrorInvalidValue;
   if (m <= 0) return 0;
   if (n_point < 1 || active == nullptr) return (int)cudaErrorInvalidValue;
-  const int grid = (m + kBlock - 1) / kBlock;
-  occluded_sweep_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      s, px, py, pz, n_point, dx, dy, dz, dist, active, out, m);
+  const long long window = (long long)kBlock * lanes_per_thread;
+  const int grid = (int)((m + window - 1) / window);
+  cudaStream_t st = (cudaStream_t)stream;
+#define SVCM_OCCLUDED(V)                                                \
+  occluded_sweep_kernel<V><<<grid, kBlock, 0, st>>>(                    \
+      s, px, py, pz, n_point, dx, dy, dz, dist, active, out, m)
+  switch (lanes_per_thread) {
+    case 1: SVCM_OCCLUDED(1); break;
+    case 2: SVCM_OCCLUDED(2); break;
+    case 4: SVCM_OCCLUDED(4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SVCM_OCCLUDED
   return (int)cudaGetLastError();
 }

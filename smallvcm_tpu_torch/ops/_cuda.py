@@ -45,9 +45,9 @@ SIGNATURES = {
     "svcm_intersect_sweep": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _P),
     # scene block (host), n_tri, n_sph, px, py, pz, n_point, dx, dy, dz,
-    # dist, active, out, n_rays, stream
+    # dist, active, out, n_rays, lanes a thread, stream
     "svcm_occluded_sweep": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                            _P, _I, _P),
+                            _P, _I, _I, _P),
     # qpos, qtab, ranges, ppos, ptab, out, n_q (rows), n_live, r2,
     # vc_weight (the last three device pointers), max_path_length,
     # min_path_length, ppm, stream

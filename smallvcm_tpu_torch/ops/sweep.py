@@ -17,6 +17,7 @@ kernel computes as an any-hit test that stops at the first blocker.
 
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import NamedTuple
 
@@ -252,6 +253,37 @@ def occluded_plain(scene, point: V3, direction: V3, dist, active):
     return active & (sweep_plain(scene, org, direction)[0] < tmax)
 
 
+# The any-hit kernel's launch plan (csrc/intersect_sweep.cu:
+# occluded_sweep_kernel): a block of OCCLUDED_BLOCK threads takes a window
+# of OCCLUDED_BLOCK * V lanes, V = 1, 2 or 4 (MAX_LANES_PER_THREAD, the
+# kernel's kMaxLanes); the plan takes the widest window that still gives
+# MIN_BLOCKS_PER_SM blocks to every SM. Wider windows pack sparse masks
+# into fewer part-empty warps, but leave a call whose lanes are all live
+# too few blocks to balance.
+OCCLUDED_BLOCK = 256
+MAX_LANES_PER_THREAD = 4
+MIN_BLOCKS_PER_SM = 3
+
+
+def occluded_plan(m: int, n_sm: int) -> tuple[int, int]:
+    """(lanes a thread V, blocks) of the any-hit launch over ``m`` lanes on
+    a card of ``n_sm`` SMs: the largest V whose grid of
+    ceil(m / (OCCLUDED_BLOCK * V)) blocks keeps MIN_BLOCKS_PER_SM blocks an
+    SM (V = 1 where even that grid is smaller)."""
+    _cuda.require(m >= 0 and n_sm >= 1, "occluded_plan: m >= 0, n_sm >= 1")
+    blocks = lambda v: -(-m // (OCCLUDED_BLOCK * v))
+    v = 1
+    while v < MAX_LANES_PER_THREAD and \
+            blocks(2 * v) >= MIN_BLOCKS_PER_SM * n_sm:
+        v *= 2
+    return v, blocks(v)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def occluded_kernel(scene, point: V3, direction: V3, dist, active):
     """Launch the CUDA any-hit sweep -> bool [M]: ray i from
     ``point[i % P] + direction[i] * EPS_RAY`` meets a primitive before
@@ -274,11 +306,13 @@ def occluded_kernel(scene, point: V3, direction: V3, dist, active):
         return out
     lib = _cuda.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    lanes, _ = occluded_plan(m, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
     status = lib.svcm_occluded_sweep(
         block.data.data_ptr(), block.n_tri, block.n_sph,
         *(a.data_ptr() for a in point), n_point,
         *(a.data_ptr() for a in direction), dist.data_ptr(),
-        active.data_ptr(), out.data_ptr(), m, stream,
+        active.data_ptr(), out.data_ptr(), m, lanes, stream,
     )
     _cuda.check(status, "svcm_occluded_sweep")
     occluded_kernel.launches += 1

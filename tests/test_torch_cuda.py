@@ -104,6 +104,114 @@ def test_occluded_kernel_matches_plain(dev, config):
     assert torch.equal(got.reshape(-1), full)
 
 
+# Active shares of the any-hit tests: none, one lane, one in 4,096, 4%,
+# 16% (the main path's NEE calls), 50% and every lane.
+SHARES = {"none": 0.0, "one": None, "1_in_4096": 1 / 4096, "4pct": 0.04,
+          "16pct": 0.16, "half": 0.5, "all": 1.0}
+
+
+def _shadow_case(dev, m, n_point, seed, share):
+    """Shadow rays of ``m`` lanes whose point is broadcast over ``n_point``
+    (ray i from point[i % n_point]) -> (point, direction, dist, active),
+    ``share`` of the lanes active (None: one lane)."""
+    r = np.random.default_rng(seed)
+    point, d = _rays(seed, m, dev)
+    point = V3(*(c[:n_point].contiguous() for c in point))
+    dist = torch.from_numpy(r.uniform(0.0, 3.0, m).astype(np.float32)).to(dev)
+    if share is None:
+        active = torch.zeros(m, dtype=torch.bool, device=dev)
+        active[int(r.integers(m))] = True
+    else:
+        active = torch.from_numpy(r.random(m) < share).to(dev)
+    return point, d, dist, active
+
+
+def _held_to_plain(scene, point, d, dist, active):
+    """Launch the any-hit kernel once -> its answer, after checking it
+    against occluded_plain bit for bit."""
+    before = S.occluded_kernel.launches
+    got = S.occluded_kernel(scene, point, d, dist, active)
+    want = S.occluded_plain(scene, point, d, dist, active)
+    torch.cuda.synchronize()
+    assert S.occluded_kernel.launches == before + (dist.numel() > 0)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("share", list(SHARES))
+@pytest.mark.parametrize("m", [262_144, 1_179_648])
+def test_occluded_kernel_active_shares(dev, m, share):
+    """The any-hit kernel against occluded_plain at the main path's call
+    sizes (one pass of rays; a vertex-connection window of 4.5 passes) at
+    every active share, from no lane to all."""
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device=dev)
+    point, d, dist, active = _shadow_case(dev, m, m, 70, SHARES[share])
+    got = _held_to_plain(scene, point, d, dist, active)
+    assert int(got.sum()) <= int(active.sum())
+    if share in ("half", "all"):
+        assert 0 < int(got.sum()) < int(active.sum())
+
+
+@pytest.mark.parametrize("case", ["below_window", "ragged", "empty",
+                                  "broadcast", "odd_offset"])
+def test_occluded_kernel_shapes(dev, case):
+    """Fewer lanes than one block's window, a lane count that is not a
+    multiple of the widest window, no lane, a point broadcast over w = 4
+    passes whose count is not a multiple of the window, and a mask that
+    starts at an odd address (the byte-by-byte path)."""
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[1], device=dev)
+    m = {"below_window": 100, "ragged": 4_195_304, "empty": 0,
+         "broadcast": 1_200_000, "odd_offset": 1_179_648}[case]
+    n_point = 300_000 if case == "broadcast" else max(m, 1)
+    point, d, dist, active = _shadow_case(dev, m, n_point, 71, 0.3)
+    if case == "odd_offset":
+        buf = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+        buf[1:] = active
+        active = buf[1:]
+        assert active.data_ptr() % 2 == 1 and active.is_contiguous()
+    if case == "empty":
+        point = V3(*(torch.zeros(1, device=dev) for _ in range(3)))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes, blocks = S.occluded_plan(m, n_sm)
+    window = S.OCCLUDED_BLOCK * lanes
+    assert {"below_window": m < window, "ragged": m % window != 0,
+            "empty": blocks == 0, "broadcast": m % window != 0,
+            "odd_offset": lanes > 1}[case]
+    got = _held_to_plain(scene, point, d, dist, active)
+    assert got.numel() == m and (m == 0 or bool(got.any()))
+
+
+def test_occluded_kernel_graph_replays(dev):
+    """The any-hit kernel captured in a CUDA graph and replayed with two
+    other masks and points copied into its inputs: each replay gives its
+    own inputs' plain answer, so nothing of an earlier launch (a list, a
+    count) is left over."""
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device=dev)
+    m, n_point = 1_048_576, 262_144
+    inputs = [_shadow_case(dev, m, n_point, 80 + k, share)
+              for k, share in enumerate((0.3, 0.04, 0.6))]
+    static = [V3(*(c.clone() for c in inputs[0][0])),
+              V3(*(c.clone() for c in inputs[0][1])),
+              inputs[0][2].clone(), inputs[0][3].clone()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S.occluded_kernel(scene, *static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = S.occluded_kernel(scene, *static)
+    for point, d, dist, active in inputs[1:] + inputs[:1]:
+        for dst, src in zip((*static[0], *static[1], static[2], static[3]),
+                            (*point, *d, dist, active)):
+            dst.copy_(src)
+        graph.replay()
+        want = S.occluded_plain(scene, point, d, dist, active)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and bool(want.any())
+
+
 def test_sweep_dispatch_and_wrapper_checks(dev):
     scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device=dev)
     org, d = _rays(9, 300, dev)

@@ -104,6 +104,61 @@ def test_source_block_constants_match():
     assert (const("kMaxTri"), const("kMaxSph"), const("kTriFloats"),
             const("kSphFloats")) == (S.MAX_TRI, S.MAX_SPH, S.TRI_FLOATS,
                                      S.SPH_FLOATS)
+    # The any-hit launch: the block the plan counts in, and a mask read
+    # for every lanes-a-thread the plan can pick.
+    assert const("kBlock") == S.OCCLUDED_BLOCK
+    assert const("kMaxLanes") == S.MAX_LANES_PER_THREAD
+    cases = {int(v) for v in re.findall(r"case (\d+): SVCM_OCCLUDED", src)}
+    assert cases == {2 ** k for k in range(S.MAX_LANES_PER_THREAD
+                                           .bit_length())}
+
+
+@pytest.mark.parametrize("n_sm", [1, 132, 144])
+def test_occluded_plan_covers_every_lane(n_sm):
+    """The launch plan over lane counts from none to 2^31 - 1: V a power of
+    two up to the cap, a grid that covers every lane with no empty block,
+    the widest window that keeps MIN_BLOCKS_PER_SM blocks an SM, and V
+    never shrinking as the lanes grow."""
+    per = S.OCCLUDED_BLOCK * S.MIN_BLOCKS_PER_SM * n_sm
+    ms = sorted({0, 1, 255, 256, 257, 4096, 262_144, 1_179_648, 2_097_152,
+                 2 ** 31 - 1, *(k * per + e for k in (1, 2, 4, 8, 16, 32)
+                                for e in (-1, 0, 1))})
+    last = 1
+    for m in ms:
+        v, blocks = S.occluded_plan(m, n_sm)
+        window = S.OCCLUDED_BLOCK * v
+        assert v in (1, 2, 4) and v <= S.MAX_LANES_PER_THREAD
+        assert blocks * window >= m and (blocks - 1) * window < m
+        assert v >= last
+        last = v
+        if v > 1:
+            assert blocks >= S.MIN_BLOCKS_PER_SM * n_sm
+        if v < S.MAX_LANES_PER_THREAD:
+            wider = -(-m // (2 * window))
+            assert wider < S.MIN_BLOCKS_PER_SM * n_sm
+
+
+def test_occluded_plan_edges():
+    n_sm = 132
+    per = S.OCCLUDED_BLOCK * S.MIN_BLOCKS_PER_SM * n_sm  # blocks at V = 1
+    assert S.occluded_plan(0, n_sm) == (1, 0)
+    assert S.occluded_plan(1, n_sm) == (1, 1)
+    assert S.occluded_plan(S.OCCLUDED_BLOCK + 1, n_sm) == (1, 2)
+    # V doubles where the doubled window still fills every SM.
+    edge = 2 * per - 2 * S.OCCLUDED_BLOCK
+    assert S.occluded_plan(edge, n_sm) == (1, 2 * S.MIN_BLOCKS_PER_SM * n_sm
+                                           - 2)
+    assert S.occluded_plan(edge + 1, n_sm) == (2, S.MIN_BLOCKS_PER_SM * n_sm)
+    assert S.occluded_plan(4 * per, n_sm)[0] == 4
+    assert S.occluded_plan(2 ** 31 - 1, n_sm)[0] == S.MAX_LANES_PER_THREAD
+    # The main path's calls on an H100's 132 SMs: one pass of rays at two
+    # lanes a thread, vertex connections of two to eight passes at four.
+    assert S.occluded_plan(262_144, n_sm) == (2, 512)
+    assert S.occluded_plan(524_288, n_sm) == (4, 512)
+    assert S.occluded_plan(2_097_152, n_sm) == (4, 2048)
+    for bad in ((-1, n_sm), (16, 0)):
+        with pytest.raises(ValueError):
+            S.occluded_plan(*bad)
 
 
 @pytest.mark.parametrize("config", SCENE_CONFIGS)
