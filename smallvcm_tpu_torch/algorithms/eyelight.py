@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..core import rng
 from ..core.vec3 import V3, dot
 from ..io.framebuffer import add_color_at_pix, new_fb_planes
@@ -53,6 +53,7 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
     device tensor: the centre-sample branch is a select on the device, as
     in the JAX package, so one capture serves every iteration."""
     dev = scene.device
+    trace.stamp("start", iteration)
     n = pix.shape[0]
     x = torch.remainder(pix, res_x).to(torch.float32)
     y = torch.div(pix, res_x, rounding_mode="floor").to(torch.float32)
@@ -66,6 +67,7 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
     jy = torch.where(centred, 0.5, jitter[:, 1])
 
     org, d = generate_ray(scene.camera, x + jx, y + jy)
+    trace.stamp("camera.sample")
     hit = intersect(scene, org, d)
 
     dot_ln = dot(hit.normal, -d)
@@ -76,6 +78,9 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
         torch.where(front, dot_ln, 0.0) * lit,
         torch.where(front, dot_ln, 0.0) * lit,
     )
+    trace.stamp("camera_walk")
     # Own-pixel accumulate: floor(x + jitter) == x (jitter in [0, 1)).
     fb = add_color_at_pix(new_fb_planes(res_x, res_y, dev), pix, color)
-    return fb.to_array(), torch.full((), n, dtype=torch.int64, device=dev)
+    out = fb.to_array(), torch.full((), n, dtype=torch.int64, device=dev)
+    trace.stamp("finish")
+    return out

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..core import rng
 from ..core.vec3 import V3, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, pdf_a_to_w
@@ -96,8 +96,11 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
                 base_seed: int, max_path_length: int, min_path_length: int,
                 rng_kind: str):
     """The body of :func:`render_core`, with the iteration a 0-dim int64
-    device tensor and no host read (a CUDA graph's body)."""
+    device tensor and no host read (a CUDA graph's body). Stamps the stage
+    clocks (trace.py): start, the camera sample, each bounce with its live
+    lanes, the walk's end and the finish."""
     dev = scene.device
+    trace.stamp("start", iteration)
     n = pix.shape[0]
     x = torch.remainder(pix, res_x).to(torch.float32)
     y = torch.div(pix, res_x, rounding_mode="floor").to(torch.float32)
@@ -125,10 +128,12 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
         alive=torch.ones((n,), dtype=torch.bool, device=dev),
     )
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    trace.stamp("camera.sample")
 
     for i in range(max_path_length):
         path_length = i + 1  # reference pathLength counter
-        rays = rays + state.alive.sum()
+        live = state.alive.sum()
+        rays = rays + live
         hit = intersect(scene, state.org, state.direction)
         # Clamp miss-lane distances (1e36): masked lanes must not mint
         # inf/NaN (would poison reverse-mode gradients via 0*inf).
@@ -256,7 +261,11 @@ def render_pass(scene: SceneData, pix, iteration, res_x: int, res_y: int,
             last_pdf_w=torch.where(alive, last_pdf_w, state.last_pdf_w),
             alive=alive,
         )
+        trace.stamp(f"camera.b{i}", count=live)
+    trace.stamp("camera_walk")
 
     # Own-pixel accumulate: floor(x + jitter) == x (jitter in [0, 1)).
     fb = add_color_at_pix(new_fb_planes(res_x, res_y, dev), pix, state.color)
-    return fb.to_array(), rays
+    img = fb.to_array()
+    trace.stamp("finish")
+    return img, rays

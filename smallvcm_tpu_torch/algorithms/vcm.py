@@ -48,7 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..core import rng
 from ..core.vec3 import V3, dot, len_sqr, max_gt_zero, v3_where
 from ..core.vecmath import EPS_RAY, PI_F, pdf_w_to_a, sqr
@@ -366,6 +366,7 @@ def trace_light_paths(
          rng_kind))
     if splat_pix is not None:
         fb = splat_colors(fb, splat_pix, splat_rgb)
+    trace.stamp("splat_flush")
     return verts, fb, rays
 
 
@@ -404,11 +405,13 @@ def light_walk(
         splat_rgb = V3(*(torch.zeros((max_l, n), dtype=torch.float32,
                                      device=dev) for _ in range(3)))
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    trace.stamp("light.sample")
 
     for i in range(max_l):
         path_length = i + 1
 
-        rays = rays + state.alive.sum()
+        live = state.alive.sum()
+        rays = rays + live
         org = state.origin + state.direction * EPS_RAY
         hit = intersect(scene, org, state.direction)
         alive = state.alive & hit.hit
@@ -478,7 +481,9 @@ def light_walk(
         state = sample_scattering(
             scene, misc, state, hit_point, b, u, fix_is_light=True
         )
+        trace.stamp(f"light.b{i}", count=live)
 
+    trace.stamp("light_walk")
     return verts, splat_pix, splat_rgb, rays
 
 
@@ -705,6 +710,7 @@ def camera_walk(
     max_l = verts.valid.shape[0]
     queries = _empty_vertices(max_path_length, n, dev) if use_vm else None
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    trace.stamp("camera.sample")
 
     for i in range(max_path_length):
         path_length = i + 1
@@ -712,7 +718,8 @@ def camera_walk(
         # <= max_path_length bounds the reachable light slot j.
         w_conn = min(max_l, max(0, max_path_length - 1 - (i + 1)))
 
-        rays = rays + state.alive.sum()
+        live = state.alive.sum()
+        rays = rays + live
         org = state.origin + state.direction * EPS_RAY
         hit = intersect(scene, org, state.direction)
         dist_safe = torch.where(hit.hit, hit.dist, 1.0)
@@ -833,6 +840,8 @@ def camera_walk(
         state = sample_scattering(
             scene, misc, state, hit_point, b, u, fix_is_light=False
         )
+        trace.stamp(f"camera.b{i}", count=live)
+    trace.stamp("camera_walk")
     return color, queries, rays
 
 
@@ -1099,8 +1108,10 @@ def merge_stage(
         * misc.vm_normalization
     z = deterministic_index_add(n_paths, torch.where(qvalid_c, q_path,
                                                      n_paths), acc)
-    return (V3(z[:, 0], z[:, 1], z[:, 2]), ovf_p + ovf_q + ovf_pe,
-            torch.stack([pairs, n_p, n_q]))
+    out = (V3(z[:, 0], z[:, 1], z[:, 2]), ovf_p + ovf_q + ovf_pe,
+           torch.stack([pairs, n_p, n_q]))
+    trace.stamp("merge_kernel")
+    return out
 
 
 MERGE_BACKENDS = ("auto", "pallas", "xla")
@@ -1192,17 +1203,23 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
     if group is None:
         return one(verts)
     if vm_exchange == "allgather":
-        return one(unpack_vertices(
-            comm.all_gather_columns(pack_vertices(verts), group)))
-    color, overflow, stats = hop(verts)
-    visiting = pack_vertices(verts)
-    for _ in range(comm.world_size(group) - 1):
-        visiting = comm.ring_shift(visiting, group)
-        c, o, st = hop(unpack_vertices(visiting))
-        color = color + c
-        overflow = overflow + o
-        stats = torch.stack([stats[0] + st[0], torch.maximum(stats[1], st[1]),
-                             torch.maximum(stats[2], st[2])])
+        gathered = unpack_vertices(
+            comm.all_gather_columns(pack_vertices(verts), group))
+        trace.stamp("exchange")
+        return one(gathered)
+    # The hops' merges and shifts interleave: one stage clock, "ring".
+    with trace.paused():
+        color, overflow, stats = hop(verts)
+        visiting = pack_vertices(verts)
+        for _ in range(comm.world_size(group) - 1):
+            visiting = comm.ring_shift(visiting, group)
+            c, o, st = hop(unpack_vertices(visiting))
+            color = color + c
+            overflow = overflow + o
+            stats = torch.stack([stats[0] + st[0],
+                                 torch.maximum(stats[1], st[1]),
+                                 torch.maximum(stats[2], st[2])])
+    trace.stamp("ring")
     return color, overflow, stats
 
 
@@ -1261,6 +1278,7 @@ def render_iteration_core(
         raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
                          f"not {vm_exchange!r}")
     dev = scene.device
+    trace.stamp("start", iteration)
     misc = compute_misc(scene, iteration, n_paths_global, radius_factor,
                         radius_alpha, use_vc, use_vm)
     fb = new_fb_planes(res_x, res_y, dev)
@@ -1273,7 +1291,9 @@ def render_iteration_core(
         min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
     )
     if light_trace_only:
-        return fb.to_array(), ray_count, overflow, stats
+        img = fb.to_array()
+        trace.stamp("finish")
+        return img, ray_count, overflow, stats
 
     # ---- Stage 2: camera sub-paths.
     color, queries, cam_rays = _camera_stage(
@@ -1290,8 +1310,9 @@ def render_iteration_core(
         color = color + mc
 
     # Camera contributions always land on the path's own pixel.
-    fb = add_color_at_pix(fb, pix, color)
-    return fb.to_array(), ray_count + cam_rays, overflow, stats
+    img = add_color_at_pix(fb, pix, color).to_array()
+    trace.stamp("finish")
+    return img, ray_count + cam_rays, overflow, stats
 
 
 def render_iteration(
@@ -1384,6 +1405,7 @@ def _iteration_body(
     with ``group`` through ``vm_exchange``), own-pixel accumulation. The
     operations, and their order, of :func:`render_iteration_core`."""
     dev = scene.device
+    trace.stamp("start", iteration)
     misc = VcmMisc(radius, radius_sqr, vm_normalization, mis_vm_weight,
                    mis_vc_weight, light_sub_path_count)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1395,6 +1417,7 @@ def _iteration_body(
     fb = new_fb_planes(res_x, res_y, dev)
     if splat_pix is not None:
         fb = splat_colors(fb, splat_pix, splat_rgb)
+    trace.stamp("splat_flush")
     if light_trace_only:
         return fb.to_array(), rays, overflow, stats
     color, queries, cam_rays = camera_walk(
@@ -1432,12 +1455,14 @@ def iteration_stage(
     :func:`render_iteration_core` at the same caps: the same bits."""
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    return _iteration_body(
+    out = _iteration_body(
         scene, pix, n, iteration, radius, radius_sqr, vm_normalization,
         mis_vm_weight, mis_vc_weight, light_sub_path_count, res_x, res_y,
         base_seed, max_path_length, min_path_length, use_vc, use_vm,
         light_trace_only, ppm, rng_kind, merge_backend, pair_factor,
         photon_factor, query_factor, merge_chunks, "allgather", None)
+    trace.stamp("finish")
+    return out
 
 
 def sharded_static(static: tuple, vm_exchange: str, group) -> tuple:
@@ -1487,7 +1512,9 @@ def sharded_iteration_stage(
         photon_factor, query_factor, merge_chunks, vm_exchange, group)
     counts = comm.all_reduce_sum(
         torch.cat([rays.reshape(1), overflow.reshape(1), stats]), group)
-    return comm.framebuffer_sum(img, group), counts[0], counts[1], counts[2:]
+    img = comm.framebuffer_sum(img, group)
+    trace.stamp("finish")
+    return img, counts[0], counts[1], counts[2:]
 
 
 def render_block_with_stats(

@@ -75,12 +75,18 @@ requires grad (``diff.py``'s gradients, the sweep's autograd Function in
 ``ops/sweep.py``) the stage runs eagerly, always. There is no other way
 back to eager launches on a card: a failed capture or replay raises.
 
-The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``)
-and the exchanges' ``.bytes`` counters (``parallel/comm.py``) are bumped
-in Python, which runs at capture and not at replay. So a capture takes
-its increments back and records them, and each replay adds them: the
-counters count launches and bytes on the device, the merge's one a
-replay of the whole-iteration graph.
+The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``,
+the stage clocks' ``trace.stamp_kernel``) and the exchanges' ``.bytes``
+counters (``parallel/comm.py``) are bumped in Python, which runs at
+capture and not at replay. So a capture takes its increments back and
+records them, and each replay adds them: the counters count launches and
+bytes on the device, the merge's one a replay of the whole-iteration
+graph. They and ``stage``'s own counters are reported to
+``trace.summary()``. A key's first, eager call is the span
+``graphs.warmup`` and its capture the span ``graphs.capture`` (trace.py),
+whose seconds ``stage.capture_s`` sums. The stage functions stamp the
+device's stage clocks while the block runner has them armed
+(``trace.stamp``): which stamps a graph holds is part of its key.
 
 The first call of a sharded key runs eagerly too, so its collectives
 create the group's NCCL communicator before any capture.
@@ -90,12 +96,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 import weakref
 
 import torch
 from torch.utils import _pytree as pytree
 
+from . import trace
 from .ops import merge as merge_ops
 from .ops import sweep as sweep_ops
 from .parallel import comm
@@ -116,21 +122,25 @@ def eager():
 
 
 def _counters():
-    """(holder, attribute) of each counter bumped in Python beside a device
-    launch or transfer: the kernels' launches, the exchanges' bytes."""
-    return ((sweep_ops.sweep_kernel, "launches"),
-            (sweep_ops.occluded_kernel, "launches"),
-            (merge_ops.merge_cells_kernel, "launches"),
-            (comm.all_gather_columns, "bytes"),
-            (comm.ring_shift, "bytes"))
+    """(name, holder, attribute) of each counter bumped in Python beside a
+    device launch or transfer: the kernels' launches, the exchanges'
+    bytes."""
+    return (("sweep.closest_hit_launches", sweep_ops.sweep_kernel,
+             "launches"),
+            ("sweep.any_hit_launches", sweep_ops.occluded_kernel,
+             "launches"),
+            ("merge.launches", merge_ops.merge_cells_kernel, "launches"),
+            ("comm.all_gather_bytes", comm.all_gather_columns, "bytes"),
+            ("comm.ring_shift_bytes", comm.ring_shift, "bytes"),
+            ("trace.stamp_launches", trace.stamp_kernel, "launches"))
 
 
 def _read_counters() -> list:
-    return [getattr(h, a) for h, a in _counters()]
+    return [getattr(h, a) for _, h, a in _counters()]
 
 
 def _add_counters(values) -> None:
-    for (h, a), v in zip(_counters(), values):
+    for (_, h, a), v in zip(_counters(), values):
         setattr(h, a, getattr(h, a) + v)
 
 
@@ -269,7 +279,6 @@ def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
     bufs = [_scalar(v, dev) for v in scalars]
     before = _read_counters()
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
     _CAPTURING = True
     try:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -281,8 +290,6 @@ def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
         _add_counters([b - c for c, b in zip(_read_counters(), before)])
         while _DEAD:
             _drop(_DEAD.pop())
-    stage.captures += 1
-    stage.capture_s += time.perf_counter() - t0
     outputs, out_spec = pytree.tree_flatten(out)
     return _Graph(graph, inputs, bufs, outputs, out_spec, increments)
 
@@ -300,22 +307,37 @@ def stage(fn, scene, tensors: tuple, scalars: tuple, static: tuple):
     geo, meta = _scene_leaves(scene)
     key = (fn, tuple(map(id, geo)), meta,
            tuple((t.shape, t.dtype, t.device) for t in flat_in),
-           tuple(type(v) for v in scalars), static, dev)
+           tuple(type(v) for v in scalars), static, dev, trace.stamping())
     entry = _ENTRIES.get(key)
     if entry is not None and not entry.alive_for(geo):
         _drop(key)
         entry = None
+    name = getattr(fn, "__qualname__", repr(fn))
     if entry is None:
         _ENTRIES[key] = _Entry(key, geo)
-        return fn(scene, *tensors, *(_scalar(v, dev) for v in scalars),
-                  *static)
+        with trace.span("graphs.warmup", fn=name):
+            return fn(scene, *tensors, *(_scalar(v, dev) for v in scalars),
+                      *static)
     with torch.cuda.device(dev):
         if entry.graph is None:
-            entry.graph = _capture(fn, scene, flat_in, in_spec, scalars,
-                                   static, dev)
+            with trace.span("graphs.capture", fn=name) as s:
+                entry.graph = _capture(fn, scene, flat_in, in_spec, scalars,
+                                       static, dev)
+            stage.captures += 1
+            stage.capture_s += s.seconds
         return entry.graph.replay(flat_in, scalars)
 
 
 stage.captures = 0
 stage.capture_s = 0.0
 stage.replays = 0
+
+
+def _report() -> dict:
+    return {**{name: getattr(h, a, 0) for name, h, a in _counters()},
+            "graphs.captures": stage.captures,
+            "graphs.replays": stage.replays,
+            "graphs.capture_s": stage.capture_s}
+
+
+trace.report_counters("graphs", _report)

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .. import trace
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -37,6 +39,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C signatures of the entry points: name -> argtypes (restype is int).
 SIGNATURES = {
@@ -53,6 +56,9 @@ SIGNATURES = {
     # min_path_length, ppm, stream
     "svcm_merge_cells": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                          _I, _P),
+    # times, lanes, row, iteration (or NULL), count (or NULL), base, rows,
+    # slots, slot, stream
+    "svcm_trace_stamp": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 
@@ -122,8 +128,11 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (if needed) and load the kernel library once per process, in
+    the span ``cuda.library_load`` (``how``: "built" or "loaded")."""
+    how = "loaded" if library_path().exists() else "built"
+    with trace.span("cuda.library_load", how=how):
+        lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

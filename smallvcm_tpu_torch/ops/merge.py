@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..core.vec3 import V3
 from ..core.vecmath import EPS_COSINE, EPS_PHONG, INV_PI_F
 from ..io.framebuffer import deterministic_index_add
@@ -497,18 +498,22 @@ def merge_stage(scene, misc, queries, light_verts, ppm: bool,
     those of the first cap rows and the caller re-renders. ``n_paths`` is
     the query tables' column count; the photon table may have more columns
     (the sharded all-gather: merge_prep derives each side's path lengths
-    and owners from its own column count)."""
+    and owners from its own column count). Stamps the stage clocks'
+    ``merge_prep`` after the tables and ``merge_kernel`` after the sums
+    (trace.py)."""
     t = merge_prep(scene, misc, queries, light_verts, n_paths, photon_cap,
                    query_cap)
+    trace.stamp("merge_prep")
     out = merge_cells(
         *t[:5], misc.radius_sqr, misc.mis_vc_weight, n_live=t.n_q,
         max_path_length=max_path_length, min_path_length=min_path_length,
         ppm=ppm,
     )
     z = merge_post(out, t.qtab, t.q_path, misc.vm_normalization, n_paths)
-    if not with_stats:
-        return z
-    overflow = ((t.n_p > t.ptab.shape[0]).to(torch.int64)
-                + (t.n_q > t.qtab.shape[0]).to(torch.int64))
-    pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
-    return z, overflow, torch.stack([pairs, t.n_p, t.n_q])
+    if with_stats:
+        overflow = ((t.n_p > t.ptab.shape[0]).to(torch.int64)
+                    + (t.n_q > t.qtab.shape[0]).to(torch.int64))
+        pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
+        z = z, overflow, torch.stack([pairs, t.n_p, t.n_q])
+    trace.stamp("merge_kernel")
+    return z

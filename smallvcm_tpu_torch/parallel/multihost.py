@@ -28,6 +28,7 @@ job resumes bit for bit from its last checkpoint (checkpoint.py).
 from __future__ import annotations
 
 import gc
+import json
 import os
 import socket
 import tempfile
@@ -37,7 +38,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from .. import graphs
+from .. import graphs, trace
 from ..device import resolve_device
 
 
@@ -139,6 +140,8 @@ def _rank_entry(rank: int, world: int, device, init: str, out_dir: str,
     initialize(init, world, rank, device)
     try:
         torch.save(fn(*args), Path(out_dir) / f"result{rank}.pt")
+        Path(out_dir, f"trace{rank}.json").write_text(
+            json.dumps(trace.summary()))
     finally:
         shutdown()
 
@@ -147,6 +150,8 @@ def spawn(world_size: int, device, fn, *args) -> list:
     """Run ``fn(*args)`` in ``world_size`` new processes joined in one
     group (a file:// rendezvous in a temporary directory), rank r on
     ``rank_device(device, r)`` -> the ranks' return values in rank order.
+    Each rank's ``trace.summary()`` comes back beside its value and is
+    kept here (``trace.summary()["ranks"]``).
 
     ``fn`` and its arguments must pickle (a module-level function). If a
     rank raises, the others are stopped and the error is raised here
@@ -157,5 +162,7 @@ def spawn(world_size: int, device, fn, *args) -> list:
                            args=(world_size, device, init, tmp, fn, args),
                            nprocs=world_size, join=True,
                            start_method="spawn")
+        trace.keep_ranks([json.loads(Path(tmp, f"trace{r}.json").read_text())
+                          for r in range(world_size)])
         return [torch.load(Path(tmp) / f"result{r}.pt", weights_only=False)
                 for r in range(world_size)]

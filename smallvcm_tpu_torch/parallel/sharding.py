@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..algorithms import eyelight, pathtracer, vcm
 from . import comm
 
@@ -108,14 +108,18 @@ def sharded_render_iteration_with_stats(
     graph."""
     n = res_x * res_y
     pix = shard_pix(n, group, scene.device)
-    img, rays, overflow, stats = vcm.render_iteration_core(
-        scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
-        min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
-        light_trace_only, ppm, rng_kind, merge_backend, vm_exchange, group,
-        pair_factor, photon_factor, query_factor, merge_chunks)
+    with trace.paused("finish"):    # stamped after the sums over ranks
+        img, rays, overflow, stats = vcm.render_iteration_core(
+            scene, iteration, pix, res_x, res_y, n, base_seed,
+            max_path_length, min_path_length, radius_factor, radius_alpha,
+            use_vc, use_vm, light_trace_only, ppm, rng_kind, merge_backend,
+            vm_exchange, group, pair_factor, photon_factor, query_factor,
+            merge_chunks)
     counts = comm.all_reduce_sum(
         torch.cat([rays.reshape(1), overflow.reshape(1), stats]), group)
-    return comm.framebuffer_sum(img, group), counts[0], counts[1], counts[2:]
+    img = comm.framebuffer_sum(img, group)
+    trace.stamp("finish")
+    return img, counts[0], counts[1], counts[2:]
 
 
 def sharded_render_iteration(group, scene, iteration: int, res_x: int,
@@ -141,14 +145,17 @@ def simple_stage(scene, iteration, algorithm: str, res_x: int, res_y: int,
     graph (graphs.stage), the JAX package's ``_SIMPLE_PROGRAMS``
     (sharding.py:194-250)."""
     pix = _shard_ids(res_x * res_y, world, rank, scene.device)
-    if algorithm == "el":
-        img, rays = eyelight.render_pass(scene, pix, iteration, res_x, res_y,
-                                         base_seed, rng_kind)
-    else:
-        img, rays = pathtracer.render_pass(
-            scene, pix, iteration, res_x, res_y, base_seed, max_path_length,
-            min_path_length, rng_kind)
-    return comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
+    with trace.paused("finish"):    # stamped after the sums over ranks
+        if algorithm == "el":
+            img, rays = eyelight.render_pass(scene, pix, iteration, res_x,
+                                             res_y, base_seed, rng_kind)
+        else:
+            img, rays = pathtracer.render_pass(
+                scene, pix, iteration, res_x, res_y, base_seed,
+                max_path_length, min_path_length, rng_kind)
+    out = comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
+    trace.stamp("finish")
+    return out
 
 
 def sharded_simple_iteration(
@@ -181,11 +188,14 @@ def sharded_simple_iteration(
             (algorithm, res_x, res_y, base_seed, max_path_length,
              min_path_length, rng_kind, comm.world_size(group),
              comm.rank(group), group))
-    if algorithm == "el":
-        img, rays = eyelight.render_core(scene, iteration, pix, res_x, res_y,
-                                         base_seed, rng_kind)
-    else:
-        img, rays = pathtracer.render_core(
-            scene, iteration, pix, res_x, res_y, base_seed, max_path_length,
-            min_path_length, rng_kind)
-    return comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
+    with trace.paused("finish"):    # stamped after the sums over ranks
+        if algorithm == "el":
+            img, rays = eyelight.render_core(scene, iteration, pix, res_x,
+                                             res_y, base_seed, rng_kind)
+        else:
+            img, rays = pathtracer.render_core(
+                scene, iteration, pix, res_x, res_y, base_seed,
+                max_path_length, min_path_length, rng_kind)
+    out = comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
+    trace.stamp("finish")
+    return out

@@ -63,7 +63,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import graphs
+from . import graphs, trace
 from .algorithms import eyelight, pathtracer, vcm
 from .io.framebuffer import total_luminance
 from .parallel import comm, sharding
@@ -396,9 +396,17 @@ def _ensure_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
     sizes ``pair_factor`` too, never below the configured one, so a later
     pair-merge run of the configuration starts from a fitted pair cap.
     Correctness never depends on this: the block loop grows the caps and
-    renders the block again on overflow."""
+    renders the block again on overflow. Unless frozen, the span
+    ``render.caps_measure`` (trace.py) holds it, its ``how`` what it
+    returns."""
     if cfg.merge_caps_frozen:
         return "frozen"
+    with trace.span("render.caps_measure") as s:
+        s.attrs["how"] = how = _size_merge_caps(scene, cfg, alg)
+    return how
+
+
+def _size_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
     key = _caps_key(scene, cfg, alg, _merge_backend_key(cfg))
     cached = _load_cached_caps(key)
     if cached:
@@ -441,13 +449,20 @@ class Block(NamedTuple):
     mean: float
 
 
-def _read_block(acc, rays, overflow, stats):
-    """The block's one host read -> (overflow, Block)."""
+def _read_block(acc, rays, overflow, stats, clock=None):
+    """The block's one host read (the span ``render.host_read``) ->
+    (overflow, Block). With the block's stage clock (``trace.block``), its
+    rows join the read and are kept when nothing overflowed."""
     one = lambda t: t.reshape(1).to(torch.float64)
-    ovf, pairs, n_p, n_q, r, lum, mean = torch.cat([
-        one(overflow), stats.to(torch.float64), one(rays),
-        one(total_luminance(acc)), one(acc.mean()),
-    ]).tolist()
+    parts = [one(overflow), stats.to(torch.float64), one(rays),
+             one(total_luminance(acc)), one(acc.mean())]
+    if clock is not None:
+        parts.append(clock.rows())
+    with trace.span("render.host_read"):
+        values = torch.cat(parts).cpu()
+    ovf, pairs, n_p, n_q, r, lum, mean = values[:7].tolist()
+    if clock is not None and ovf == 0:
+        clock.record(values[7:].numpy())
     return int(ovf), Block(acc, int(r), (int(pairs), int(n_p), int(n_q)),
                            lum, mean)
 
@@ -458,10 +473,11 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     Merging algorithms in a single process size their caps here
     (:func:`_ensure_merge_caps`). The runner grows the caps and renders
     the same block again on overflow (at most MAX_GROWS times, then
-    raises), and reads the host once a block (twice when a block
-    overflows). A VCM-family iteration is one graph replay in a single
-    process and on an NCCL group's rank, and runs stage by stage on a
-    gloo group's rank."""
+    raises; each time counted in ``render.rerendered_blocks``), and reads
+    the host once a block (twice when a block overflows). Each block arms the
+    device's stage clocks (``trace.block``). A VCM-family iteration is one
+    graph replay in a single process and on an NCCL group's rank, and runs
+    stage by stage on a gloo group's rank."""
     res_x, res_y = cfg.resolution
     n = res_x * res_y
     dev = scene.device
@@ -469,12 +485,13 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
 
     if alg in ("el", "pt"):
         def run_iterations(start, k, accum):
-            acc, rays = accum, zero()
-            for j in range(k):
-                img, r = render_iteration(scene, cfg, alg, start + j)
-                acc = acc + img
-                rays = rays + r
-            return _read_block(acc, rays, zero(), zero(3))[1]
+            with trace.block(dev, start, k) as clock:
+                acc, rays = accum, zero()
+                for j in range(k):
+                    img, r = render_iteration(scene, cfg, alg, start + j)
+                    acc = acc + img
+                    rays = rays + r
+                return _read_block(acc, rays, zero(), zero(3), clock)[1]
 
         return run_iterations
 
@@ -528,9 +545,15 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
             stats = torch.maximum(stats, st)
         return acc, rays, overflow, stats
 
+    def read_block(start, k, accum):
+        with trace.block(dev, start, k) as clock:
+            return _read_block(*render_block(start, k, accum), clock)
+
     def run_block(start, k, accum):
-        for _ in range(MAX_GROWS + 1):
-            overflow, block = _read_block(*render_block(start, k, accum))
+        for grows in range(MAX_GROWS + 1):
+            if grows:
+                render.rerendered_blocks += 1
+            overflow, block = read_block(start, k, accum)
             if overflow == 0:
                 return block
             # Grow every cap by the JAX package's rule (render.py:470-481),
@@ -588,6 +611,7 @@ def render_single_iteration(scene: SceneData, cfg: RenderConfig,
     return _make_block_runner(scene, cfg, alg)(iteration, 1, zeros).accum
 
 
+@trace.span("render.render")
 def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
            accum=None, start_iter: int = 0, block_cb=None):
     """Progressive render on the scene's device.
@@ -602,11 +626,14 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
     ``block_cb(accum, iterations_done)`` fires after every block (the
     checkpoint hook). ``rays`` is the traced ray count of this call. With
     ``verbose``, prints one line per block: its iterations, the mean
-    luminance and image mean so far, its rays and its wall time, and for
-    a merging algorithm the block's merge stats (the most candidate
-    pairs, live photons and live queries of an iteration) and caps. With
+    luminance and image mean so far, its rays and its wall time (its
+    ``render.block`` span), for a merging algorithm the block's merge stats
+    (the most candidate pairs, live photons and live queries of an
+    iteration) and caps, and on a card the device ms of each stage, the
+    median over the block's iterations (``trace.block_stages``). With
     ``cfg.group``, every rank of the group must call this with the same
-    ``cfg``.
+    ``cfg``. The call is the span ``render.render``, each block a
+    ``render.block`` inside it (trace.py).
     """
     check_backends(scene, cfg)
     res_x, res_y = cfg.resolution
@@ -630,8 +657,8 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
 
     def step(k):
         nonlocal accum, rays, done
-        t0 = time.perf_counter()
-        block = runner(done, k, accum)
+        with trace.span("render.block", start=done, k=k) as span:
+            block = runner(done, k, accum)
         accum = block.accum
         rays += block.rays
         done += k
@@ -639,12 +666,16 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
             line = (f"  iter {done - k}..{done - 1}: "
                     f"luminance={block.luminance / done:.1f} "
                     f"mean={block.mean / done:.9g} rays={block.rays} "
-                    f"dt={time.perf_counter() - t0:.4f}s")
+                    f"dt={span.seconds:.4f}s")
             if merging:
                 line += (" pairs={} photons={} queries={}".format(
                     *block.stats) + f" pair_factor={cfg.pair_factor}"
                     f" photon_factor={cfg.photon_factor}"
                     f" query_factor={cfg.query_factor}")
+            stages = trace.block_stages(dev)
+            if stages:
+                line += " stage_ms: " + " ".join(
+                    f"{name}={ms:.3f}" for name, ms in stages.items())
             print(line, flush=True)
         if block_cb is not None:
             block_cb(accum, done)
@@ -684,3 +715,9 @@ def render(scene: SceneData, cfg: RenderConfig, verbose: bool = False,
 
     img = accum / done if done > 0 else accum
     return img, elapsed, done, rays
+
+
+# Blocks rendered again after a merge cap overflow, reported to the trace.
+render.rerendered_blocks = 0
+trace.report_counters("render", lambda: {
+    "render.rerendered_blocks": render.rerendered_blocks})

@@ -94,10 +94,15 @@ def test_entry_points_build_on_the_card_by_default():
 
 def test_kernel_sources_present_and_build_is_keyed_by_source():
     names = {p.name for p in _cuda.CSRC_DIR.glob("*.cu")}
-    assert names == {"merge_cells.cu", "intersect_sweep.cu"}
+    assert names == {"merge_cells.cu", "intersect_sweep.cu",
+                     "trace_stamp.cu"}
     for p in _cuda.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
-        assert "replaces the tpu kernel" in text.lower()
+        # Each source names the TPU kernel it replaces, or says it
+        # replaces none (the stage clocks' stamp, which the TPU has not).
+        replaces = ("replaces no tpu kernel" if p.name == "trace_stamp.cu"
+                    else "replaces the tpu kernel")
+        assert replaces in text.lower()
         assert "cudaGetLastError" in text
     path = _cuda.library_path()
     assert path.parent.parent == _cuda.BUILD_DIR
