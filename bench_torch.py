@@ -130,7 +130,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 # Wrapper counter name -> the CUDA function it launches.
 KERNELS = {"intersect_sweep": "intersect_sweep_kernel",
            "occluded_sweep": "occluded_sweep_kernel",
-           "merge_cells": "merge_cells_kernel"}
+           "merge_cells": "merge_cells_kernel",
+           "uniform_slots": "uniform_slots_kernel"}
 
 
 def metric_name(res: int) -> str:
@@ -179,12 +180,14 @@ def resolved_config(scene, cfg) -> dict:
 
 
 def kernel_counters():
+    from smallvcm_tpu_torch.core import rng
     from smallvcm_tpu_torch.ops import merge as M
     from smallvcm_tpu_torch.ops import sweep as S
 
     return dict(intersect_sweep=S.sweep_kernel,
                 occluded_sweep=S.occluded_kernel,
-                merge_cells=M.merge_cells_kernel)
+                merge_cells=M.merge_cells_kernel,
+                uniform_slots=rng.uniform_slots_kernel)
 
 
 def time_algorithm(scene, cfg, iters: int, repeats: int,

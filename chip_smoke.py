@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (each one raises on failure; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels from csrc/ and report the build time;
+2. build the CUDA kernels from csrc/ and report the build time;
 3. the ray sweeps against their plain PyTorch versions, bit for bit: the
    closest-hit entry on 262,144 random rays in scene 0 (time, bound and
    the issue ceiling without FMA); then one 512x512 scene-0 VCM iteration
@@ -19,7 +19,12 @@ Phases (each one raises on failure; nothing is caught):
    connection launch as recorded, with one live lane and with every lane
    active, and the sweeps' device ms and the kernel
    launches of one iteration from torch.profiler (the iteration as one
-   graph, and eagerly);
+   graph, and eagerly); the RNG kernel (csrc/rng_slots.cu) against
+   ``_uniform_slots_plain`` bit for bit on 262,144 path ids (0, 2**32 - 1
+   and ids above 2**32 among them), 2-5 slots, Threefry and TEA, the
+   stream as a device tensor and as an int, with each call's time, the
+   plain chain's and the bound from the kernel's SASS instructions
+   (cuobjdump), and their totals over one VCM iteration's 31 calls;
 4. the merge kernel against its plain version on every row of the merge
    tables of one real 512x512 scene-0 VCM iteration at the main path's
    static caps (dead rows zero; the live count, r^2 and the MIS weight
@@ -217,6 +222,15 @@ MERGE_OPS_CANDIDATE = 9
 MERGE_OPS_PASS = 71
 MERGE_QUERY_FIELDS = 25
 MERGE_PHOTON_FIELDS = 9
+# csrc/rng_slots.cu is integer work, so its bound is instruction issue and
+# not the f32 rate: each SM issues one warp instruction a clock on each of
+# its four sub-partitions, at the H100 SXM's boost clock.
+ISSUE_WARP_INSTRUCTIONS_PER_SM_CLOCK = 4
+SM_CLOCK_HZ = 1.98e9
+# One VCM iteration's uniform_slots calls on the main path, n_slots ->
+# calls (scripts/torch_dispatch_split.py counts them by slots;
+# tests/test_torch_cuda.py counts 31 launches an iteration).
+RNG_VCM_CALLS = {2: 1, 3: 10, 4: 19, 5: 1}
 
 
 # The script's own time limit (the card's check runs it under 1200 s):
@@ -615,6 +629,116 @@ def check_occlusion(torch, dev):
                 eager_launches_per_iteration=eager_launches)
 
 
+def sass_instructions(pattern: str):
+    """SASS instructions of the built library's one function whose name
+    matches ``pattern`` (cuobjdump beside nvcc; every branch counted once,
+    padding NOPs and the trailing branch to itself left out), or None
+    without cuobjdump."""
+    from smallvcm_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    found, ops = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            ops = [] if re.search(pattern, line) else None
+            if ops is not None:
+                found.append(ops)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                     line)
+        if ops is not None and m and m.group(1) != "NOP":
+            ops.append(m.group(1))
+    if len(found) != 1 or not found[0]:
+        raise AssertionError(f"cuobjdump: {len(found)} functions match "
+                             f"{pattern!r}")
+    ops = found[0]
+    return len(ops) - (ops[-1] == "BRA")
+
+
+def rng_bound_ms(torch, dev, n: int, n_slots: int, instructions):
+    """(least milliseconds a uniform_slots call over ``n`` path ids could
+    take, "bytes" or "issue"): the ids read and the floats written over the
+    memory rate, against one thread a pair of slots issuing
+    ``instructions`` (None: bytes alone)."""
+    t_bytes = (8 * n + 4 * n * n_slots) / HBM_BYTES_PER_S
+    warps = math.ceil(n * ((n_slots + 1) // 2) / 32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_issue = 0.0 if instructions is None else warps * instructions / (
+        sms * ISSUE_WARP_INSTRUCTIONS_PER_SM_CLOCK * SM_CLOCK_HZ)
+    return 1e3 * max(t_bytes, t_issue), ("bytes" if t_bytes >= t_issue
+                                         else "issue")
+
+
+def check_rng(torch, dev):
+    """Phase 3, the RNG: csrc/rng_slots.cu against ``_uniform_slots_plain``
+    bit for bit at the main path's shapes (262,144 path ids, among them 0,
+    2**32 - 1 and ids above 2**32; 2-5 slots; Threefry and TEA; the stream
+    as a 0-dim device tensor, as an iteration graph gives it, and as an
+    int); each call's device ms, the plain chain's, and the bound from the
+    kernel's SASS instructions; the totals over one VCM iteration's calls
+    (RNG_VCM_CALLS, Threefry)."""
+    from smallvcm_tpu_torch.core import rng
+
+    n = RES * RES
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, 2 ** 40, (n,), generator=g, dtype=torch.int64,
+                        device=dev)
+    ids[:4] = torch.tensor([0, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 5],
+                           device=dev)
+    seed = 2 ** 32 + SEED
+    it = torch.full((), 7, dtype=torch.int64, device=dev)
+    stream = rng.make_stream(it, rng.STAGE_CAMERA_WALK, 2)
+    word = rng.make_stream(7, rng.STAGE_CAMERA_WALK, 2)
+    calls, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by = set()
+    for generator, flag in (("threefry", 0), ("tea", 1)):
+        instructions = sass_instructions(
+            rf"uniform_slots_kernel.*ILb{flag}E")
+        for n_slots in (2, 3, 4, 5):
+            kernel = lambda: rng.uniform_slots_kernel(
+                seed, stream, ids, n_slots, generator)
+            plain = lambda: rng._uniform_slots_plain(
+                seed, word, ids, n_slots, generator)
+            want = plain()
+            by_int = rng.uniform_slots_kernel(seed, word, ids, n_slots,
+                                              generator)
+            for form, got in (("tensor", kernel()), ("int", by_int)):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"rng {generator} {n_slots} slots, stream as "
+                        f"{form}: {int((got != want).any(-1).sum())} paths "
+                        "differ from _uniform_slots_plain")
+            ms = time_cuda(torch, kernel, 200)
+            plain_ms = time_cuda(torch, plain, 5)
+            b_ms, b_by = rng_bound_ms(torch, dev, n, n_slots, instructions)
+            calls.append(dict(generator=generator, n_slots=n_slots, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, instructions=instructions))
+            log(f"[rng] {generator} {n_slots} slots x {n} paths, bit for "
+                f"bit both stream forms: kernel {1e3 * ms:.2f} us, plain "
+                f"{plain_ms:.3f} ms; bound {1e3 * b_ms:.2f} us by {b_by} "
+                f"({instructions} SASS instructions a pair), kernel at "
+                f"{100 * b_ms / ms:.1f}% of it")
+            if generator == "threefry":
+                k = RNG_VCM_CALLS[n_slots]
+                tot["ms"] += k * ms
+                tot["plain_ms"] += k * plain_ms
+                tot["bound_ms"] += k * b_ms
+                by.add(b_by)
+    log(f"[rng] one VCM iteration's {sum(RNG_VCM_CALLS.values())} calls "
+        f"(Threefry): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, bound {1e3 * tot['bound_ms']:.2f} us "
+        f"by {'/'.join(sorted(by))}, kernel at "
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it")
+    return dict(max_abs_err=0.0, **tot, bound_by="/".join(sorted(by)),
+                library_ms=None, calls=calls)
+
+
 def merge_work(torch, M, tabs, r2, max_pl, min_pl):
     """What the cell walk's inputs ask of it: candidate pairs, pairs within
     r, pairs that pass the r^2 test and the path-length window, and the
@@ -796,15 +920,21 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
 
 
 def reset_counts(M, S):
+    from smallvcm_tpu_torch.core import rng
+
     S.sweep_kernel.launches = 0
     S.occluded_kernel.launches = 0
     M.merge_cells_kernel.launches = 0
+    rng.uniform_slots_kernel.launches = 0
 
 
 def read_counts(M, S) -> dict:
+    from smallvcm_tpu_torch.core import rng
+
     return dict(intersect_sweep=S.sweep_kernel.launches,
                 occluded_sweep=S.occluded_kernel.launches,
-                merge_cells=M.merge_cells_kernel.launches)
+                merge_cells=M.merge_cells_kernel.launches,
+                uniform_slots=rng.uniform_slots_kernel.launches)
 
 
 def steady(blocks):
@@ -1576,7 +1706,8 @@ def check_bench(rays_iter1: int, launches_per_iteration: int):
             f"{rec['block_host_launch_calls_per_iter']} host launch calls "
             f"an iteration (at most {BLOCK_HOST_CALLS_MAX})")
     counts = rec["kernel_launches"]
-    if set(counts) != {"merge_cells", "intersect_sweep", "occluded_sweep"} \
+    if set(counts) != {"merge_cells", "intersect_sweep", "occluded_sweep",
+                       "uniform_slots"} \
             or min(counts.values()) <= 0:
         raise AssertionError(f"bench: kernel launches {counts}")
     if rec["stages"]["unattributed"]["launches"]:
@@ -2685,7 +2816,8 @@ def main() -> int:
 
     sweep_r = check_sweep(torch, dev)
     occl_r = check_occlusion(torch, dev)
-    phase_done("phase 3 (sweeps)")
+    rng_r = check_rng(torch, dev)
+    phase_done("phase 3 (sweeps, rng)")
     merge_r = check_merge(torch, dev)
     check_golden(torch, dev)
     phase_done("phases 4-5")
@@ -2758,6 +2890,11 @@ def main() -> int:
              replaces="smallvcm_tpu/ops/pallas_intersect.py:46",
              launches=launches["occluded_sweep"],
              launches_by_path=by_path("occluded_sweep"), **occl_r),
+        dict(name="uniform_slots", route="cuda",
+             source="smallvcm_tpu_torch/csrc/rng_slots.cu",
+             replaces=None,
+             launches=launches["uniform_slots"],
+             launches_by_path=by_path("uniform_slots"), **rng_r),
     ]
     caps_dir.cleanup()
     print(card)

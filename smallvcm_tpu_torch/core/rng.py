@@ -14,11 +14,18 @@ Python int or a 0-dim int64 tensor (as the JAX package's traced
 ``make_stream`` takes a traced iteration): a stage captured once as a CUDA
 graph (graphs.py) reads its iteration from a device buffer, so no stream
 id is frozen into the capture. Both forms give the same bits.
+
+:func:`uniform_slots` on CUDA path ids is one launch of a hand-written
+kernel (``csrc/rng_slots.cu``) with the same bits; on CPU tensors it runs
+the plain version (:func:`_uniform_slots_plain`), which the JAX package's
+tests hold and which the kernel's tests hold the kernel to.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops import _cuda
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -83,6 +90,7 @@ def tea6(k0, k1, c0, c1):
     return v0, v1
 
 
+# In the order of csrc/rng_slots.cu's generator codes (0, 1).
 _GENERATORS = {"threefry": threefry2x32, "tea": tea6}
 
 
@@ -102,7 +110,30 @@ def uniform_slots(seed: int, stream, path_ids, n_slots: int,
     n_slots:   number of random values per path
     generator: "threefry" (default) or "tea" — the reference's LEGACY_RNG
                mixing function in counter mode (its `old_rng` build flavor)
+
+    CUDA path ids launch :func:`uniform_slots_kernel`, CPU ones run
+    :func:`_uniform_slots_plain`: the same bits either way.
     """
+    if isinstance(path_ids, torch.Tensor) and path_ids.is_cuda:
+        return uniform_slots_kernel(seed, stream, path_ids, n_slots,
+                                    generator)
+    _check_args("uniform_slots", path_ids, n_slots, generator)
+    return _uniform_slots_plain(seed, stream, path_ids, n_slots, generator)
+
+
+def _check_args(name: str, path_ids, n_slots: int, generator: str) -> None:
+    req = _cuda.require
+    req(generator in _GENERATORS, f"{name}: unknown generator {generator!r}")
+    req(n_slots >= 1, f"{name}: n_slots >= 1")
+    req(isinstance(path_ids, torch.Tensor)
+        and not path_ids.dtype.is_floating_point
+        and not path_ids.dtype.is_complex and path_ids.dtype != torch.bool,
+        f"{name}: path ids are an integer tensor")
+
+
+def _uniform_slots_plain(seed: int, stream, path_ids, n_slots: int,
+                         generator: str = "threefry"):
+    """:func:`uniform_slots` as int64 tensor arithmetic (any device)."""
     bits2x32 = _GENERATORS[generator]
     path_ids = _u32(path_ids)
     k0 = seed & _MASK
@@ -113,6 +144,46 @@ def uniform_slots(seed: int, stream, path_ids, n_slots: int,
         out.append(_to_unit_float(b0))
         out.append(_to_unit_float(b1))
     return torch.stack(out[:n_slots], dim=-1)
+
+
+def uniform_slots_kernel(seed: int, stream, path_ids, n_slots: int,
+                         generator: str = "threefry"):
+    """Launch ``csrc/rng_slots.cu`` -> [..., n_slots] float32 on the path
+    ids' card, bit for bit :func:`_uniform_slots_plain`. A stream tensor
+    on the card is read by the kernel when it runs (a graph's replay
+    reads its own iteration's stream)."""
+    _check_args("uniform_slots_kernel", path_ids, n_slots, generator)
+    req = _cuda.require
+    dev = path_ids.device
+    req(dev.type == "cuda", "uniform_slots_kernel needs CUDA path ids")
+    req(path_ids.dtype == torch.int64, "uniform_slots_kernel: int64 path ids")
+    req(path_ids.is_contiguous(), "uniform_slots_kernel: contiguous path ids")
+    n = path_ids.numel()
+    req(n * n_slots < 2 ** 31, "uniform_slots_kernel: too many slots")
+    word, word_ptr = stream, None
+    if isinstance(stream, torch.Tensor):
+        req(stream.numel() == 1 and stream.dtype == torch.int64
+            and stream.device == dev,
+            "uniform_slots_kernel: the stream is a 0-dim int64 tensor on "
+            "the path ids' card")
+        word, word_ptr = 0, stream.data_ptr()
+    out = torch.empty((*path_ids.shape, n_slots), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    lib = _cuda.load_library()
+    status = lib.svcm_uniform_slots(
+        out.data_ptr(), path_ids.data_ptr(), n, n_slots, int(seed) & _MASK,
+        int(word) & _MASK, word_ptr, tuple(_GENERATORS).index(generator),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "svcm_uniform_slots")
+    uniform_slots_kernel.launches += 1
+    return out
+
+
+# Kernel launches on the device: graphs.py takes a capture's increment back
+# and adds it at every replay (as ops/sweep.py's sweep_kernel.launches).
+uniform_slots_kernel.launches = 0
 
 
 def make_stream(iteration, stage: int, bounce: int = 0):

@@ -76,7 +76,7 @@ requires grad (``diff.py``'s gradients, the sweep's autograd Function in
 back to eager launches on a card: a failed capture or replay raises.
 
 The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``,
-the stage clocks' ``trace.stamp_kernel``) and the exchanges' ``.bytes``
+``core/rng.py``, the stage clocks' ``trace.stamp_kernel``) and the exchanges' ``.bytes``
 counters (``parallel/comm.py``) are bumped in Python, which runs at
 capture and not at replay. So a capture takes its increments back and
 records them, and each replay adds them: the counters count launches and
@@ -102,6 +102,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import trace
+from .core import rng
 from .ops import merge as merge_ops
 from .ops import sweep as sweep_ops
 from .parallel import comm
@@ -130,6 +131,8 @@ def _counters():
             ("sweep.any_hit_launches", sweep_ops.occluded_kernel,
              "launches"),
             ("merge.launches", merge_ops.merge_cells_kernel, "launches"),
+            ("rng.uniform_slots_launches", rng.uniform_slots_kernel,
+             "launches"),
             ("comm.all_gather_bytes", comm.all_gather_columns, "bytes"),
             ("comm.ring_shift_bytes", comm.ring_shift, "bytes"),
             ("trace.stamp_launches", trace.stamp_kernel, "launches"))

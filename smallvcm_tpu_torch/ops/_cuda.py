@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint32
 
 # C signatures of the entry points: name -> argtypes (restype is int).
 SIGNATURES = {
@@ -59,6 +60,9 @@ SIGNATURES = {
     # times, lanes, row, iteration (or NULL), count (or NULL), base, rows,
     # slots, slot, stream
     "svcm_trace_stamp": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # out, path ids, n, n_slots, seed word, stream word, stream word's
+    # device int64 (or NULL), generator, stream
+    "svcm_uniform_slots": (_P, _P, _I, _I, _U, _U, _P, _I, _P),
 }
 
 

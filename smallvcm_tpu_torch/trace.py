@@ -11,7 +11,7 @@ where the work happens, which the module that owns them reports here
 under the names the summary gives them:
 
 - graphs.py: the kernels' ``.launches`` (``ops/sweep.py``,
-  ``ops/merge.py``, :func:`stamp_kernel`) and the exchanges' ``.bytes``
+  ``ops/merge.py``, ``core/rng.py``, :func:`stamp_kernel`) and the exchanges' ``.bytes``
   (``parallel/comm.py``), bumped in Python beside a device launch or
   transfer, which a CUDA graph's replay does not run (graphs.py takes a
   capture's increments back and adds them at each replay, so they count

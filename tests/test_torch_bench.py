@@ -359,7 +359,8 @@ def test_split_profile_attributes_by_launch_time():
     assert got["kernels"] == {
         "intersect_sweep": dict(launches=1, device_ms=0.3),
         "occluded_sweep": dict(launches=1, device_ms=0.4),
-        "merge_cells": dict(launches=1, device_ms=0.5)}
+        "merge_cells": dict(launches=1, device_ms=0.5),
+        "uniform_slots": dict(launches=0, device_ms=0.0)}
     with pytest.raises(RuntimeError, match="no CUDA kernel"):
         bench_torch.split_profile(events[:13])
 

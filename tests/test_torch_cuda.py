@@ -6,7 +6,8 @@ port is installed, without the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the sweeps exactly: closest-hit distances and occlusion
+Tolerances: the RNG kernel bit for bit (integer arithmetic, and an
+exact conversion to float); the sweeps exactly: closest-hit distances and occlusion
 answers bit for bit (both sides round each product and sum alike; the
 kernels are built with -fmad=false), primitive ids equal except on exact
 ties; the merge's per-query sums to
@@ -22,6 +23,7 @@ import torch
 
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm
+from smallvcm_tpu_torch.core import rng
 from smallvcm_tpu_torch.core.vec3 import V3
 from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
 from smallvcm_tpu_torch.ops import merge as M
@@ -503,3 +505,137 @@ def test_pair_merge_on_card_matches_cpu_and_cell_kernel(dev, span_radii):
     for g, t_, w in zip(got, cells, want):
         torch.testing.assert_close(g.cpu(), w, rtol=3e-5, atol=1e-7)
         torch.testing.assert_close(t_, g, rtol=3e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The RNG kernel (csrc/rng_slots.cu) against the plain int64 chain
+# ---------------------------------------------------------------------------
+
+
+def _ids(n, seed, dev):
+    """n path ids: 0, 2**32 - 1 and ids above 2**32 (taken mod 2**32)
+    first, then random ones below 2**34."""
+    edge = [0, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 7, 2 ** 40 + 3, 1]
+    r = np.random.default_rng(seed)
+    ids = np.concatenate([np.array(edge, np.int64),
+                          r.integers(0, 2 ** 34, max(n - len(edge), 0))])
+    return torch.from_numpy(ids[:n].astype(np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("generator", ["threefry", "tea"])
+@pytest.mark.parametrize("seed", [1234, 2 ** 32 + 3])
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 4, 5])
+def test_uniform_slots_kernel_matches_plain(dev, generator, seed, n_slots):
+    """Bit for bit, with the stream as an int and as a 0-dim device
+    tensor, through uniform_slots' dispatch: one launch a call."""
+    ids = _ids(4099, seed % 1000 + n_slots, dev)
+    stream = rng.make_stream(12345, rng.STAGE_CAMERA_NEE, 7)
+    want = rng._uniform_slots_plain(seed, stream, ids, n_slots, generator)
+    before = rng.uniform_slots_kernel.launches
+    for s in (stream, torch.tensor(stream, dtype=torch.int64, device=dev)):
+        got = rng.uniform_slots(seed, s, ids, n_slots, generator)
+        assert got.shape == (4099, n_slots) and got.dtype == torch.float32
+        assert got.is_cuda and torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert rng.uniform_slots_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, 262_144])
+def test_uniform_slots_kernel_sizes(dev, n):
+    """Every size of the main path and its edges, both generators, odd and
+    even slots, and ids of any leading shape ([2, n / 2] gives [2, n / 2,
+    n_slots])."""
+    ids = _ids(n, n, dev)
+    stream = torch.tensor(rng.make_stream(3, rng.STAGE_LIGHT_WALK, 1),
+                          dtype=torch.int64, device=dev)
+    before = rng.uniform_slots_kernel.launches
+    for generator in ("threefry", "tea"):
+        for n_slots in (3, 4):
+            got = rng.uniform_slots_kernel(99, stream, ids, n_slots,
+                                           generator)
+            want = rng._uniform_slots_plain(99, stream, ids, n_slots,
+                                            generator)
+            assert got.shape == (n, n_slots) and torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert rng.uniform_slots_kernel.launches == before + (4 if n else 0)
+    if n % 2 == 0 and n:
+        got = rng.uniform_slots(99, stream, ids.view(2, n // 2), 5)
+        assert torch.equal(got, rng._uniform_slots_plain(
+            99, stream, ids, 5).view(2, n // 2, 5))
+
+
+def test_uniform_slots_kernel_graph_reads_the_iteration(dev):
+    """Captured once in a CUDA graph with the stream made from a 0-dim
+    iteration buffer: each replay after the buffer changes gives that
+    iteration's bits, so no stream is frozen into the capture."""
+    ids = _ids(262_144, 5, dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def draw():
+        return rng.uniform_slots(
+            1234, rng.make_stream(it, rng.STAGE_CAMERA_WALK, 3), ids, 4)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = draw()
+    seen = []
+    for k in (1, 2, 8388607, 0):
+        it.fill_(k)
+        graph.replay()
+        want = rng._uniform_slots_plain(
+            1234, rng.make_stream(k, rng.STAGE_CAMERA_WALK, 3), ids, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        seen.append(out.clone())
+    assert not torch.equal(seen[0], seen[1])
+
+
+def test_uniform_slots_kernel_wrapper_checks(dev):
+    ids = torch.arange(64, dtype=torch.int64, device=dev)
+    before = rng.uniform_slots_kernel.launches
+    for args, match in (
+            ((1234, 9, ids.int(), 2), "int64"),
+            ((1234, 9, ids.view(8, 8).t(), 2), "contiguous"),
+            ((1234, 9, ids.float(), 2), "integer"),
+            ((1234, 9, ids, 0), "n_slots"),
+            ((1234, 9, ids, 2, "philox"), "generator"),
+            ((1234, torch.tensor(9, dtype=torch.int32, device=dev), ids, 2),
+             "stream")):
+        with pytest.raises(ValueError, match=match):
+            rng.uniform_slots(*args)
+    assert rng.uniform_slots_kernel.launches == before
+
+
+@pytest.mark.parametrize("alg,calls", [("pt", 21), ("vcm", 31)])
+def test_iteration_graphs_equal_plain_rng_on_card(dev, alg, calls,
+                                                  monkeypatch):
+    """A pt and a VCM iteration at 64x64 (iteration 0 eager, 1 captured,
+    2-3 replayed) give bitwise the same images and rays with the kernel as
+    with uniform_slots patched to the plain int64 chain, and the kernel is
+    launched once a call: pt 21 and VCM 31 an iteration, replays counted."""
+    from smallvcm_tpu_torch import graphs
+
+    def run():
+        scene = load_cornell_box((64, 64), SCENE_CONFIGS[0], device=dev)
+        cfg = R.RenderConfig(algorithm=alg, resolution=(64, 64))
+        before = rng.uniform_slots_kernel.launches
+        out = []
+        for it in range(4):
+            img, rays = R.render_iteration(scene, cfg, alg, it)
+            out.append((img.clone(), int(rays)))
+        return out, rng.uniform_slots_kernel.launches - before
+
+    captures = graphs.stage.captures
+    got, launches = run()
+    assert graphs.stage.captures > captures
+    assert launches == 4 * calls
+    monkeypatch.setattr(rng, "uniform_slots", rng._uniform_slots_plain)
+    want, plain_launches = run()
+    assert plain_launches == 0
+    for (a, ra), (b, rb) in zip(got, want):
+        assert torch.equal(a, b) and ra == rb
