@@ -940,6 +940,14 @@ def merge_stage(
     4. The survivors' BSDF and MIS weights, summed per query and routed to
        the owning path (framebuffer.deterministic_index_add).
 
+    Stage clocks (trace.py): ``pair_tables`` after steps 1-2,
+    ``pair_expand`` after step 3 with the candidate pairs, ``pair_shade``
+    after step 4 with the survivors. With more than one chunk steps 3 and
+    4 interleave, so ``pair_expand`` is not stamped and ``pair_shade``
+    clocks both. The survivor rows that step 4 runs at (``surv_cap``
+    times the chunks) are kept in ``merge_stage.surv_rows``, which the
+    trace reports.
+
     Every truncation is JAX's: the first ``photon_cap`` photons in cell
     order, the first ``query_cap`` queries, the first ``pair_cap_c`` pairs
     and ``surv_cap`` survivors of a chunk; each one counts in
@@ -1008,6 +1016,7 @@ def merge_stage(
     qrow20 = torch.cat([f2i(qpos[0])[None], f2i(qpos[1])[None],
                         f2i(qpos[2])[None], q_len.to(i32)[None],
                         incl.to(i32), adj.to(i32)])
+    trace.stamp("pair_tables")
 
     # ---- 3+4. Per query chunk: expand, test, compact, evaluate, sum. -----
     qc_n = query_cap // merge_chunks
@@ -1024,6 +1033,7 @@ def merge_stage(
     mats = scene.materials
     ovf_pe = torch.zeros((), dtype=torch.int64, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    merge_stage.surv_rows = surv_cap * merge_chunks
     acc = []
     for c in range(merge_chunks):
         base = c * qc_n
@@ -1070,6 +1080,9 @@ def merge_stage(
         p_c = (torch.sort(key).values[:surv_cap] & ((1 << 30) - 1)).long()
         n_surv = ok.sum()
         ovf_pe = ovf_pe + (n_surv - surv_cap).clamp_min(0)
+        survivors = n_surv if c == 0 else survivors + n_surv
+        if merge_chunks == 1:   # chunks interleave: "pair_shade" clocks all
+            trace.stamp("pair_expand", count=total)
         ok2 = torch.arange(surv_cap, device=dev) < n_surv
         qs = qseg[p_c]                                    # chunk's query
         q_src = idx_q[qs + base]
@@ -1110,8 +1123,15 @@ def merge_stage(
                                                      n_paths), acc)
     out = (V3(z[:, 0], z[:, 1], z[:, 2]), ovf_p + ovf_q + ovf_pe,
            torch.stack([pairs, n_p, n_q]))
-    trace.stamp("merge_kernel")
+    trace.stamp("pair_shade", count=survivors)
     return out
+
+
+# The survivor rows of the last pair merge built (a static size, at
+# capture on a card); reported as the counter ``vcm.pair_surv_rows``.
+merge_stage.surv_rows = 0
+trace.report_counters("vcm", lambda: {
+    "vcm.pair_surv_rows": merge_stage.surv_rows})
 
 
 MERGE_BACKENDS = ("auto", "pallas", "xla")

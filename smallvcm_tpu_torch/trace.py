@@ -18,7 +18,9 @@ under the names the summary gives them:
   work on the device); and ``graphs.stage.captures``, ``.replays`` and
   ``.capture_s`` (the sum of the ``graphs.capture`` spans);
 - render.py: ``render.render.rerendered_blocks``, each block rendered
-  again after a merge cap overflow.
+  again after a merge cap overflow;
+- algorithms/vcm.py: ``vcm.pair_surv_rows``, the survivor rows the last
+  pair merge built shades (a static size).
 
 **Spans** (:class:`span`): a name, the start and end in ns on the host's
 wall clock (``time.time_ns``, the clock of the torch profiler's host
@@ -44,9 +46,11 @@ a card (:func:`block`), each stage of an iteration ends with a stamp: a
 one-thread kernel (``csrc/trace_stamp.cu``) that writes the device's
 ``%globaltimer`` into row ``iteration mod ROWS`` of a small float64 ring on
 the card, in the stage's slot (:data:`STAGES`; the bounces of the walks in
-:data:`BOUNCES`, each with its live lanes). The ``start`` stamp reads the
-iteration from device memory (a graph's 0-dim input buffer) and leaves the
-row for the stamps after it, so a replay stamps its own row. Stamps are
+:data:`BOUNCES`, each with its live lanes; a stage may carry a count too,
+as the pair merge's carry their candidate pairs and survivors). The
+``start`` stamp reads the iteration from device memory (a graph's 0-dim
+input buffer) and leaves the row for the stamps after it, so a replay
+stamps its own row. Stamps are
 captured into the iteration's graph (whether a graph stamps is part of its
 key, graphs.py) and write nothing but the ring, so images do not change.
 The block's rows ride in the block's one host read (render.py). A
@@ -87,7 +91,13 @@ MAX_BOUNCES = 32
 # Iterations recorded a device, oldest dropped first.
 ROWS_KEPT = 4096
 STAGES = ("start", "light_walk", "splat_flush", "camera_walk", "exchange",
-          "merge_prep", "merge_kernel", "ring", "finish")
+          "merge_prep", "merge_kernel", "pair_tables", "pair_expand",
+          "pair_shade", "ring", "finish")
+# The stages of a merge: the cell merge's (ops/merge.py) or the pair
+# merge's (algorithms/vcm.py::merge_stage); the summary's ``merge`` sums
+# those an iteration stamped.
+MERGE_STAGES = ("merge_prep", "merge_kernel", "pair_tables", "pair_expand",
+                "pair_shade")
 BOUNCES = ("light.sample", *(f"light.b{i}" for i in range(MAX_BOUNCES)),
            "camera.sample", *(f"camera.b{i}" for i in range(MAX_BOUNCES)))
 _CALIBRATION = "calibration"
@@ -407,7 +417,8 @@ def stamp(name: str, iteration=None, count=None) -> None:
     """End of stage or bounce ``name`` on the armed device (a no-op
     outside a block, and for a bounce past MAX_BOUNCES). ``iteration`` (a
     0-dim int64 device tensor or an int) starts the iteration's row;
-    ``count`` (0-dim int64) is a bounce's live lanes."""
+    ``count`` (0-dim int64) is a bounce's live lanes or what a stage
+    counts."""
     clock = _armed
     slot = _SLOT.get(name)
     if clock is None or slot is None or name in _held:
@@ -422,8 +433,9 @@ def stamp(name: str, iteration=None, count=None) -> None:
 
 def _iterations(blocks):
     """Each iteration of recorded ``blocks`` in order, as (start, end,
-    {stage: ns}, {bounce: (ns, lanes)}, new_block) with start and end in
-    ns since the fit; rows whose start is not after the previous row's
+    {stage: ns}, {bounce: (ns, lanes)}, new_block, {stage: count}) with
+    start and end in ns since the fit, the counts of the stages whose
+    stamp carried one; rows whose start is not after the previous row's
     end (never stamped, or left from an earlier iteration) are skipped."""
     stage_slots = np.arange(len(STAGES))
     prev_end = 0
@@ -438,13 +450,14 @@ def _iterations(blocks):
             order = st[np.argsort(t[st], kind="stable")]
             stages = {STAGES[s]: int(t[s] - t[p])
                       for p, s in zip(order, order[1:])}
+            counts = {STAGES[s]: int(n[s]) for s in order[1:] if n[s] >= 0}
             every = np.nonzero(valid[:-1])[0]
             every = every[np.argsort(t[every], kind="stable")]
             bounces = {SLOT_NAMES[s]: (int(t[s] - t[p]), int(n[s]))
                        for p, s in zip(every, every[1:])
                        if s >= len(STAGES)}
             end = int(t[order[-1]])
-            yield int(start), end, stages, bounces, new_block
+            yield int(start), end, stages, bounces, new_block, counts
             new_block = False
             prev_end = end
 
@@ -453,6 +466,17 @@ def _stats(ns) -> dict:
     ms = np.asarray(ns, dtype=np.float64) / 1e6
     return dict(median_ms=float(np.median(ms)), min_ms=float(ms.min()),
                 max_ms=float(ms.max()), iterations=int(ms.size))
+
+
+def _stats_with(ns_by_name: dict, extra: dict, key: str) -> dict:
+    """:func:`_stats` of each name's ns, with the median of its ``extra``
+    values under ``key`` where it has any."""
+    out = {}
+    for name, ns in ns_by_name.items():
+        out[name] = _stats(ns)
+        if name in extra:
+            out[name][key] = float(np.median(extra[name]))
+    return out
 
 
 def _name_gaps(gaps) -> dict:
@@ -472,12 +496,13 @@ def _name_gaps(gaps) -> dict:
 
 
 def _clock_summary(clocks) -> dict:
-    stages, bounces, lanes = {}, {}, {}
+    stages, bounces, lanes, counts = {}, {}, {}, {}
     shares, gaps = [], []
     for clock in clocks:
         prev = None             # the last iteration's end, this device
         block_from = idle = None
-        for start, end, st, bo, new_block in _iterations(clock.blocks):
+        for start, end, st, bo, new_block, co in _iterations(
+                clock.blocks):
             if new_block:
                 if block_from is not None and prev > block_from:
                     shares.append(idle / (prev - block_from))
@@ -486,24 +511,21 @@ def _clock_summary(clocks) -> dict:
                 idle += start - prev
                 gaps.append((clock.to_host(prev), start - prev))
             prev = end
-            merge = [st[s] for s in ("merge_prep", "merge_kernel") if s in st]
+            merge = [st[s] for s in MERGE_STAGES if s in st]
             for name, ns in (*st.items(), ("iteration", end - start),
                              *((("merge", sum(merge)),) if merge else ())):
                 stages.setdefault(name, []).append(ns)
+            for name, c in co.items():
+                counts.setdefault(name, []).append(c)
             for name, (ns, live) in bo.items():
                 bounces.setdefault(name, []).append(ns)
                 if live >= 0:
                     lanes.setdefault(name, []).append(live)
         if block_from is not None and prev > block_from:
             shares.append(idle / (prev - block_from))
-    out_bounces = {}
-    for name, ns in bounces.items():
-        out_bounces[name] = _stats(ns)
-        if name in lanes:
-            out_bounces[name]["lanes"] = float(np.median(lanes[name]))
     return dict(
-        stages={name: _stats(ns) for name, ns in stages.items()},
-        bounces=out_bounces,
+        stages=_stats_with(stages, counts, "count"),
+        bounces=_stats_with(bounces, lanes, "lanes"),
         idle=dict(share_median=float(np.median(shares)) if shares else None,
                   blocks=len(shares), gaps_s=_name_gaps(gaps)))
 
@@ -515,7 +537,7 @@ def block_stages(dev: torch.device) -> dict:
     if clock is None or not clock.blocks:
         return {}
     st = {}
-    for _, _, stages, _, _ in _iterations([clock.blocks[-1]]):
+    for _, _, stages, _, _, _ in _iterations([clock.blocks[-1]]):
         for name, ns in stages.items():
             st.setdefault(name, []).append(ns)
     return {name: float(np.median(ns)) / 1e6 for name, ns in st.items()}
@@ -536,9 +558,12 @@ def summary() -> dict:
       ``name.how`` for a span with a ``how``;
     - ``stages`` and ``bounces``: {name: {median_ms, min_ms, max_ms,
       iterations}} of device ms an iteration, over every recorded
-      iteration (a bounce also with the median of its live ``lanes``);
-      the stages add ``iteration`` (first to last stamp) and ``merge``
-      (preparation plus kernel);
+      iteration (a bounce also with the median of its live ``lanes``, a
+      stage whose stamp carried a count with the median ``count``); the
+      stages add ``iteration`` (first to last stamp) and ``merge`` (the
+      sum of the iteration's :data:`MERGE_STAGES`: the cell merge's
+      preparation plus kernel, or the pair merge's tables, expansion and
+      shading);
     - ``idle``: ``share_median``, the median over blocks of the device's
       share outside the iteration graphs (gaps between an iteration's
       last stamp and the next one's first, the gap before a block's first

@@ -20,6 +20,7 @@ import torch
 from benchmark.harness import spec
 from smallvcm_tpu_torch import graphs, trace
 from smallvcm_tpu_torch import render as R
+from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.ops import sweep as S
 from smallvcm_tpu_torch.parallel import comm, multihost
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
@@ -278,7 +279,7 @@ def test_stage_clocks_on_the_stand_in_clock(cpu_clock, capsys):
     for _, times, _ in cpu_clock.blocks:
         for t in times:
             assert (t >= t[0]).sum() == 16
-    for start, end, stages, _, _ in trace._iterations(cpu_clock.blocks):
+    for start, end, stages, _, _, _ in trace._iterations(cpu_clock.blocks):
         assert sum(stages.values()) == end - start
     assert s["idle"]["blocks"] == 2 and 0 <= s["idle"]["share_median"] < 1
     assert set(s["idle"]["gaps_s"]) <= {"render.host_read", "render.block",
@@ -293,6 +294,80 @@ def test_stage_clocks_on_the_stand_in_clock(cpu_clock, capsys):
     assert set(s["stages"]) == {"camera_walk", "finish", "iteration"}
     assert {f"camera.b{i}" for i in range(4)} | {"camera.sample"} == set(
         s["bounces"])
+
+
+def _pair_render(iterations=4, block=2):
+    """A VCM render through the pair merge, its merge radius widened so
+    that the few paths find photon pairs."""
+    return _render("vcm", iterations=iterations, block=block,
+                   merge_backend="xla", radius_factor=0.05)
+
+
+def test_pair_merge_stamps_its_three_stages_with_their_counts(cpu_clock):
+    """The pair merge's tables, expansion (its candidate pairs) and
+    shading (its survivors) each end with a stamp; ``merge`` is their sum
+    and the cell merge's stamps are absent. The cell merge's iteration
+    stamps and sums its preparation and kernel as before."""
+    _pair_render()
+    s = trace.summary()
+    st = s["stages"]
+    assert {"pair_tables", "pair_expand", "pair_shade", "merge"} <= set(st)
+    assert not {"merge_prep", "merge_kernel"} & set(st)
+    assert "count" not in st["pair_tables"]
+    assert 0 < st["pair_shade"]["count"] <= st["pair_expand"]["count"]
+    assert st["pair_shade"]["count"] <= s["counters"]["vcm.pair_surv_rows"]
+    pairs = []
+    for first, times, _ in cpu_clock.blocks:
+        for i in range(len(times)):
+            demand = vcm.merge_measure_iteration(
+                _scene(), first + i, RES, RES, max_path_length=4,
+                radius_factor=0.05)
+            pairs.append(demand[0])
+    rows = list(trace._iterations(cpu_clock.blocks))
+    assert len(rows) == len(pairs) == 4
+    for (_, _, stages, _, _, counts), want in zip(rows, pairs):
+        assert counts["pair_expand"] == want
+        assert set(counts) == {"pair_expand", "pair_shade"}
+    merge = sorted(sum(stages[k] for k in ("pair_tables", "pair_expand",
+                                           "pair_shade"))
+                   for _, _, stages, _, _, _ in rows)
+    assert st["merge"]["median_ms"] == pytest.approx(
+        (merge[1] + merge[2]) / 2e6)
+
+    trace.reset()
+    cpu_clock.blocks.clear()
+    _render("vcm", iterations=2)
+    st = trace.summary()["stages"]
+    assert not {"pair_tables", "pair_expand", "pair_shade"} & set(st)
+    for _, _, stages, _, _, counts in trace._iterations(cpu_clock.blocks):
+        assert counts == {}
+    assert st["merge"]["iterations"] == 2
+    assert {"merge_prep", "merge_kernel"} <= set(st)
+
+
+def test_chunked_pair_merge_clocks_expansion_and_shading_as_one(
+        cpu_clock, monkeypatch):
+    """In more than one query chunk expansion and shading interleave: no
+    ``pair_expand`` stamp, and ``pair_shade`` clocks both."""
+    one, _, _, _ = _pair_render(iterations=2)
+    trace.reset()
+    cpu_clock.blocks.clear()
+    monkeypatch.setattr(vcm, "merge_chunks_for", lambda factor, n: 2)
+    two, _, _, _ = _pair_render(iterations=2)
+    st = trace.summary()["stages"]
+    assert "pair_expand" not in st
+    assert {"pair_tables", "pair_shade", "merge"} <= set(st)
+    for _, _, stages, _, _, counts in trace._iterations(cpu_clock.blocks):
+        assert set(counts) == {"pair_shade"}
+    assert torch.equal(one, two)
+
+
+def test_pair_merge_images_equal_bit_for_bit_with_the_clocks_off(cpu_clock):
+    on, _, _, rays_on = _pair_render(iterations=3)
+    assert cpu_clock.blocks
+    trace.enable(device=False)
+    off, _, _, rays_off = _pair_render(iterations=3)
+    assert torch.equal(on, off) and rays_on == rays_off
 
 
 def test_a_larger_block_keeps_its_last_rows(cpu_clock):
@@ -313,7 +388,8 @@ def test_summary_has_its_documented_shape(cpu_clock):
             "comm.all_gather_bytes",
             "comm.ring_shift_bytes", "trace.stamp_launches",
             "graphs.captures", "graphs.replays", "graphs.capture_s",
-            "render.rerendered_blocks"} == set(s["counters"])
+            "render.rerendered_blocks", "vcm.pair_surv_rows"} == set(
+                s["counters"])
     assert s["counters"]["comm.all_gather_bytes"] == \
         comm.all_gather_columns.bytes
     assert s["counters"]["graphs.replays"] == graphs.stage.replays
@@ -500,9 +576,12 @@ def dev():
 
 
 def _card_render(dev, alg, iterations=6, block=3):
+    """``alg`` "vcm_xla" is VCM through the pair merge."""
     scene = load_cornell_box((64, 64), SCENE_CONFIGS[0], device=dev)
-    cfg = R.RenderConfig(algorithm=alg, iterations=iterations,
-                         resolution=(64, 64), block_size=block)
+    backend = "xla" if alg == "vcm_xla" else "auto"
+    cfg = R.RenderConfig(algorithm=alg.split("_")[0], iterations=iterations,
+                         resolution=(64, 64), block_size=block,
+                         merge_backend=backend)
     img, _, _, rays = R.render(scene, cfg)
     return img.cpu(), rays
 
@@ -516,10 +595,12 @@ ORDER = {
     "pt": ["start", "camera.sample", *(f"camera.b{i}" for i in range(10)),
            "camera_walk", "finish"],
 }
+ORDER["vcm_xla"] = [*ORDER["vcm"][:-3], "pair_tables", "pair_expand",
+                    "pair_shade", "finish"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("alg", ["vcm", "pt"])
+@pytest.mark.parametrize("alg", ["vcm", "pt", "vcm_xla"])
 def test_stamps_increase_within_every_iteration_on_card(dev, alg):
     launches = trace.stamp_kernel.launches
     _card_render(dev, alg)
@@ -534,13 +615,13 @@ def test_stamps_increase_within_every_iteration_on_card(dev, alg):
             assert t[slots[-1]] > t[slots[0]]
             rows += 1
     assert rows == 6
-    for start, end, stages, _, _ in trace._iterations(clock.blocks):
+    for start, end, stages, _, _, _ in trace._iterations(clock.blocks):
         # The stages sum to the first-to-last stamp time (within 1%).
         assert sum(stages.values()) == pytest.approx(end - start, rel=0.01)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("alg", ["vcm", "pt"])
+@pytest.mark.parametrize("alg", ["vcm", "pt", "vcm_xla"])
 def test_images_bit_for_bit_with_the_clocks_on_and_off_on_card(dev, alg):
     on, rays_on = _card_render(dev, alg)
     trace.enable(device=False)
