@@ -24,7 +24,12 @@ Phases (each one raises on failure; nothing is caught):
    and ids above 2**32 among them), 2-5 slots, Threefry and TEA, the
    stream as a device tensor and as an int, with each call's time, the
    plain chain's and the bound from the kernel's SASS instructions
-   (cuobjdump), and their totals over one VCM iteration's 31 calls;
+   (cuobjdump), and their totals over one VCM iteration's 31 calls; the
+   BSDF kernel (csrc/bsdf.cu) against the plain chains bit for bit (NaNs
+   equal) on scene 0's materials: setup, evaluate, pdf, sample and
+   sample_with_pdf over 262,144 lanes, evaluate over an expanded [8, N]
+   camera state and setup_evaluate over [8, N], each call's time against
+   its bytes bound, and the totals over one VCM iteration's walk calls;
 4. the merge kernel against its plain version on every row of the merge
    tables of one real 512x512 scene-0 VCM iteration at the main path's
    static caps (dead rows zero; the live count, r^2 and the MIS weight
@@ -231,6 +236,22 @@ SM_CLOCK_HZ = 1.98e9
 # calls (scripts/torch_dispatch_split.py counts them by slots;
 # tests/test_torch_cuda.py counts 31 launches an iteration).
 RNG_VCM_CALLS = {2: 1, 3: 10, 4: 19, 5: 1}
+# csrc/bsdf.cu is bound by bytes: (read, written) a lane, each operand
+# byte counted once (f32 4, an int64 material id 8, a mask 1; sample reads
+# three of its four uniforms), by op. An expanded camera state of a
+# connection window is read once from its [N] base (the state's 65 bytes
+# of evaluate's 77).
+BSDF_LANE_BYTES = {"setup": (33, 82), "evaluate": (77, 24),
+                   "sample": (89, 45), "setup_evaluate": (45, 28)}
+BSDF_STATE_BYTES = 65
+# One VCM iteration's BSDF calls at the walks' shapes (tests/
+# test_torch_cuda.py counts 75 launches an iteration): over [N] lanes,
+# 19 bounces (9 light, 10 camera) of setup, evaluate and sample; the
+# connection windows, [w, N] for w = 8 down to 1, of evaluate (an
+# expanded camera state) and setup_evaluate; the merge's two setups at its
+# caps are left out.
+BSDF_VCM_BOUNCES = 19
+BSDF_VCM_WINDOWS = tuple(range(8, 0, -1))
 
 
 # The script's own time limit (the card's check runs it under 1200 s):
@@ -674,6 +695,161 @@ def rng_bound_ms(torch, dev, n: int, n_slots: int, instructions):
                                          else "issue")
 
 
+def _bits_differ(torch, got, want) -> str:
+    """'' where ``got`` is ``want`` bit for bit (any NaN equal to any NaN),
+    else how many lanes differ and by how many ulps at most."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"{got.shape} {got.dtype} against {want.shape} {want.dtype}"
+    got, want = got.contiguous(), want.contiguous()
+    if got.dtype != torch.float32:
+        bad = int((got != want).sum())
+        return f"{bad} lanes" if bad else ""
+    gi, wi = got.view(torch.int32), want.view(torch.int32)
+    bad = (gi != wi) & ~(torch.isnan(got) & torch.isnan(want))
+    if not bool(bad.any()):
+        return ""
+    ulps = int((gi[bad].long() - wi[bad].long()).abs().max())
+    return f"{int(bad.sum())} lanes, up to {ulps} ulps"
+
+
+def check_bsdf(torch, dev):
+    """Phase 3, the BSDF: csrc/bsdf.cu's calls against the plain chains
+    (``ops/bsdf.py::setup_plain`` and its siblings) bit for bit, NaNs
+    equal, on scene 0's materials at the main path's shapes: setup,
+    evaluate, sample and sample_with_pdf over 262,144 lanes (hits and
+    misses, material ids -1 to the last), evaluate over a connection
+    window's expanded [8, N] camera state and setup_evaluate over a
+    contiguous [8, N] one; each call's device us against its bytes bound,
+    the plain chain's ms, and the totals over one VCM iteration's calls
+    (BSDF_VCM_BOUNCES, BSDF_VCM_WINDOWS), kernel and plain chain each
+    timed at every window width."""
+    from smallvcm_tpu_torch.core.vec3 import V3
+    from smallvcm_tpu_torch.ops import bsdf as B
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    scene = load_cornell_box((RES, RES), SCENE_CONFIGS[0]).to(dev)
+    mats = scene.materials
+    n, w = RES * RES, BSDF_VCM_WINDOWS[0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def lanes(shape):
+        d = [torch.randn((3, *shape), generator=g, device=dev)
+             for _ in range(3)]
+        ray, nrm, gen = (V3(*(x / x.norm(dim=0))) for x in d)
+        mat = torch.randint(-1, mats.ior.shape[0], shape, generator=g,
+                            device=dev)
+        hit = torch.rand(shape, generator=g, device=dev) < 0.85
+        return ray, nrm, mat, hit, gen
+
+    ray, nrm, mat, hit, gen = lanes((n,))
+    u = torch.rand((n, 4), generator=g, device=dev)
+    us = (u[:, 0], u[:, 1], u[:, 2])
+    state = B.setup_plain(mats, ray, nrm, mat, hit)
+    bro = lambda a: a.unsqueeze(0).expand(w, n)
+    wide = B.BsdfState(*(V3(*map(bro, f)) if isinstance(f, V3) else bro(f)
+                         for f in state))
+    wray, wnrm, wmat, whit, wgen = lanes((w, n))
+    wstate = B.setup_plain(mats, wray, wnrm, wmat, whit)
+
+    def sample_pdf_plain():
+        o = B.sample_plain(mats, state, *us, False)
+        return (*o, B.pdf(mats, state, o[1])[1])
+
+    # (name, op for the bytes, kernel call, plain call, lanes read as a
+    # whole state, lanes)
+    cases = (
+        ("setup", "setup", lambda: B.setup(mats, ray, nrm, mat, hit),
+         lambda: B.setup_plain(mats, ray, nrm, mat, hit), n, n),
+        ("evaluate", "evaluate", lambda: B.evaluate(mats, state, gen),
+         lambda: B.evaluate_plain(mats, state, gen), n, n),
+        ("sample", "sample", lambda: B.sample(mats, state, *us, False),
+         lambda: B.sample_plain(mats, state, *us, False), n, n),
+        ("sample_with_pdf", "sample",
+         lambda: B.sample_with_pdf(mats, state, *us, False),
+         sample_pdf_plain, n, n),
+        (f"evaluate [{w}, N], expanded state", "evaluate",
+         lambda: B.evaluate(mats, wide, wgen),
+         lambda: B.evaluate_plain(mats, wide, wgen), n, w * n),
+        (f"setup_evaluate [{w}, N]", "setup_evaluate",
+         lambda: B.setup_evaluate(mats, wray, wnrm, wmat, whit, wgen),
+         lambda: (*B.evaluate_plain(mats, wstate, wgen), wstate.cont_prob),
+         w * n, w * n),
+    )
+
+    def bytes_of(op, state_lanes, n_lanes):
+        read, written = BSDF_LANE_BYTES[op]
+        if state_lanes == n_lanes:
+            return n_lanes * (read + written)
+        return (state_lanes * BSDF_STATE_BYTES
+                + n_lanes * (read - BSDF_STATE_BYTES + written))
+
+    calls = {}
+    for name, op, kernel, plain, state_lanes, n_lanes in cases:
+        launches = B.bsdf_kernel.launches
+        got, want = kernel(), plain()
+        if B.bsdf_kernel.launches != launches + 1:
+            raise AssertionError(f"bsdf {name}: "
+                                 f"{B.bsdf_kernel.launches - launches} "
+                                 "launches, not one")
+        got, want = list(B._leaves(got)), list(B._leaves(want))
+        diffs = {k: d for k, (a, b) in enumerate(zip(got, want))
+                 if (d := _bits_differ(torch, a, b))}
+        if len(got) != len(want) or diffs:
+            raise AssertionError(f"bsdf {name}: output planes differ from "
+                                 f"the plain chain's: {diffs}")
+        ms = time_cuda(torch, kernel, 200)
+        plain_ms = time_cuda(torch, plain, 5)
+        b_ms, b_by = bound_ms(bytes_of(op, state_lanes, n_lanes), 0)
+        calls[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           lanes=n_lanes)
+        log(f"[bsdf] {name} x {n_lanes} lanes, bit for bit: kernel "
+            f"{1e3 * ms:.2f} us, plain {plain_ms:.3f} ms; bound "
+            f"{1e3 * b_ms:.2f} us by {b_by}, kernel at "
+            f"{100 * b_ms / ms:.1f}% of it")
+
+    # One VCM iteration's walks: the [N] calls, and each window width.
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for name in ("setup", "evaluate", "sample_with_pdf"):
+        for k in tot:
+            tot[k] += BSDF_VCM_BOUNCES * calls[name][k]
+    windows = []
+    for width in BSDF_VCM_WINDOWS:
+        sl = lambda a: a[:width]
+        sv = lambda v: V3(*map(sl, v))
+        wd = B.BsdfState(*(sv(f) if isinstance(f, V3) else sl(f)
+                           for f in wide))
+        ev = lambda: B.evaluate(mats, wd, sv(wgen))
+        se = lambda: B.setup_evaluate(mats, sv(wray), sv(wnrm), sl(wmat),
+                                      sl(whit), sv(wgen))
+        ev_plain = lambda: B.evaluate_plain(mats, wd, sv(wgen))
+
+        def se_plain():
+            b = B.setup_plain(mats, sv(wray), sv(wnrm), sl(wmat), sl(whit))
+            return (*B.evaluate_plain(mats, b, sv(wgen)), b.cont_prob)
+
+        ms = time_cuda(torch, ev, 100) + time_cuda(torch, se, 100)
+        plain_ms = time_cuda(torch, ev_plain, 5) + time_cuda(torch, se_plain,
+                                                             5)
+        b_ms = (bound_ms(bytes_of("evaluate", n, width * n), 0)[0]
+                + bound_ms(bytes_of("setup_evaluate", width * n,
+                                    width * n), 0)[0])
+        windows.append(dict(width=width, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms))
+        for k in tot:
+            tot[k] += windows[-1][k]
+    n_calls = 3 * BSDF_VCM_BOUNCES + 2 * len(BSDF_VCM_WINDOWS)
+    log(f"[bsdf] connection windows (evaluate + setup_evaluate) by width: "
+        + ", ".join(f"{x['width']}: {1e3 * x['ms']:.1f} us, plain "
+                    f"{x['plain_ms']:.3f} ms (bound "
+                    f"{1e3 * x['bound_ms']:.1f} us)" for x in windows))
+    log(f"[bsdf] one VCM iteration's {n_calls} walk calls: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.2f} ms, bound "
+        f"{1e3 * tot['bound_ms']:.1f} us by bytes, kernel at "
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it")
+    return dict(max_abs_err=0.0, **tot, bound_by="bytes", library_ms=None,
+                calls=calls, windows=windows)
+
+
 def check_rng(torch, dev):
     """Phase 3, the RNG: csrc/rng_slots.cu against ``_uniform_slots_plain``
     bit for bit at the main path's shapes (262,144 path ids, among them 0,
@@ -922,19 +1098,25 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
 def reset_counts(M, S):
     from smallvcm_tpu_torch.core import rng
 
+    from smallvcm_tpu_torch.ops import bsdf
+
     S.sweep_kernel.launches = 0
     S.occluded_kernel.launches = 0
     M.merge_cells_kernel.launches = 0
     rng.uniform_slots_kernel.launches = 0
+    bsdf.bsdf_kernel.launches = 0
 
 
 def read_counts(M, S) -> dict:
     from smallvcm_tpu_torch.core import rng
 
+    from smallvcm_tpu_torch.ops import bsdf
+
     return dict(intersect_sweep=S.sweep_kernel.launches,
                 occluded_sweep=S.occluded_kernel.launches,
                 merge_cells=M.merge_cells_kernel.launches,
-                uniform_slots=rng.uniform_slots_kernel.launches)
+                uniform_slots=rng.uniform_slots_kernel.launches,
+                bsdf=bsdf.bsdf_kernel.launches)
 
 
 def steady(blocks):
@@ -1186,7 +1368,8 @@ def check_gradients(torch, dev):
             raise AssertionError(f"grad {alg}: non-finite leaf")
         if float(g.light_intensity.x.abs().max()) <= 0.0:
             raise AssertionError(f"grad {alg}: zero light-intensity grad")
-        if launches["intersect_sweep"] <= 0 or launches["merge_cells"]:
+        if (launches["intersect_sweep"] <= 0 or launches["bsdf"] <= 0
+                or launches["merge_cells"]):
             raise AssertionError(f"grad {alg}: launches {launches}")
         log(f"[grad] {alg} {GRAD_RES}x{GRAD_RES} x1 forward+backward: "
             f"{times[0]:.1f} ms cold, {ms:.1f} ms warm, peak {peak:.2f} "
@@ -1216,6 +1399,59 @@ def check_gradients(torch, dev):
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     log(f"[grad-sweep] autograd Function vs plain sweep autograd on {n} "
         f"rays: max |grad err| {err:.3g} (rtol 1e-5)")
+
+    # (d) the BSDF kernel's gradient (ops/bsdf.py::_BsdfKernelFn) vs the
+    # plain chain's autograd, to the materials and the directions.
+    from smallvcm_tpu_torch.ops import bsdf as B
+
+    mat = torch.randint(-1, scene0.materials.ior.shape[0], (n,),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 3), device=dev)
+    u = torch.rand((n, 3), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 4), device=dev)
+
+    def bsdf_grads(kernel):
+        mats = [t.clone().requires_grad_() for t in
+                B._leaves(scene0.materials)]
+        rays = [a.clone().requires_grad_() for a in (*o, *d)]
+        m, nrm, gen = B._materials_of(mats), V3(*rays[:3]), V3(*rays[3:])
+        hit = mat >= 0
+        with torch.enable_grad():
+            before = B.bsdf_kernel.launches
+            if kernel:
+                b = B.setup(m, gen, nrm, mat, hit)
+                outs = (*B.evaluate(m, b, nrm), *B.sample_with_pdf(
+                    m, b, u[:, 0], u[:, 1], u[:, 2], False),
+                        *B.setup_evaluate(m, gen, nrm, mat, hit, nrm))
+            else:
+                b = B.setup_plain(m, gen, nrm, mat, hit)
+                s = B.sample_plain(m, b, u[:, 0], u[:, 1], u[:, 2], False)
+                outs = (*B.evaluate_plain(m, b, nrm), *s,
+                        B.pdf(m, b, s[1])[1],
+                        *B.evaluate_plain(m, b, nrm), b.cont_prob)
+            flat = [x for x in B._leaves(outs) if x.requires_grad]
+            total = sum(torch.nan_to_num(x * wts).sum() for x in flat)
+            grads = torch.autograd.grad(total, mats + rays,
+                                        allow_unused=True)
+        return ([torch.zeros_like(t) if g is None else g
+                 for t, g in zip(mats + rays, grads)],
+                B.bsdf_kernel.launches - before)
+
+    (got, k_launches), (want, p_launches) = bsdf_grads(True), \
+        bsdf_grads(False)
+    if k_launches != 4 or p_launches:
+        raise AssertionError(f"grad-bsdf: {k_launches} kernel launches, "
+                             f"{p_launches} on the plain side")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a, b, rtol=1e-5, atol=1e-5 * float(b.nan_to_num().abs().max()),
+            equal_nan=True)
+    err = max(float((a - b).nan_to_num().abs().max()
+                    / b.nan_to_num().abs().max().clamp_min(1e-30))
+              for a, b in zip(got, want))
+    log(f"[grad-bsdf] autograd Function vs plain BSDF autograd on {n} "
+        f"lanes (setup, evaluate, sample_with_pdf, setup_evaluate; 4 "
+        f"launches): max |grad err| / max |grad| {err:.3g}")
     return steps
 
 
@@ -2817,7 +3053,8 @@ def main() -> int:
     sweep_r = check_sweep(torch, dev)
     occl_r = check_occlusion(torch, dev)
     rng_r = check_rng(torch, dev)
-    phase_done("phase 3 (sweeps, rng)")
+    bsdf_r = check_bsdf(torch, dev)
+    phase_done("phase 3 (sweeps, rng, bsdf)")
     merge_r = check_merge(torch, dev)
     check_golden(torch, dev)
     phase_done("phases 4-5")
@@ -2866,7 +3103,7 @@ def main() -> int:
         **{path: [n[name] for n in by_rank]
            for path, by_rank in sharded.items()},
         **{path: n[name] for path, n in matrix.items()},
-        "bench": bench[name],
+        "bench": bench.get(name),  # bench_torch.py counts its KERNELS
         **{f"graphs_{alg}": r["launches"][name] for alg, r in
            graph_r.items()},
         **{path: n[name] for path, n in blocks.items()},
@@ -2895,6 +3132,11 @@ def main() -> int:
              replaces=None,
              launches=launches["uniform_slots"],
              launches_by_path=by_path("uniform_slots"), **rng_r),
+        dict(name="bsdf", route="cuda",
+             source="smallvcm_tpu_torch/csrc/bsdf.cu",
+             replaces=None,
+             launches=launches["bsdf"],
+             launches_by_path=by_path("bsdf"), **bsdf_r),
     ]
     caps_dir.cleanup()
     print(card)

@@ -296,14 +296,12 @@ def sample_scattering(
     b: bsdf_ops.BsdfState, u, fix_is_light: bool,
 ) -> SubPathState:
     """SampleScattering (vertexcm.hxx:937-1006) — masked wavefront version."""
-    factor, new_dir, dir_pdf_w, cos_out, event, keep = bsdf_ops.sample(
-        scene.materials, b, u[:, 0], u[:, 1], u[:, 2],
-        fix_is_light=fix_is_light,
-    )
+    factor, new_dir, dir_pdf_w, cos_out, event, keep, rev_reverse = (
+        bsdf_ops.sample_with_pdf(scene.materials, b, u[:, 0], u[:, 1],
+                                 u[:, 2], fix_is_light=fix_is_light))
     alive = state.alive & keep
 
     specular = (event & bsdf_ops.EV_SPECULAR) != 0
-    _, rev_reverse = bsdf_ops.pdf(scene.materials, b, new_dir)
     rev_pdf_w = torch.where(specular, dir_pdf_w, rev_reverse)
 
     cont = b.cont_prob
@@ -637,14 +635,11 @@ def connect_vertices(
     cam_rev_pdf_w = cam_rev_pdf_w * cam_cont
 
     # Reconstruct the light vertex BSDF (deterministic Setup re-run).
-    lb = bsdf_ops.setup(scene.materials, lv_in_dir, lv_normal, lv_mat,
-                        lv_valid)
-    light_factor, cos_light, light_dir_pdf_w, light_rev_pdf_w = (
-        bsdf_ops.evaluate(scene.materials, lb, -direction)
-    )
+    (light_factor, cos_light, light_dir_pdf_w, light_rev_pdf_w,
+     light_cont) = bsdf_ops.setup_evaluate(
+        scene.materials, lv_in_dir, lv_normal, lv_mat, lv_valid, -direction)
     ok = ok & max_gt_zero(light_factor)
 
-    light_cont = lb.cont_prob
     light_dir_pdf_w = light_dir_pdf_w * light_cont
     light_rev_pdf_w = light_rev_pdf_w * light_cont
 
@@ -1088,18 +1083,18 @@ def merge_stage(
         q_src = idx_q[qs + base]
         p_src = src_p[php[p_c]]
 
-        cam_b = bsdf_ops.setup(
-            mats, gather(queries.in_dir, q_src),
-            gather(queries.normal, q_src), flat(queries.mat_id)[q_src], ok2)
         ph_in = gather(light_verts.in_dir, p_src)
+        # The query's BSDF set up and evaluated towards the photon.
+        factor, _, dir_pdf_w, rev_pdf_w, cam_cont = bsdf_ops.setup_evaluate(
+            mats, gather(queries.in_dir, q_src),
+            gather(queries.normal, q_src), flat(queries.mat_id)[q_src], ok2,
+            -ph_in)
         # The light vertex's continuation probability: its BSDF setup.
         ph_b = bsdf_ops.setup(
             mats, ph_in, gather(light_verts.normal, p_src),
             flat(light_verts.mat_id)[p_src], ok2)
-        factor, _, dir_pdf_w, rev_pdf_w = bsdf_ops.evaluate(
-            mats, cam_b, -ph_in)
         ok2 = ok2 & max_gt_zero(factor)
-        dir_pdf_w = dir_pdf_w * cam_b.cont_prob
+        dir_pdf_w = dir_pdf_w * cam_cont
         rev_pdf_w = rev_pdf_w * ph_b.cont_prob
         if ppm:
             mis = torch.ones_like(dir_pdf_w)

@@ -76,8 +76,9 @@ requires grad (``diff.py``'s gradients, the sweep's autograd Function in
 back to eager launches on a card: a failed capture or replay raises.
 
 The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``,
-``core/rng.py``, the stage clocks' ``trace.stamp_kernel``) and the exchanges' ``.bytes``
-counters (``parallel/comm.py``) are bumped in Python, which runs at
+``core/rng.py``, ``ops/bsdf.py``, the stage clocks'
+``trace.stamp_kernel``) and the exchanges' ``.bytes`` counters
+(``parallel/comm.py``) are bumped in Python, which runs at
 capture and not at replay. So a capture takes its increments back and
 records them, and each replay adds them: the counters count launches and
 bytes on the device, the merge's one a replay of the whole-iteration
@@ -103,6 +104,7 @@ from torch.utils import _pytree as pytree
 
 from . import trace
 from .core import rng
+from .ops import bsdf as bsdf_ops
 from .ops import merge as merge_ops
 from .ops import sweep as sweep_ops
 from .parallel import comm
@@ -133,6 +135,7 @@ def _counters():
             ("merge.launches", merge_ops.merge_cells_kernel, "launches"),
             ("rng.uniform_slots_launches", rng.uniform_slots_kernel,
              "launches"),
+            ("bsdf.launches", bsdf_ops.bsdf_kernel, "launches"),
             ("comm.all_gather_bytes", comm.all_gather_columns, "bytes"),
             ("comm.ring_shift_bytes", comm.ring_shift, "bytes"),
             ("trace.stamp_launches", trace.stamp_kernel, "launches"))

@@ -63,6 +63,11 @@ SIGNATURES = {
     # out, path ids, n, n_slots, seed word, stream word, stream word's
     # device int64 (or NULL), generator, stream
     "svcm_uniform_slots": (_P, _P, _I, _I, _U, _U, _P, _I, _P),
+    # op, operand triples (pointer, row stride, column stride), operands,
+    # output pointers, outputs, material planes' (pointer, stride) pairs,
+    # material rows,
+    # rows, columns, mat_id is int64, fix_is_light, stream
+    "svcm_bsdf": (_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

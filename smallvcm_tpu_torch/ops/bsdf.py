@@ -6,10 +6,19 @@ bsdf.hxx:61-576) as plain functions over component-planar tensors. One
 computed. MIS correctness depends on pdfs being computed identically
 everywhere (bsdf.hxx:298-299), so the formulas and their evaluation order
 follow the JAX package exactly.
+
+The entry points :func:`setup`, :func:`evaluate` and :func:`sample` (and
+the fusions :func:`setup_evaluate` and :func:`sample_with_pdf`) choose
+their path by device: on a card a call is one launch of the hand-written
+kernel ``csrc/bsdf.cu`` (:func:`bsdf_kernel`), bit for bit the plain
+functions (``setup_plain`` and its siblings), and under autograd
+(``diff.py``) its gradient is the plain functions' (:class:`_BsdfKernelFn`);
+on the CPU the plain functions run. :func:`pdf` is plain everywhere.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -29,6 +38,7 @@ from ..core.vecmath import (
     sqr,
 )
 from ..scene.scene import Materials
+from . import _cuda
 
 # Event codes (bsdf.hxx:72-82).
 EV_NONE = 0
@@ -68,8 +78,8 @@ def _gather_material(materials: Materials, mat_id):
     return tuple(take(t, safe) for t in materials)
 
 
-def setup(materials: Materials, ray_dir: V3, normal: V3, mat_id,
-          hit_mask) -> BsdfState:
+def setup_plain(materials: Materials, ray_dir: V3, normal: V3, mat_id,
+                hit_mask) -> BsdfState:
     """BSDF::Setup (bsdf.hxx:95-117) over a wavefront."""
     fx, fy, fz = frame_set_from_z(normal)
     local_fix = frame_to_local(fx, fy, fz, -ray_dir)
@@ -193,7 +203,8 @@ def _pdf_phong(state, exponent, local_gen: V3):
     return pdf_w, pdf_w
 
 
-def evaluate(materials: Materials, state: BsdfState, world_dir_gen: V3):
+def evaluate_plain(materials: Materials, state: BsdfState,
+                   world_dir_gen: V3):
     """BSDF::Evaluate (bsdf.hxx:128-153).
 
     Returns (value V3, cos_theta_gen, direct_pdf_w, rev_pdf_w); zero when
@@ -230,8 +241,8 @@ def pdf(materials: Materials, state: BsdfState, world_dir_gen: V3):
     )
 
 
-def sample(materials: Materials, state: BsdfState, u1, u2, u3,
-           fix_is_light: bool):
+def sample_plain(materials: Materials, state: BsdfState, u1, u2, u3,
+                 fix_is_light: bool):
     """BSDF::Sample (bsdf.hxx:191-257) over a wavefront.
 
     Returns (factor V3, world_dir_gen V3, pdf_w, cos_theta_gen, event int64,
@@ -327,3 +338,232 @@ def sample(materials: Materials, state: BsdfState, u1, u2, u3,
         state.frame_x, state.frame_y, state.frame_z, local_gen
     )
     return value, world_dir, pdf_w, cos_gen, event, keep
+
+
+# ---------------------------------------------------------------------------
+# Dispatch, and the kernel (csrc/bsdf.cu)
+# ---------------------------------------------------------------------------
+
+# Operation codes of csrc/bsdf.cu, and the dtypes of each one's outputs.
+_F, _B, _L = torch.float32, torch.bool, torch.int64
+_OPS = {"setup": 0, "evaluate": 1, "sample": 2, "setup_evaluate": 3}
+_OUTS = {
+    "setup": (_B, _L, *(_F,) * 12, _B, *(_F,) * 6),  # BsdfState's planes
+    "evaluate": (_F,) * 6,
+    "sample": (*(_F,) * 8, _L, _B, _F),  # sample's, then pdf's rev_pdf_w
+    "setup_evaluate": (_F,) * 7,
+}
+# Float outputs the plain chains detach: setup's component and
+# continuation probabilities, and setup_evaluate's cont_prob.
+_DETACHED = {"setup": range(15, 20), "setup_evaluate": (6,)}
+_SETUP_OPS = ("setup", "setup_evaluate")
+MAX_MATERIALS = 1024  # csrc/bsdf.cu's kMaxMaterials: the table's rows
+
+
+def _leaves(*operands):
+    for o in operands:
+        if isinstance(o, tuple):
+            yield from _leaves(*o)
+        else:
+            yield o
+
+
+def _on_card(*operands) -> bool:
+    """Whether any operand is a CUDA tensor: the call then takes the
+    kernel, which refuses operands on other devices."""
+    return any(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in _leaves(*operands))
+
+
+def _state_of(planes) -> BsdfState:
+    p = list(planes)
+    return BsdfState(p[0], p[1], V3(*p[2:5]), V3(*p[5:8]), V3(*p[8:11]),
+                     V3(*p[11:14]), *p[14:])
+
+
+def _materials_of(planes) -> Materials:
+    p = list(planes)
+    return Materials(V3(*p[0:3]), V3(*p[3:6]), p[6], V3(*p[7:10]), p[10])
+
+
+def _plain(op: str, materials: Materials, planes, fix_is_light=False):
+    """The plain chain of ``op`` over :func:`bsdf_kernel`'s operand planes
+    -> its output planes, in ``_OUTS[op]``'s order."""
+    p = list(planes)
+    if op in _SETUP_OPS:
+        b = setup_plain(materials, V3(*p[0:3]), V3(*p[3:6]), p[6], p[7])
+        if op == "setup":
+            return tuple(_leaves(b))
+        return (*_leaves(evaluate_plain(materials, b, V3(*p[8:11]))),
+                b.cont_prob)
+    state = _state_of(p[:21])
+    if op == "evaluate":
+        return tuple(_leaves(evaluate_plain(materials, state,
+                                            V3(*p[21:24]))))
+    s = sample_plain(materials, state, *p[21:24], fix_is_light)
+    return (*_leaves(s), pdf(materials, state, s[1])[1])
+
+
+def bsdf_kernel(op: str, materials: Materials, planes, fix_is_light=False):
+    """Launch ``csrc/bsdf.cu``'s ``op`` over ``planes`` -> its output
+    planes (``_OUTS[op]``'s dtypes, the operands' broadcast shape).
+
+    ``planes``: setup's ray_dir, normal (3 each), mat_id, hit_mask
+    (setup_evaluate's then a world direction); or a BsdfState's 21 planes
+    in field order, then evaluate's world direction (3) or sample's u1,
+    u2, u3. Operands broadcast to one shape of at most two dimensions and
+    are read through their strides: an expanded [w, N] state is read from
+    its [N] base."""
+    req = _cuda.require
+    name = f"bsdf_kernel({op!r})"
+    req(op in _OPS, f"bsdf_kernel: unknown op {op!r}")
+    planes = list(planes)
+    req(len(planes) == {"setup": 8, "setup_evaluate": 11}.get(op, 24),
+        f"{name}: {len(planes)} operand planes")
+    req(all(isinstance(t, torch.Tensor) for t in planes),
+        f"{name}: operands are tensors")
+    mat_at, bool_at = (6, (7,)) if op in _SETUP_OPS else (1, (0, 14))
+    for k, t in enumerate(planes):
+        want = ((torch.int32, torch.int64) if k == mat_at
+                else (torch.bool,) if k in bool_at else (torch.float32,))
+        req(t.dtype in want, f"{name}: operand {k} is {t.dtype}, not "
+            + " or ".join(map(str, want)))
+    mats = list(_leaves(materials))
+    m = mats[0].shape[0] if mats and mats[0].dim() == 1 else 0
+    req(len(mats) == 11 and all(
+        isinstance(t, torch.Tensor) and t.dtype == torch.float32
+        and t.shape == (m,) for t in mats) and 1 <= m <= MAX_MATERIALS,
+        f"{name}: materials are 11 float32 planes of 1 to "
+        f"{MAX_MATERIALS} rows")
+    shape = torch.broadcast_shapes(*(t.shape for t in planes))
+    req(len(shape) <= 2, f"{name}: operands of {len(shape)} dimensions")
+    rows, n = (1, 1) if not shape else (
+        (1, shape[0]) if len(shape) == 1 else tuple(shape))
+    req(rows * n < 2 ** 31, f"{name}: too many lanes")
+    dev = planes[0].device
+    req(dev.type == "cuda"
+        and all(t.device == dev for t in planes + mats),
+        f"{name}: every operand on one CUDA device")
+    outs = [torch.empty(shape, dtype=d, device=dev) for d in _OUTS[op]]
+    if rows * n == 0:
+        return outs
+    ins = []
+    for t in planes:
+        st = t.expand(shape).stride()
+        rs, cs = (0, 0) if not st else (
+            (0, st[0]) if len(st) == 1 else st)
+        ins += [t.data_ptr(), rs, cs]
+    lib = _cuda.load_library()
+    status = lib.svcm_bsdf(
+        _OPS[op], (ctypes.c_longlong * len(ins))(*ins), len(planes),
+        (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs)),
+        len(outs), (ctypes.c_longlong * 22)(
+            *(v for t in mats for v in (t.data_ptr(), t.stride(0)))),
+        m, rows, n, int(planes[mat_at].dtype == torch.int64),
+        int(bool(fix_is_light)), torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "svcm_bsdf")
+    bsdf_kernel.launches += 1
+    return outs
+
+
+# Kernel launches on the device: graphs.py takes a capture's increment back
+# and adds it at every replay (counter ``bsdf.launches``).
+bsdf_kernel.launches = 0
+
+
+class _BsdfKernelFn(torch.autograd.Function):
+    """The kernel with a gradient: forward launches :func:`bsdf_kernel`;
+    backward runs the op's plain chain (:func:`_plain`) again on the saved
+    operands and differentiates it, so the gradient is the plain path's.
+    The outputs the plain chains detach, and the bool and int64 ones, get
+    none."""
+
+    @staticmethod
+    def forward(ctx, op, fix_is_light, *tensors):
+        outs = bsdf_kernel(op, _materials_of(tensors[:11]), tensors[11:],
+                           fix_is_light)
+        ctx.op, ctx.fix_is_light = op, fix_is_light
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*(
+            o for k, o in enumerate(outs)
+            if o.dtype != torch.float32 or k in _DETACHED.get(op, ())))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *g_outs):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(k) for t, k in
+                   zip(ctx.saved_tensors, need)]
+            outs = _plain(ctx.op, _materials_of(ins[:11]), ins[11:],
+                          ctx.fix_is_light)
+            pairs = [(o, g) for o, g in zip(outs, g_outs)
+                     if g is not None and o.requires_grad]
+            live = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], live, [g for _, g in pairs],
+                allow_unused=True) if pairs else [None] * len(live))
+        return (None, None, *(next(grads) if t.requires_grad else None
+                              for t in ins))
+
+
+def _run(op: str, materials: Materials, planes, fix_is_light=False):
+    """``op``'s output planes: the plain chain on the CPU, the kernel on a
+    card (through :class:`_BsdfKernelFn` when an operand needs a
+    gradient)."""
+    planes = list(planes)
+    if not _on_card(materials, planes):
+        return _plain(op, materials, planes, fix_is_light)
+    flat = [*_leaves(materials), *planes]
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        return _BsdfKernelFn.apply(op, fix_is_light, *flat)
+    return bsdf_kernel(op, materials, planes, fix_is_light)
+
+
+def setup(materials: Materials, ray_dir: V3, normal: V3, mat_id,
+          hit_mask) -> BsdfState:
+    """BSDF::Setup (bsdf.hxx:95-117) over a wavefront: the kernel on a
+    card, else :func:`setup_plain`."""
+    return _state_of(_run("setup", materials,
+                          (*ray_dir, *normal, mat_id, hit_mask)))
+
+
+def evaluate(materials: Materials, state: BsdfState, world_dir_gen: V3):
+    """BSDF::Evaluate (bsdf.hxx:128-153) -> (value V3, cos_theta_gen,
+    direct_pdf_w, rev_pdf_w): the kernel on a card, else
+    :func:`evaluate_plain`."""
+    o = _run("evaluate", materials, (*_leaves(state), *world_dir_gen))
+    return V3(*o[:3]), o[3], o[4], o[5]
+
+
+def sample_with_pdf(materials: Materials, state: BsdfState, u1, u2, u3,
+                    fix_is_light: bool):
+    """:func:`sample`, and :func:`pdf`'s rev_pdf_w of the sampled world
+    direction -> sample's six outputs and that pdf: one launch on a
+    card."""
+    o = _run("sample", materials, (*_leaves(state), u1, u2, u3),
+             fix_is_light)
+    return V3(*o[:3]), V3(*o[3:6]), o[6], o[7], o[8], o[9], o[10]
+
+
+def sample(materials: Materials, state: BsdfState, u1, u2, u3,
+           fix_is_light: bool):
+    """BSDF::Sample (bsdf.hxx:191-257) -> (factor V3, world_dir_gen V3,
+    pdf_w, cos_theta_gen, event int64, keep bool): the kernel on a card
+    (:func:`sample_with_pdf`'s launch, its last plane left unread), else
+    :func:`sample_plain`."""
+    if not _on_card(materials, state, u1, u2, u3):
+        return sample_plain(materials, state, u1, u2, u3, fix_is_light)
+    return sample_with_pdf(materials, state, u1, u2, u3, fix_is_light)[:6]
+
+
+def setup_evaluate(materials: Materials, ray_dir: V3, normal: V3, mat_id,
+                   hit_mask, world_dir_gen: V3):
+    """:func:`setup` then :func:`evaluate` of its state -> (value V3,
+    cos_theta_gen, direct_pdf_w, rev_pdf_w, the state's cont_prob): one
+    launch on a card, the state kept in registers."""
+    o = _run("setup_evaluate", materials,
+             (*ray_dir, *normal, mat_id, hit_mask, *world_dir_gen))
+    return V3(*o[:3]), o[3], o[4], o[5], o[6]

@@ -10,7 +10,9 @@ Tolerances: the RNG kernel bit for bit (integer arithmetic, and an
 exact conversion to float); the sweeps exactly: closest-hit distances and occlusion
 answers bit for bit (both sides round each product and sum alike; the
 kernels are built with -fmad=false), primitive ids equal except on exact
-ties; the merge's per-query sums to
+ties; the BSDF kernel bit for bit, any NaN equal to any NaN (one IEEE
+f32 op per torch op, the same CUDA math library for sin, cos and pow);
+the merge's per-query sums to
 rtol 1e-4 / atol 1e-6 (the kernel sums a query's photons in another
 order); a whole render on the card against the same render on the CPU
 with the slice test's bound (rtol 1e-4 on >= 99% of pixels, mean to
@@ -26,6 +28,7 @@ from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.core import rng
 from smallvcm_tpu_torch.core.vec3 import V3
 from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
+from smallvcm_tpu_torch.ops import bsdf as B
 from smallvcm_tpu_torch.ops import merge as M
 from smallvcm_tpu_torch.ops import sweep as S
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
@@ -639,3 +642,324 @@ def test_iteration_graphs_equal_plain_rng_on_card(dev, alg, calls,
     assert plain_launches == 0
     for (a, ra), (b, rb) in zip(got, want):
         assert torch.equal(a, b) and ra == rb
+
+
+# ---------------------------------------------------------------------------
+# The BSDF kernel (csrc/bsdf.cu) against the plain chain
+# ---------------------------------------------------------------------------
+
+
+def _differ(got, want) -> str:
+    """'' where ``got`` equals ``want`` bit for bit (any NaN equal to any
+    NaN), else what differs: lanes and the largest gap in ulps."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"{got.shape} {got.dtype} against {want.shape} {want.dtype}"
+    got, want = got.contiguous(), want.contiguous()
+    if got.dtype != torch.float32:
+        bad = got != want
+        return f"{int(bad.sum())} lanes" if bool(bad.any()) else ""
+    gi, wi = got.view(torch.int32), want.view(torch.int32)
+    bad = (gi != wi) & ~(torch.isnan(got) & torch.isnan(want))
+    if not bool(bad.any()):
+        return ""
+    ulps = (gi[bad].long() - wi[bad].long()).abs().max()
+    return f"{int(bad.sum())} lanes, up to {int(ulps)} ulps"
+
+
+def _assert_same(got, want, what):
+    flat = lambda x: list(B._leaves(x))
+    got, want = flat(got), flat(want)
+    assert len(got) == len(want)
+    diffs = {k: d for k, (g, w) in enumerate(zip(got, want))
+             if (d := _differ(g, w))}
+    assert not diffs, f"{what}: output planes differ {diffs}"
+
+
+def _bsdf_lanes(n, seed, dev, mat_dtype=torch.int64):
+    """Scene 0 and n lanes mixing hits and misses, valid and invalid
+    material ids, every material (the glass hit from inside and outside),
+    zero, tiny, huge and NaN directions and normals, and uniforms with 0
+    and the largest float below 1."""
+    scene = load_cornell_box((8, 8), SCENE_CONFIGS[0], device=dev)
+    m = scene.materials.ior.shape[0]
+    r = np.random.default_rng(seed)
+
+    def dirs():
+        d = r.normal(size=(3, n)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=0, keepdims=True)
+        d[:, :8] = np.array([[0, 0, 0], [1e-30, 0, 0], [3e30, 1, 0],
+                             [np.nan, 0, 1], [0, 0, 1], [0, 0, -1],
+                             [0.995, 0.1, 0], [1, 0, 0]], np.float32).T
+        return d
+
+    ray, nrm, gen = dirs(), dirs(), dirs()
+    mat = r.integers(-1, m, n)
+    hit = r.random(n) < 0.85
+    u = r.random((n, 4), dtype=np.float32)
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    u[:6, :3] = np.array([[0, 0, 0], [below_one] * 3, [0.5, 0, 1e-7],
+                          [0, 0.5, 0.9999], [1e-30, 1 - 1e-7, 0.3],
+                          [0.25, 0.75, 0.6]])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    v3 = lambda a: V3(*(to(c) for c in a))
+    return (scene.materials, v3(ray), v3(nrm), to(mat).to(mat_dtype),
+            to(hit), v3(gen), to(u))
+
+
+@pytest.mark.parametrize("mat_dtype", [torch.int64, torch.int32])
+def test_bsdf_setup_kernel_matches_plain(dev, mat_dtype):
+    mats, ray, nrm, mat, hit, _, _ = _bsdf_lanes(262_144, 1, dev, mat_dtype)
+    want = B.setup_plain(mats, ray, nrm, mat, hit)
+    before = B.bsdf_kernel.launches
+    got = B.setup(mats, ray, nrm, mat, hit)
+    torch.cuda.synchronize()
+    assert B.bsdf_kernel.launches == before + 1
+    assert isinstance(got, B.BsdfState)
+    _assert_same(got, want, "setup")
+    # The lanes cover what they are meant to.
+    glass = (mat == 7) & got.valid
+    assert bool((glass & (got.local_dir_fix.z < 0)).any())
+    assert bool((glass & (got.local_dir_fix.z > 0)).any())
+    assert bool(got.valid.any()) and not bool(got.valid.all())
+
+
+def test_bsdf_evaluate_kernel_matches_plain(dev):
+    mats, ray, nrm, mat, hit, gen, _ = _bsdf_lanes(262_144, 2, dev)
+    state = B.setup_plain(mats, ray, nrm, mat, hit)
+    before = B.bsdf_kernel.launches
+    _assert_same(B.evaluate(mats, state, gen),
+                 B.evaluate_plain(mats, state, gen), "evaluate")
+    assert B.bsdf_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("fix_is_light", [False, True])
+def test_bsdf_sample_kernel_matches_plain(dev, fix_is_light):
+    """The uniforms as the walks pass them: columns of an [N, 4] draw."""
+    mats, ray, nrm, mat, hit, _, u = _bsdf_lanes(262_144, 3, dev)
+    state = B.setup_plain(mats, ray, nrm, mat, hit)
+    us = (u[:, 0], u[:, 1], u[:, 2])
+    before = B.bsdf_kernel.launches
+    got = B.sample(mats, state, *us, fix_is_light=fix_is_light)
+    want = B.sample_plain(mats, state, *us, fix_is_light=fix_is_light)
+    _assert_same(got, want, "sample")
+    events = set(got[4].unique().tolist())
+    assert events == {B.EV_DIFFUSE, B.EV_PHONG, B.EV_REFLECT, B.EV_REFRACT}
+    # Fused with pdf's rev_pdf_w of the sampled direction, as
+    # sample_scattering calls it: the bits of the two plain calls.
+    fused = B.sample_with_pdf(mats, state, *us, fix_is_light=fix_is_light)
+    _assert_same(fused, (*want, B.pdf(mats, state, want[1])[1]),
+                 "sample_with_pdf")
+    assert B.bsdf_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("layout", ["expanded", "contiguous"])
+def test_bsdf_evaluate_kernel_on_a_window(dev, layout):
+    """[8, N] as connect_vertices runs it: the camera state expanded from
+    [N] (stride 0 along the window, read from its base) or a contiguous
+    [8, N] state, against the plain path on the same operands."""
+    w, n = 8, 262_144
+    mats, ray, nrm, mat, hit, _, _ = _bsdf_lanes(w * n, 4, dev)
+    if layout == "expanded":
+        base = B.setup_plain(mats, ray[:n], nrm[:n], mat[:n], hit[:n])
+        bro = lambda a: a.unsqueeze(0).expand(w, n)
+        state = B.BsdfState(*(V3(*map(bro, f)) if isinstance(f, V3)
+                              else bro(f) for f in base))
+    else:
+        view = lambda a: a.view(w, n)
+        state = B.setup_plain(mats, V3(*map(view, ray)),
+                              V3(*map(view, nrm)), view(mat), view(hit))
+    gen = V3(*(c.view(w, n) for c in _bsdf_lanes(w * n, 5, dev)[5]))
+    before = B.bsdf_kernel.launches
+    got = B.evaluate(mats, state, gen)
+    assert B.bsdf_kernel.launches == before + 1
+    assert got[1].shape == (w, n) and got[1].is_contiguous()
+    _assert_same(got, B.evaluate_plain(mats, state, gen),
+                 f"evaluate, {layout}")
+    if layout == "contiguous":  # the light side's setup fused with evaluate
+        ops = (mats, V3(*(c.view(w, n) for c in ray)),
+               V3(*(c.view(w, n) for c in nrm)), mat.view(w, n),
+               hit.view(w, n))
+        _assert_same(B.setup_evaluate(*ops, gen),
+                     (*B.evaluate_plain(mats, state, gen), state.cont_prob),
+                     "setup_evaluate")
+
+
+def test_bsdf_setup_kernel_at_a_merge_cap(dev):
+    """The pair merge's survivor rows (1,835,008) with int32 material ids,
+    as merge_prep passes them."""
+    n = 1_835_008
+    mats, ray, nrm, mat, hit, _, _ = _bsdf_lanes(n, 6, dev, torch.int32)
+    _assert_same(B.setup(mats, ray, nrm, mat, hit),
+                 B.setup_plain(mats, ray, nrm, mat, hit), "setup at a cap")
+
+
+def test_bsdf_kernels_in_a_graph_replay(dev):
+    """setup, evaluate, sample and sample_with_pdf captured in one CUDA
+    graph: a replay on new inputs copied into the captured ones gives the
+    plain path's bits, and the capture launched each kernel once."""
+    n = 262_144
+    mats, ray, nrm, mat, hit, gen, u = _bsdf_lanes(n, 7, dev)
+
+    def chain():
+        b = B.setup(mats, ray, nrm, mat, hit)
+        s = B.sample(mats, b, u[:, 0], u[:, 1], u[:, 2], fix_is_light=True)
+        return b, B.evaluate(mats, b, gen), s, B.sample_with_pdf(
+            mats, b, u[:, 0], u[:, 1], u[:, 2], fix_is_light=True)
+
+    def plain():
+        b = B.setup_plain(mats, ray, nrm, mat, hit)
+        s = B.sample_plain(mats, b, u[:, 0], u[:, 1], u[:, 2], True)
+        return (b, B.evaluate_plain(mats, b, gen), s,
+                (*s, B.pdf(mats, b, s[1])[1]))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = B.bsdf_kernel.launches
+    with torch.cuda.graph(graph):
+        out = chain()
+    assert B.bsdf_kernel.launches == before + 4
+    for seed in (8, 9):
+        _, ray2, nrm2, mat2, hit2, gen2, u2 = _bsdf_lanes(n, seed, dev)
+        for dst, src in zip((*ray, *nrm, mat, hit, *gen, u),
+                            (*ray2, *nrm2, mat2, hit2, *gen2, u2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same(out, plain(), f"graph replay, seed {seed}")
+
+
+def _close_grads(got, want, rtol=1e-5):
+    """Gradients to rtol, and to rtol of the largest one, NaNs equal: the
+    two sides sum the same terms in another order."""
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a, b, rtol=rtol, atol=rtol * float(b.nan_to_num().abs().max()),
+            equal_nan=True)
+
+
+def test_bsdf_kernel_gradient_matches_plain(dev):
+    """Under autograd the kernel runs (ops/bsdf.py::_BsdfKernelFn), once a
+    call, and its gradients to the materials, normals and directions are
+    the plain chain's autograd's: setup, evaluate, sample_with_pdf and
+    setup_evaluate over 262,144 lanes."""
+    mats0, ray, nrm, mat, hit, gen, u = _bsdf_lanes(262_144, 11, dev)
+    wts = torch.rand(262_144, device=dev)
+    live = torch.isfinite(ray.x) & torch.isfinite(nrm.x)
+
+    def grads(kernel):
+        mats = [t.clone().requires_grad_() for t in B._leaves(mats0)]
+        dirs = [a.clone().requires_grad_() for a in (*nrm, *gen)]
+        m, n_, g_ = B._materials_of(mats), V3(*dirs[:3]), V3(*dirs[3:])
+        us = (u[:, 0], u[:, 1], u[:, 2])
+        before = B.bsdf_kernel.launches
+        with torch.enable_grad():
+            if kernel:
+                b = B.setup(m, ray, n_, mat, hit)
+                outs = (*B.evaluate(m, b, g_),
+                        *B.sample_with_pdf(m, b, *us, False),
+                        *B.setup_evaluate(m, ray, n_, mat, hit, g_))
+            else:
+                b = B.setup_plain(m, ray, n_, mat, hit)
+                s = B.sample_plain(m, b, *us, False)
+                outs = (*B.evaluate_plain(m, b, g_), *s,
+                        B.pdf(m, b, s[1])[1],
+                        *B.evaluate_plain(m, b, g_), b.cont_prob)
+            flat = [x for x in B._leaves(outs) if x.requires_grad]
+            total = sum(torch.where(live, x * wts, 0.0).nan_to_num().sum()
+                        for x in flat)
+            gs = torch.autograd.grad(total, mats + dirs, allow_unused=True)
+        return ([torch.zeros_like(t) if g is None else g
+                 for t, g in zip(mats + dirs, gs)],
+                B.bsdf_kernel.launches - before)
+
+    (got, k_launches), (want, p_launches) = grads(True), grads(False)
+    assert (k_launches, p_launches) == (4, 0)
+    _close_grads(got, want)
+
+
+@pytest.mark.parametrize("alg", ["pt", "vcm"])
+def test_gradient_step_runs_the_bsdf_kernel_on_card(dev, alg, monkeypatch):
+    """diff.loss_and_grad at 32x32 launches the BSDF kernel (pt its walk's
+    three calls a bounce; VCM also the pair merge's) and gives the loss
+    and gradients of the step with every call sent down the plain path."""
+    from smallvcm_tpu_torch import diff
+
+    scene = load_cornell_box((32, 32), SCENE_CONFIGS[0], device=dev)
+    target = torch.full((32, 32, 3), 0.1, device=dev)
+
+    def step():
+        before = B.bsdf_kernel.launches
+        loss, g = diff.loss_and_grad(scene, diff.extract_params(scene),
+                                     target, 0, alg, 32, 32)
+        return loss, list(diff._leaves(g)), B.bsdf_kernel.launches - before
+
+    loss, got, launches = step()
+    monkeypatch.setattr(B, "_on_card", lambda *operands: False)
+    want_loss, want, plain_launches = step()
+    assert launches > 0 and plain_launches == 0
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0.0)
+    _close_grads(got, want, rtol=1e-4)
+
+
+def test_bsdf_kernel_wrapper_checks(dev):
+    mats, ray, nrm, mat, hit, gen, u = _bsdf_lanes(64, 10, dev)
+    planes = [*ray, *nrm, mat, hit]
+    before = B.bsdf_kernel.launches
+    bad_mats = mats._replace(ior=mats.ior[:3])
+    for args, match in (
+            (("shade", mats, planes), "unknown op"),
+            (("setup", mats, planes[:7]), "operand planes"),
+            (("setup", mats, [*planes[:6], mat.float(), hit]), "operand 6"),
+            (("setup", mats, [*planes[:7], hit.float()]), "operand 7"),
+            (("setup", mats, [ray.x.double(), *planes[1:]]), "operand 0"),
+            (("setup", bad_mats, planes), "materials"),
+            (("setup", mats, [*planes[:7], hit.view(1, 1, 64)]),
+             "3 dimensions"),
+            (("setup", mats, [*planes[:7], hit.cpu()]), "CUDA device"),
+            (("evaluate", mats, [*planes, *gen]), "operand planes")):
+        with pytest.raises(ValueError, match=match):
+            B.bsdf_kernel(*args)
+    with pytest.raises(RuntimeError):  # shapes that do not broadcast
+        B.bsdf_kernel("setup", mats, [*planes[:7], hit[:10]])
+    assert B.bsdf_kernel.launches == before
+    empty = B.bsdf_kernel("setup", mats, [p[:0] for p in planes])
+    assert len(empty) == 21 and all(e.shape == (0,) for e in empty)
+    assert B.bsdf_kernel.launches == before
+
+
+@pytest.mark.parametrize("alg,calls", [("pt", 30), ("vcm", 75)])
+def test_iteration_graphs_equal_plain_bsdf_on_card(dev, alg, calls,
+                                                   monkeypatch):
+    """A pt and a VCM iteration at 64x64 (iteration 0 eager, 1 captured,
+    2-3 replayed) give bitwise the same images and rays with the BSDF
+    kernel as with every call sent down the plain path, and the kernel
+    runs once a call, replays counted: pt 30 an iteration (10 bounces of
+    setup, evaluate, sample) and VCM 75 (9 light bounces of setup,
+    evaluate, sample_with_pdf; 10 camera bounces of the same; 8
+    connection windows of evaluate and setup_evaluate; the merge's two
+    setups)."""
+    from smallvcm_tpu_torch import graphs
+
+    def run():
+        scene = load_cornell_box((64, 64), SCENE_CONFIGS[0], device=dev)
+        cfg = R.RenderConfig(algorithm=alg, resolution=(64, 64))
+        before = B.bsdf_kernel.launches
+        out = []
+        for it in range(4):
+            img, rays = R.render_iteration(scene, cfg, alg, it)
+            out.append((img.clone(), int(rays)))
+        return out, B.bsdf_kernel.launches - before
+
+    captures = graphs.stage.captures
+    got, launches = run()
+    assert graphs.stage.captures > captures
+    assert launches == 4 * calls
+    monkeypatch.setattr(B, "_on_card", lambda *operands: False)
+    want, plain_launches = run()
+    assert plain_launches == 0
+    for (a, ra), (b, rb) in zip(got, want):
+        assert _differ(a, b) == "" and ra == rb
