@@ -470,16 +470,13 @@ def pair_counts(scene, res: int, rays: int, caps: dict) -> dict:
     COUNT_ITERATION: the pair merge's at ``caps`` (merge_caps), as
     bench.py counts them, and the cell merge's over its slot counts; each
     run's ray count must equal ``rays``."""
-    import torch
-
     from smallvcm_tpu_torch.algorithms import vcm
 
-    n = res * res
     _, r_pair, overflow, stats = vcm.render_block_with_stats(
         scene, COUNT_ITERATION, res, res, 1, merge_backend="xla", **caps)[:4]
-    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    _, r_cell, _, cell_stats = vcm.render_iteration_core(
-        scene, COUNT_ITERATION, pix, res, res, n, merge_backend="auto")
+    _, r_cell, _, cell_stats = vcm.render_block_with_stats(
+        scene, COUNT_ITERATION, res, res, 1, merge_backend="auto",
+        photon_factor=None, query_factor=None)[:4]
     for backend, r in (("xla", r_pair), ("auto", r_cell)):
         if int(r) != rays:
             raise RuntimeError(f"{backend} merge run: {int(r)} rays, "

@@ -143,7 +143,7 @@ Phases (each one raises on failure; nothing is caught):
     bit for bit ``graphs.eager()``'s; the cell merge from caps 0.05
     overflows, grows and renders the same bytes. Where two or more cards
     are visible, two (and four) NCCL ranks render VCM with both exchanges
-    and pt, bit for bit their gloo twins (stage by stage) and within rtol
+    and pt, bit for bit their gloo twins (eager) and within rtol
     1e-4 / atol 1e-6 of the single process, with each rank's ms/iteration,
     then ``scripts/torch_scaling.py --ranks 1 2 4``; with one card it says
     so and claims no scaling. Every group is joined under a deadline sized
@@ -961,7 +961,6 @@ def check_merge(torch, dev):
     radii."""
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.algorithms import vcm
-    from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
     from smallvcm_tpu_torch.ops import hashgrid
     from smallvcm_tpu_torch.ops import merge as M
     from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
@@ -977,13 +976,8 @@ def check_merge(torch, dev):
     cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES))
     R._ensure_merge_caps(scene, cfg, "vcm")
     caps = vcm.merge_caps(cfg.photon_factor, cfg.query_factor, n)
-    pix = torch.arange(n, device=dev)
     misc = vcm.compute_misc(scene, 0, n, 0.003, 0.75, True, True)
-    fb = new_fb_planes(RES, RES, dev)
-    verts, fb, _ = vcm.trace_light_paths(scene, misc, pix, 0, fb, SEED, 10, 0,
-                                         True, True, False)
-    _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, RES, SEED,
-                                      10, 0, True, True, False)
+    verts, queries = vcm.trace_iteration(scene, 0, RES, RES, SEED, 10, 0)
     tabs = M.merge_prep(scene, misc, queries, verts, n, *caps)
     n_q, n_p = tabs.qtab.shape[0], tabs.ptab.shape[0]
     live_q, live_p = int(tabs.n_q), int(tabs.n_p)
@@ -2675,7 +2669,7 @@ def _group_entry(rank: int, world: int, backend: str, init: str,
 # a fixed share (the first iterations: caps, the library's load, the
 # capture) and, for each of its renders (cold and warm, and the eager one
 # with ``detail``), a time an iteration about 10x the graphs' (the gloo
-# twins run stage by stage).
+# twins run eagerly).
 GROUP_START_S = 90.0
 GROUP_CASE_S = 30.0
 GROUP_ITER_S = {"vcm": 1.0, "pt": 0.3}
@@ -2967,7 +2961,7 @@ def check_sharded_multi(torch, scene, slog) -> dict:
             slog(f"{name} {RES}x{RES} -i {iters} on {w} ranks: NCCL "
                  f"(one graph an iteration) "
                  f"{[round(o[name]['ms'], 2) for o in runs['nccl']]} "
-                 f"ms/iteration by rank, gloo (stage by stage) "
+                 f"ms/iteration by rank, gloo (eager) "
                  f"{[round(o[name]['ms'], 2) for o in runs['gloo']]}; the "
                  f"single process {1e3 * single.secs / iters:.2f}; NCCL and "
                  f"gloo images bit for bit; max |err| vs the single process "

@@ -47,8 +47,8 @@ ring hop's cap on the paths of one shard).
     python scripts/torch_scaling.py --res 2048 --ranks 1
 
 ``--device cpu`` runs gloo ranks on the CPU (a rehearsal: no device
-numbers; gloo ranks run stage by stage). The last line is a JSON object
-with every number printed.
+numbers; gloo ranks run the iteration eagerly). The last line is a JSON
+object with every number printed.
 """
 
 from __future__ import annotations

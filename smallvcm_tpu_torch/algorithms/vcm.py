@@ -23,21 +23,21 @@ camera loop is the JAX package's *unrolled* form: bounce i connects to the
 static window of w_i = min(maxL, maxPath - 2 - i) light slots, which is
 the only part of the vertex table its path lengths can reach.
 
-On a card, :func:`render_block_with_stats` (the JAX package's
-``render_block_with_stats``) runs each iteration as ONE CUDA graph
-(graphs.py): :func:`iteration_stage` holds the light walk
+:func:`_iteration_body` is the one body of an iteration: the light walk
 (:func:`light_walk`), the splat flush, the camera stage
 (:func:`camera_walk`), the merge at static caps (the cell merge,
-ops/merge.py, or the pair merge, :func:`merge_stage`) and the framebuffer
-sums. It takes the iteration, the radius, r^2, the vm normalization and
-the two MIS weights as 0-dim device tensors, filled before each replay
-from :func:`compute_misc`'s host floats, so no value of one iteration is
-frozen into the capture, and it makes no host read: overflow and merge
-stats stay on the device until the block's end.
-:func:`render_iteration_core` is the per-stage form, for sharded ranks
-(the exchange sits between the stages) and gradients: there the light walk
-and the camera stage are each one graph (eager under autograd) and the
-rest runs eagerly between them.
+ops/merge.py, or the pair merge, :func:`merge_stage`; under a group
+through the photon exchange) and the own-pixel add. It takes the
+iteration, the radius, r^2, the vm normalization and the two MIS weights
+as 0-dim device tensors, filled from :func:`compute_misc`'s host floats,
+so no value of one iteration is frozen into a capture, and it makes no
+host read: overflow and merge stats stay on the device until the block's
+end. Every entry point (:func:`render_iteration`,
+:func:`render_block_with_stats`, ``parallel/sharding.py``) reaches it
+through ``graphs.stage`` as :func:`iteration_stage` or, on a rank of a
+group, :func:`sharded_iteration_stage`, which is ONE CUDA graph an
+iteration on a card and eager where ``graphs.why_eager`` says so (the
+CPU, autograd, a gloo group).
 """
 
 from __future__ import annotations
@@ -346,28 +346,6 @@ def sample_scattering(
     )
 
 
-def trace_light_paths(
-    scene: SceneData, misc: VcmMisc, pix, iteration: int, fb,
-    base_seed: int, max_path_length: int, min_path_length: int,
-    use_vc: bool, use_vm: bool, light_trace_only: bool,
-    rng_kind: str = "threefry",
-):
-    """Light stage (vertexcm.hxx:321-396) -> (vertices, fb, ray_count):
-    :func:`light_walk` as one graph (graphs.stage), then the eager flush of
-    its camera splats into ``fb``."""
-    res_y, res_x = fb.x.shape
-    verts, splat_pix, splat_rgb, rays = graphs.stage(
-        light_walk, scene, (pix,),
-        (iteration, misc.mis_vm_weight, misc.mis_vc_weight),
-        (misc.light_sub_path_count, res_x, res_y, base_seed,
-         max_path_length, min_path_length, use_vc, use_vm, light_trace_only,
-         rng_kind))
-    if splat_pix is not None:
-        fb = splat_colors(fb, splat_pix, splat_rgb)
-    trace.stamp("splat_flush")
-    return verts, fb, rays
-
-
 def light_walk(
     scene: SceneData, pix, iteration, mis_vm_weight, mis_vc_weight,
     light_sub_path_count: float, res_x_fb: int, res_y_fb: int,
@@ -381,7 +359,7 @@ def light_walk(
     ``iteration`` and the two MIS weights are 0-dim device tensors
     (:class:`StageMisc`); the function makes no host read, so it runs as
     one CUDA graph (graphs.py). The camera splats are recorded per bounce
-    for :func:`trace_light_paths` to flush; dead or off-screen rows carry
+    for :func:`_iteration_body` to flush; dead or off-screen rows carry
     the sentinel ``res_x_fb * res_y_fb``."""
     n = pix.shape[0]
     dev = pix.device
@@ -668,20 +646,6 @@ def connect_vertices(
 # ---------------------------------------------------------------------------
 # Camera stage + merge + the iteration
 # ---------------------------------------------------------------------------
-
-
-def _camera_stage(
-    scene, misc, verts, pix, iteration: int, res_x: int, base_seed: int,
-    max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
-    ppm: bool, rng_kind: str = "threefry",
-):
-    """Camera sub-paths -> (color V3 [N], queries, ray_count):
-    :func:`camera_walk` as one graph (graphs.stage)."""
-    return graphs.stage(
-        camera_walk, scene, (verts, pix),
-        (iteration, misc.mis_vm_weight, misc.mis_vc_weight),
-        (misc.light_sub_path_count, res_x, base_seed, max_path_length,
-         min_path_length, use_vc, use_vm, ppm, rng_kind))
 
 
 def camera_walk(
@@ -1238,96 +1202,19 @@ def _merge(scene, misc, queries, verts, ppm: bool, max_path_length: int,
     return color, overflow, stats
 
 
-def render_iteration_core(
-    scene: SceneData,
-    iteration: int,
-    pix,
-    res_x: int,
-    res_y: int,
-    n_paths_global: int,
-    base_seed: int = 1234,
-    max_path_length: int = 10,
-    min_path_length: int = 0,
-    radius_factor: float = 0.003,
-    radius_alpha: float = 0.75,
-    use_vc: bool = True,
-    use_vm: bool = True,
-    light_trace_only: bool = False,
-    ppm: bool = False,
-    rng_kind: str = "threefry",
-    merge_backend: str = "auto",
-    vm_exchange: str = "allgather",
-    group=None,
-    pair_factor: float = 24.0,
-    photon_factor: float | None = None,
-    query_factor: float | None = None,
-    merge_chunks: int = 1,
-):
-    """One VCM-family iteration over the path ids ``pix``, stage by stage
-    -> (this process's image [resY, resX, 3] f32, ray_count, merge
-    overflow int64, merge stats int64 [candidate pairs, live photons,
-    live queries]).
-
-    ``pix`` holds *global* path/pixel ids: RNG streams and the camera pixel
-    mapping depend only on them, so any partition of
-    ``arange(n_paths_global)`` over processes reproduces the
-    single-process paths. The MIS constants use the *global* light path
-    count (vertexcm.hxx:303-308). With ``group`` (a torch.distributed
-    process group, parallel/sharding.py) the merge sees every rank's
-    photons through ``vm_exchange`` (see :func:`_merge`); light-tracing
-    splats land anywhere in the full frame, so the image is this process's
-    share, summed over ranks by the caller.
-
-    ``merge_backend``: "auto" and "pallas" take the cell merge
-    (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
-    CPU), the port of the JAX package's Pallas merge; "xla" takes the
-    differentiable pair merge :func:`merge_stage`, the JAX package's XLA
-    merge. The caps: see :func:`_merge`.
-
-    The ray count is path segments plus enabled shadow/connection rays,
-    the reference-comparable work metric (bench.py's count)."""
-    if merge_backend not in MERGE_BACKENDS:
-        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
-                         f"not {merge_backend!r}")
-    if vm_exchange not in VM_EXCHANGES:
-        raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
-                         f"not {vm_exchange!r}")
-    dev = scene.device
-    trace.stamp("start", iteration)
-    misc = compute_misc(scene, iteration, n_paths_global, radius_factor,
-                        radius_alpha, use_vc, use_vm)
-    fb = new_fb_planes(res_x, res_y, dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    stats = torch.zeros((3,), dtype=torch.int64, device=dev)
-
-    # ---- Stage 1: light sub-paths.
-    verts, fb, ray_count = trace_light_paths(
-        scene, misc, pix, iteration, fb, base_seed, max_path_length,
-        min_path_length, use_vc, use_vm, light_trace_only, rng_kind,
-    )
-    if light_trace_only:
-        img = fb.to_array()
-        trace.stamp("finish")
-        return img, ray_count, overflow, stats
-
-    # ---- Stage 2: camera sub-paths.
-    color, queries, cam_rays = _camera_stage(
-        scene, misc, verts, pix, iteration, res_x, base_seed,
-        max_path_length, min_path_length, use_vc, use_vm, ppm, rng_kind,
-    )
-
-    # ---- Stage 3: deferred merging.
-    if use_vm:
-        mc, overflow, stats = _merge(
-            scene, misc, queries, verts, ppm, max_path_length,
-            min_path_length, n_paths_global, merge_backend, vm_exchange,
-            group, pair_factor, photon_factor, query_factor, merge_chunks)
-        color = color + mc
-
-    # Camera contributions always land on the path's own pixel.
-    img = add_color_at_pix(fb, pix, color).to_array()
-    trace.stamp("finish")
-    return img, ray_count + cam_rays, overflow, stats
+def iteration_scalars(scene: SceneData, iteration: int,
+                      n_paths_global: int, radius_factor: float,
+                      radius_alpha: float, use_vc: bool,
+                      use_vm: bool) -> tuple:
+    """The per-iteration scalars of :func:`iteration_stage` and
+    :func:`sharded_iteration_stage`, in their order: the iteration, then
+    :func:`compute_misc`'s radius, r^2, vm normalization and two MIS
+    weights (graphs.stage hands each to the stage as a 0-dim device
+    tensor)."""
+    m = compute_misc(scene, iteration, n_paths_global, radius_factor,
+                     radius_alpha, use_vc, use_vm)
+    return (iteration, m.radius, m.radius_sqr, m.vm_normalization,
+            m.mis_vm_weight, m.mis_vc_weight)
 
 
 def render_iteration(
@@ -1353,19 +1240,29 @@ def render_iteration(
 ):
     """One VCM-family iteration over every pixel of the frame on the
     scene's device -> (image [resY, resX, 3] f32, ray_count int64 tensor):
-    :func:`render_iteration_core` over ``arange(res_x * res_y)``, stage by
-    stage. The cell merge's tables are its slot counts (nothing
-    overflows); the pair merge runs at the factors' caps (the JAX
-    defaults 24 / 3 / 3), truncating as the JAX package's does."""
-    n = res_x * res_y
-    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    img, rays, _, _ = render_iteration_core(
-        scene, iteration, pix, res_x, res_y, n, base_seed, max_path_length,
-        min_path_length, radius_factor, radius_alpha, use_vc, use_vm,
-        light_trace_only, ppm, rng_kind, merge_backend,
-        pair_factor=pair_factor, photon_factor=photon_factor,
-        query_factor=query_factor, merge_chunks=merge_chunks)
-    return img, rays
+    :func:`iteration_stage` through graphs.stage.
+
+    ``merge_backend``: "auto" and "pallas" take the cell merge
+    (ops/merge.py: the Hopper kernel on CUDA, its plain version on the
+    CPU), the port of the JAX package's Pallas merge; "xla" takes the
+    differentiable pair merge :func:`merge_stage`, the JAX package's XLA
+    merge. With the factors None the cell merge's tables are its slot
+    counts (nothing overflows) and the pair merge runs at the JAX
+    defaults (24 / 3 / 3), truncating as the JAX package's does (see
+    :func:`_merge`). On a card the image and count are the graph's
+    outputs, which the next call overwrites: clone what you keep.
+
+    The ray count is path segments plus enabled shadow/connection rays,
+    the reference-comparable work metric (bench.py's count)."""
+    static = iteration_static(res_x, res_y, base_seed, max_path_length,
+                              min_path_length, use_vc, use_vm,
+                              light_trace_only, ppm, rng_kind, photon_factor,
+                              query_factor, merge_backend, pair_factor,
+                              merge_chunks)
+    return graphs.stage(
+        iteration_stage, scene, (),
+        iteration_scalars(scene, iteration, res_x * res_y, radius_factor,
+                          radius_alpha, use_vc, use_vm), static)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -1384,23 +1281,29 @@ def merge_caps(photon_factor: float, query_factor: float,
 def iteration_static(res_x: int, res_y: int, base_seed: int,
                      max_path_length: int, min_path_length: int,
                      use_vc: bool, use_vm: bool, light_trace_only: bool,
-                     ppm: bool, rng_kind: str, photon_factor: float,
-                     query_factor: float, merge_backend: str = "auto",
+                     ppm: bool, rng_kind: str, photon_factor: float | None,
+                     query_factor: float | None, merge_backend: str = "auto",
                      pair_factor: float = 24.0,
                      merge_chunks: int = 1) -> tuple:
     """The static arguments of :func:`iteration_stage` (its graph key's
-    static part; render.py drops the graph of outgrown caps by it). The
-    merge's backend and caps are normalized: factors a merge does not read
-    are 0, so they neither split nor drop its graphs."""
+    static part; render.py drops the graph of outgrown caps by it), with
+    ``merge_backend`` checked. The merge's backend and caps are
+    normalized: factors a merge does not read are 0, so they neither
+    split nor drop its graphs; photon and query factors of None (the cell
+    merge's slot counts, the pair merge's defaults: :func:`_merge`) stay
+    None."""
+    if merge_backend not in MERGE_BACKENDS:
+        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
+                         f"not {merge_backend!r}")
     merging = use_vm and not light_trace_only
     pair = merging and merge_backend == "xla"
+    factor = lambda f: (None if f is None else float(f)) if merging else 0.0
     return (float(np.float32(res_x * res_y)), res_x, res_y, base_seed,
             max_path_length, min_path_length, use_vc, use_vm,
             light_trace_only, ppm, rng_kind,
             "xla" if pair else "auto",
             float(pair_factor) if pair else 0.0,
-            float(photon_factor) if merging else 0.0,
-            float(query_factor) if merging else 0.0,
+            factor(photon_factor), factor(query_factor),
             merge_chunks if pair else 1)
 
 
@@ -1410,15 +1313,22 @@ def _iteration_body(
     light_sub_path_count: float, res_x: int, res_y: int, base_seed: int,
     max_path_length: int, min_path_length: int, use_vc: bool, use_vm: bool,
     light_trace_only: bool, ppm: bool, rng_kind: str, merge_backend: str,
-    pair_factor: float, photon_factor: float, query_factor: float,
-    merge_chunks: int, vm_exchange: str, group,
+    pair_factor: float, photon_factor: float | None,
+    query_factor: float | None, merge_chunks: int, vm_exchange: str, group,
 ):
     """The stages of one iteration over the path ids ``pix`` -> (this
     process's image, ray_count, merge overflow, merge stats), with the
     per-iteration scalars as 0-dim device tensors: light walk, splat
     flush, camera stage, the merge at its static caps (:func:`_merge`,
-    with ``group`` through ``vm_exchange``), own-pixel accumulation. The
-    operations, and their order, of :func:`render_iteration_core`."""
+    with ``group`` through ``vm_exchange``), own-pixel accumulation.
+
+    ``pix`` holds *global* path/pixel ids: RNG streams and the camera pixel
+    mapping depend only on them, so any partition of
+    ``arange(n_paths_global)`` over processes reproduces the
+    single-process paths. The MIS constants use the *global* light path
+    count (vertexcm.hxx:303-308). Light-tracing splats land anywhere in
+    the full frame, so under a group the image is this process's share,
+    which the caller sums over ranks."""
     dev = scene.device
     trace.stamp("start", iteration)
     misc = VcmMisc(radius, radius_sqr, vm_normalization, mis_vm_weight,
@@ -1455,19 +1365,19 @@ def iteration_stage(
     res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
     use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
     rng_kind: str, merge_backend: str, pair_factor: float,
-    photon_factor: float, query_factor: float, merge_chunks: int,
+    photon_factor: float | None, query_factor: float | None,
+    merge_chunks: int,
 ):
     """One whole VCM-family iteration over every pixel -> (image [resY,
     resX, 3] f32, ray_count, merge overflow int64, merge stats int64 [3]),
-    all on the device: light walk, splat flush, camera stage, the merge at
-    its static caps (the cell merge, or the pair merge for
-    ``merge_backend="xla"``; :func:`_merge`), own-pixel accumulation.
+    all on the device: :func:`_iteration_body` over ``arange(res_x *
+    res_y)``, the merge at its static caps (the cell merge, or the pair
+    merge for ``merge_backend="xla"``; :func:`_merge`).
 
     ``iteration`` and the five per-iteration scalars are 0-dim device
-    tensors (graphs.stage fills them before each replay; compute_misc's
-    floats, exactly); nothing here reads the host, so on a card the whole
-    function is one CUDA graph. Same operations, in the same order, as
-    :func:`render_iteration_core` at the same caps: the same bits."""
+    tensors (graphs.stage fills them before each replay;
+    :func:`iteration_scalars`, exactly); nothing here reads the host, so
+    on a card the whole function is one CUDA graph."""
     n = res_x * res_y
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
     out = _iteration_body(
@@ -1481,10 +1391,14 @@ def iteration_stage(
 
 
 def sharded_static(static: tuple, vm_exchange: str, group) -> tuple:
-    """The static arguments of :func:`sharded_iteration_stage`:
-    :func:`iteration_static`'s, then the photon exchange, the group's size,
-    this rank and the group itself (by identity), so that graphs of other
-    groups and exchanges stay apart."""
+    """The static arguments of :func:`sharded_iteration_stage`, with
+    ``vm_exchange`` checked: :func:`iteration_static`'s, then the photon
+    exchange, the group's size, this rank and the group itself (by
+    identity, which also tells ``graphs.why_eager`` its backend), so that
+    graphs of other groups and exchanges stay apart."""
+    if vm_exchange not in VM_EXCHANGES:
+        raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
+                         f"not {vm_exchange!r}")
     return (*static, vm_exchange, comm.world_size(group), comm.rank(group),
             group)
 
@@ -1495,8 +1409,8 @@ def sharded_iteration_stage(
     res_y: int, base_seed: int, max_path_length: int, min_path_length: int,
     use_vc: bool, use_vm: bool, light_trace_only: bool, ppm: bool,
     rng_kind: str, merge_backend: str, pair_factor: float,
-    photon_factor: float, query_factor: float, merge_chunks: int,
-    vm_exchange: str, world: int, rank: int, group,
+    photon_factor: float | None, query_factor: float | None,
+    merge_chunks: int, vm_exchange: str, world: int, rank: int, group,
 ):
     """One whole VCM-family iteration on this rank's path shard ``[rank *
     n / W, (rank + 1) * n / W)`` of ``group`` -> (image summed over the
@@ -1506,19 +1420,16 @@ def sharded_iteration_stage(
     (vcm.py:1387-1391) are :func:`comm.framebuffer_sum` of the image and
     one :func:`comm.all_reduce_sum` of [rays, overflow, stats].
 
-    The stages of :func:`iteration_stage` on the shard, with the photon
-    exchange inside: the all-gather, or W merges and W - 1 ring shifts in
-    a static loop (:func:`_merge`), the merges at their static caps. The
-    same operations, in the same order, as the stage-by-stage
-    ``parallel/sharding.py::sharded_render_iteration_with_stats`` at the
-    same caps: the same bits. Nothing here reads the host, so on an NCCL
-    group's card the whole function, collectives included, is one CUDA
-    graph (graphs.stage; the key's :func:`sharded_static` part holds the
-    exchange, W, the rank and the group)."""
+    :func:`_iteration_body` on the shard, with the photon exchange inside:
+    the all-gather, or W merges and W - 1 ring shifts in a static loop
+    (:func:`_merge`), the merges at their static caps. Nothing here reads
+    the host, so on an NCCL group's card the whole function, collectives
+    included, is one CUDA graph (graphs.stage; the key's
+    :func:`sharded_static` part holds the exchange, W, the rank and the
+    group); a gloo group's collectives stage through host memory, so
+    there it runs eagerly (``graphs.why_eager``)."""
     n = res_x * res_y
-    m = n // world
-    pix = torch.arange(rank * m, (rank + 1) * m, dtype=torch.int64,
-                       device=scene.device)
+    pix = comm.shard_ids(n, world, rank, scene.device)
     img, rays, overflow, stats = _iteration_body(
         scene, pix, n, iteration, radius, radius_sqr, vm_normalization,
         mis_vm_weight, mis_vc_weight, light_sub_path_count, res_x, res_y,
@@ -1557,15 +1468,16 @@ def render_block_with_stats(
     group=None,
     vm_exchange: str = "allgather",
 ):
-    """``block`` consecutive iterations, each one replay of the
-    :func:`iteration_stage` graph on a card (with ``group``, of the
-    :func:`sharded_iteration_stage` graph of this rank, the photon
-    exchange ``vm_exchange`` and the sums over ranks inside it) ->
-    (image sum [resY, resX, 3],
+    """``block`` consecutive iterations, each one :func:`iteration_stage`
+    through graphs.stage (with ``group``, this rank's
+    :func:`sharded_iteration_stage`, the photon exchange ``vm_exchange``
+    and the sums over ranks inside it) -> (image sum [resY, resX, 3],
     ray_count, overflow_sum, stats_max, luminance), all device tensors:
     the counterpart of the JAX package's ``render_block_with_stats``
-    (vcm.py:1647-1715). Overflow is summed so that any overflowing
-    iteration shows; stats are maxed, for cap sizing.
+    (vcm.py:1647-1715). On a card each iteration is one graph replay,
+    except where ``graphs.why_eager`` says otherwise (a gloo group).
+    Overflow is summed so that any overflowing iteration shows; stats are
+    maxed, for cap sizing.
 
     The image sum starts at ``accum`` (default zeros, the JAX function's
     block sum) and adds the iterations one by one: render.py passes its
@@ -1576,32 +1488,16 @@ def render_block_with_stats(
     ``pair_factor`` and the factors, in ``merge_chunks`` query chunks;
     the luminance is framebuffer.hxx:89-102's of the sum. With
     ``group`` every rank calls this alike and every output is the
-    group's, replicated; the group must be capturable on a card (NCCL:
-    ``comm.capturable``), since a gloo group's collectives stage through
-    host memory (render.py runs those ranks stage by stage)."""
-    if merge_backend not in MERGE_BACKENDS:
-        raise ValueError(f"merge_backend must be one of {MERGE_BACKENDS}, "
-                         f"not {merge_backend!r}")
-    if vm_exchange not in VM_EXCHANGES:
-        raise ValueError(f"vm_exchange must be one of {VM_EXCHANGES}, "
-                         f"not {vm_exchange!r}")
+    group's, replicated."""
     n = res_x * res_y
     dev = scene.device
+    fn = iteration_stage
     static = iteration_static(res_x, res_y, base_seed, max_path_length,
                               min_path_length, use_vc, use_vm,
                               light_trace_only, ppm, rng_kind, photon_factor,
                               query_factor, merge_backend, pair_factor,
                               merge_chunks)
-    fn = iteration_stage
     if group is not None:
-        if dev.type == "cuda" and not comm.capturable(group):
-            raise ValueError(
-                "a gloo group's collectives stage through host memory and "
-                "cannot run inside a CUDA graph: render its iterations "
-                "stage by stage (parallel/sharding.py)")
-        w = comm.world_size(group)
-        if n % w != 0:
-            raise ValueError(f"path count {n} not divisible by {w} devices")
         fn, static = sharded_iteration_stage, sharded_static(
             static, vm_exchange, group)
     acc = (torch.zeros((res_y, res_x, 3), dtype=torch.float32, device=dev)
@@ -1610,13 +1506,10 @@ def render_block_with_stats(
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     stats = torch.zeros((3,), dtype=torch.int64, device=dev)
     for j in range(block):
-        it = start_iteration + j
-        m = compute_misc(scene, it, n, radius_factor, radius_alpha, use_vc,
-                         use_vm)
         img, r, o, st = graphs.stage(
             fn, scene, (),
-            (it, m.radius, m.radius_sqr, m.vm_normalization,
-             m.mis_vm_weight, m.mis_vc_weight), static)
+            iteration_scalars(scene, start_iteration + j, n, radius_factor,
+                              radius_alpha, use_vc, use_vm), static)
         acc = acc + img
         rays = rays + r
         overflow = overflow + o

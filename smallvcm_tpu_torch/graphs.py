@@ -19,12 +19,7 @@ The stages are:
   paths, with the photon exchange, the merge at static caps and the sums
   over ranks inside the graph, the counterpart of the JAX package's
   ``_vcm_program``), and the whole pass of a sharded el or pt rank with
-  its framebuffer sum (``parallel/sharding.py::simple_stage``);
-- the light walk and the camera stage on their own
-  (``vcm.light_walk``, ``camera_walk``) on sharded ranks of a gloo group,
-  whose collectives stage through host memory and cannot be captured:
-  the merge, the exchange, the splat flush and the framebuffer sums run
-  eagerly between those two graphs.
+  its framebuffer sum (``parallel/sharding.py::simple_stage``).
 
 What stays outside every graph: the sums over a block's iterations (a
 few launches an iteration), the per-iteration scalars' fills, and the
@@ -34,10 +29,8 @@ luminance, ``render.py``).
 A stage function is called as ``fn(scene, *tensors, *scalars, *static)``:
 
 - ``tensors``: device tensors, or NamedTuples of them. A replay reads them
-  from the graph's input buffers: the tensors of the capturing call,
-  cloned, or, for the outputs of another graph (the light walk's vertices
-  fed to the camera stage), those outputs themselves. A later call's
-  tensors are copied into the buffers first, unless they are the buffers.
+  from the graph's input buffers, clones of the capturing call's tensors,
+  into which a later call's tensors are copied first.
 - ``scalars``: Python numbers that change between calls (the iteration,
   the radius, r^2, the vm normalization, the two MIS weights). Each
   reaches ``fn`` as a 0-dim device tensor (int -> int64, float ->
@@ -69,11 +62,16 @@ calls replay. Eager and replayed stages give the same bits, so which call
 captured does not show in the image, and a one-iteration run never
 captures.
 
-Graphs apply on a CUDA device, outside :func:`eager`, whenever autograd
-would record nothing. Under grad mode with a scene tensor or input that
-requires grad (``diff.py``'s gradients, the sweep's autograd Function in
-``ops/sweep.py``) the stage runs eagerly, always. There is no other way
-back to eager launches on a card: a failed capture or replay raises.
+:func:`why_eager` alone chooses between eager and graph, from what it can
+observe. Graphs apply on a CUDA device, outside :func:`eager`, whenever
+autograd would record nothing and the static values hold no group whose
+collectives a graph cannot hold. Under grad mode with a scene tensor or
+input that requires grad (``diff.py``'s gradients, the sweep's autograd
+Function in ``ops/sweep.py``) the stage runs eagerly, always; so does a
+sharded stage of a gloo group (``comm.capturable``: gloo stages CUDA
+tensors through host memory), such as ranks that share one card. There
+is no other way back to eager launches on a card: a failed capture or
+replay raises.
 
 The kernels' ``.launches`` counters (``ops/sweep.py``, ``ops/merge.py``,
 ``core/rng.py``, ``ops/bsdf.py``, the stage clocks'
@@ -100,6 +98,7 @@ import dataclasses
 import weakref
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from . import trace
@@ -170,14 +169,19 @@ def _scene_leaves(scene):
     return tensors, tuple(meta)
 
 
-def why_eager(scene, tensors=()):
-    """Why a stage of ``scene`` on ``tensors`` runs eagerly -> "autograd",
-    "eager()" or "cpu"; None when it runs as a graph."""
+def why_eager(scene, tensors=(), static=()):
+    """Why a stage of ``scene`` on ``tensors`` with ``static`` runs eagerly
+    -> "autograd", "eager()", "gloo" (a process group among the static
+    values that ``comm.capturable`` refuses) or "cpu"; None when it runs
+    as a graph."""
     flat = [*_scene_leaves(scene)[0], *pytree.tree_leaves(tensors)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
         return "autograd"
     if _EAGER:
         return "eager()"
+    if any(isinstance(v, dist.ProcessGroup) and not comm.capturable(v)
+           for v in static):
+        return "gloo"
     if scene.device.type != "cuda":
         return "cpu"
     return None
@@ -203,8 +207,7 @@ class _Graph:
 
     def replay(self, flat_in, scalars):
         for buf, t in zip(self.inputs, flat_in):
-            if t is not buf:
-                buf.copy_(t)
+            buf.copy_(t)
         for buf, v in zip(self.scalars, scalars):
             buf.fill_(v)
         self.graph.replay()
@@ -273,15 +276,9 @@ def drop_group(group) -> int:
     return len(keys)
 
 
-def _owned(t) -> bool:
-    """Is ``t`` an output tensor of a captured graph?"""
-    return any(t is o for e in _ENTRIES.values() if e.graph is not None
-               for o in e.graph.outputs)
-
-
 def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
     global _CAPTURING
-    inputs = [t if _owned(t) else t.clone() for t in flat_in]
+    inputs = [t.clone() for t in flat_in]
     bufs = [_scalar(v, dev) for v in scalars]
     before = _read_counters()
     graph = torch.cuda.CUDAGraph()
@@ -307,7 +304,7 @@ def stage(fn, scene, tensors: tuple, scalars: tuple, static: tuple):
     ``stage.capture_s`` and ``stage.replays``."""
     flat_in, in_spec = pytree.tree_flatten(tensors)
     dev = scene.device
-    if why_eager(scene, flat_in) is not None:
+    if why_eager(scene, flat_in, static) is not None:
         return fn(scene, *tensors, *(_scalar(v, dev) for v in scalars),
                   *static)
     geo, meta = _scene_leaves(scene)

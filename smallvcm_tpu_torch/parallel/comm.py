@@ -62,9 +62,21 @@ _all_gather_tensor = (getattr(dist, "all_gather_single", None)
 
 def capturable(group=None) -> bool:
     """Can the group's collectives run inside a CUDA graph? NCCL's can;
-    gloo's stage CUDA tensors through host memory and cannot. The sharded
-    runners choose by this, statically, never by a failed capture."""
+    gloo's stage CUDA tensors through host memory and cannot.
+    ``graphs.why_eager`` asks this of a stage's group, never a failed
+    capture."""
     return dist.get_backend(_group(group)) == dist.Backend.NCCL
+
+
+def shard_ids(n: int, world: int, rank: int, device) -> torch.Tensor:
+    """Global path ids ``[rank * n / world, (rank + 1) * n / world)``: the
+    contiguous shard of ``n`` paths that rank ``rank`` of ``world``
+    renders."""
+    if n % world != 0:
+        raise ValueError(f"path count {n} not divisible by {world} devices")
+    m = n // world
+    return torch.arange(rank * m, (rank + 1) * m, dtype=torch.int64,
+                        device=device)
 
 
 def world_size(group=None) -> int:

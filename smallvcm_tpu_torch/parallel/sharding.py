@@ -19,23 +19,17 @@ Unlike the JAX package, which swaps both Pallas kernels for XLA under a
 mesh, every rank runs the port's kernels on its own card: the cell merge,
 the closest-hit sweep and the any-hit sweep.
 
-How an iteration runs on a rank depends on the group's backend, chosen
-statically (``comm.capturable``):
-
-- NCCL: the whole iteration is ONE CUDA graph, collectives included, the
-  counterpart of the JAX package's one ``shard_map`` program an iteration
-  (``_vcm_program``): ``vcm.sharded_iteration_stage`` for the VCM family
-  (light walk, splat flush, camera stage, the photon exchange, the merge
-  at static caps, the own-pixel add, the sums over ranks), replayed by
-  ``vcm.render_block_with_stats(group=...)``, and :func:`simple_stage` for
-  el and pt (the pass and its sums).
-- gloo: its collectives stage CUDA tensors through host memory and cannot
-  be captured, so an iteration runs stage by stage
-  (:func:`sharded_render_iteration_with_stats`): the light walk and the
-  camera stage as graphs, the exchange, the merge and the sums eagerly
-  between and after them.
-
-Either way the merges run at static caps over the factors' share of the
+An iteration on a rank is one function, run through ``graphs.stage``:
+``vcm.sharded_iteration_stage`` for the VCM family (light walk, splat
+flush, camera stage, the photon exchange, the merge at static caps, the
+own-pixel add, the sums over ranks), replayed by
+``vcm.render_block_with_stats(group=...)``, and :func:`simple_stage` for
+el and pt (the pass and its sums). On an NCCL group's card it is ONE CUDA
+graph, collectives included, the counterpart of the JAX package's one
+``shard_map`` program an iteration (``_vcm_program``). A gloo group's
+collectives stage CUDA tensors through host memory, so there (and on CPU
+ranks, and under autograd) ``graphs.why_eager`` runs the same function
+eagerly. The merges run at static caps over the factors' share of the
 paths, and their overflow and stats are summed over the ranks, so every
 rank grows to the same caps (render.py).
 
@@ -51,14 +45,6 @@ import torch
 from .. import graphs, trace
 from ..algorithms import eyelight, pathtracer, vcm
 from . import comm
-
-
-def shard_pix(n: int, group, device) -> torch.Tensor:
-    """This rank's global path ids ``[r * n / W, (r + 1) * n / W)``."""
-    w, r = comm.world_size(group), comm.rank(group)
-    if n % w != 0:
-        raise ValueError(f"path count {n} not divisible by {w} devices")
-    return _shard_ids(n, w, r, device)
 
 
 def sharded_render_iteration_with_stats(
@@ -84,14 +70,13 @@ def sharded_render_iteration_with_stats(
     query_factor: float | None = None,
     merge_chunks: int = 1,
 ):
-    """One VCM-family iteration with paths sharded over ``group``, stage by
-    stage ->
-    (image [resY, resX, 3] summed over ranks, ray_count, merge overflow
-    int64, merge stats int64 [candidate pairs, live photons, live
-    queries]), all replicated on every rank: the counts, the overflow and
-    the stats are summed over ranks, as the JAX package psums them
-    (vcm.py:1387-1391), so every rank reads the same numbers and grows
-    its caps alike.
+    """One VCM-family iteration with paths sharded over ``group``
+    (``vcm.sharded_iteration_stage`` through graphs.stage) -> (image
+    [resY, resX, 3] summed over ranks, ray_count, merge overflow int64,
+    merge stats int64 [candidate pairs, live photons, live queries]), all
+    replicated on every rank: the counts, the overflow and the stats are
+    summed over ranks, as the JAX package psums them (vcm.py:1387-1391),
+    so every rank reads the same numbers and grows its caps alike.
 
     ``vm_exchange`` picks the photon exchange for merging: "allgather"
     gives every rank the whole photon table (one collective, the
@@ -103,23 +88,17 @@ def sharded_render_iteration_with_stats(
     pair merge also at ``pair_factor`` in ``merge_chunks`` query chunks
     (algorithms/vcm.py::_merge); with the factors None the pair merge
     takes the JAX defaults (3.0) and the cell merge its tables' slot
-    counts. Differentiable in the scene's parameters. On an NCCL group
-    ``vcm.sharded_iteration_stage`` computes the same bits as one CUDA
-    graph."""
-    n = res_x * res_y
-    pix = shard_pix(n, group, scene.device)
-    with trace.paused("finish"):    # stamped after the sums over ranks
-        img, rays, overflow, stats = vcm.render_iteration_core(
-            scene, iteration, pix, res_x, res_y, n, base_seed,
-            max_path_length, min_path_length, radius_factor, radius_alpha,
-            use_vc, use_vm, light_trace_only, ppm, rng_kind, merge_backend,
-            vm_exchange, group, pair_factor, photon_factor, query_factor,
-            merge_chunks)
-    counts = comm.all_reduce_sum(
-        torch.cat([rays.reshape(1), overflow.reshape(1), stats]), group)
-    img = comm.framebuffer_sum(img, group)
-    trace.stamp("finish")
-    return img, counts[0], counts[1], counts[2:]
+    counts. Differentiable in the scene's parameters. On a card the
+    outputs are a graph's, which the next iteration overwrites: clone
+    what you keep."""
+    static = vcm.sharded_static(vcm.iteration_static(
+        res_x, res_y, base_seed, max_path_length, min_path_length, use_vc,
+        use_vm, light_trace_only, ppm, rng_kind, photon_factor, query_factor,
+        merge_backend, pair_factor, merge_chunks), vm_exchange, group)
+    return graphs.stage(
+        vcm.sharded_iteration_stage, scene, (),
+        vcm.iteration_scalars(scene, iteration, res_x * res_y, radius_factor,
+                              radius_alpha, use_vc, use_vm), static)
 
 
 def sharded_render_iteration(group, scene, iteration: int, res_x: int,
@@ -130,12 +109,6 @@ def sharded_render_iteration(group, scene, iteration: int, res_x: int,
         group, scene, iteration, res_x, res_y, **kw)[0]
 
 
-def _shard_ids(n: int, world: int, rank: int, device) -> torch.Tensor:
-    m = n // world
-    return torch.arange(rank * m, (rank + 1) * m, dtype=torch.int64,
-                        device=device)
-
-
 def simple_stage(scene, iteration, algorithm: str, res_x: int, res_y: int,
                  base_seed: int, max_path_length: int, min_path_length: int,
                  rng_kind: str, world: int, rank: int, group):
@@ -144,7 +117,7 @@ def simple_stage(scene, iteration, algorithm: str, res_x: int, res_y: int,
     int64 device tensor and no host read: on an NCCL group's card ONE CUDA
     graph (graphs.stage), the JAX package's ``_SIMPLE_PROGRAMS``
     (sharding.py:194-250)."""
-    pix = _shard_ids(res_x * res_y, world, rank, scene.device)
+    pix = comm.shard_ids(res_x * res_y, world, rank, scene.device)
     with trace.paused("finish"):    # stamped after the sums over ranks
         if algorithm == "el":
             img, rays = eyelight.render_pass(scene, pix, iteration, res_x,
@@ -174,28 +147,13 @@ def sharded_simple_iteration(
     sharded over ``group`` -> (image, ray_count), replicated. Each rank
     renders its pixels into a full-frame image; every pixel has one owner,
     so the sum adds exact zeros and the image equals the single-process
-    image bit for bit. On an NCCL group the pass and its sums are one
-    graph (:func:`simple_stage`); on gloo the pass is a graph and the sums
-    run after it. On a card the outputs are a graph's, which the next
-    iteration overwrites: clone what you keep."""
-    n = res_x * res_y
-    pix = shard_pix(n, group, scene.device)
+    image bit for bit. The pass and its sums are :func:`simple_stage`
+    through graphs.stage. On a card the outputs are a graph's, which the
+    next iteration overwrites: clone what you keep."""
     if algorithm not in ("el", "pt"):
         raise ValueError(f"algorithm must be 'el' or 'pt', not {algorithm!r}")
-    if comm.capturable(group):
-        return graphs.stage(
-            simple_stage, scene, (), (iteration,),
-            (algorithm, res_x, res_y, base_seed, max_path_length,
-             min_path_length, rng_kind, comm.world_size(group),
-             comm.rank(group), group))
-    with trace.paused("finish"):    # stamped after the sums over ranks
-        if algorithm == "el":
-            img, rays = eyelight.render_core(scene, iteration, pix, res_x,
-                                             res_y, base_seed, rng_kind)
-        else:
-            img, rays = pathtracer.render_core(
-                scene, iteration, pix, res_x, res_y, base_seed,
-                max_path_length, min_path_length, rng_kind)
-    out = comm.framebuffer_sum(img, group), comm.all_reduce_sum(rays, group)
-    trace.stamp("finish")
-    return out
+    return graphs.stage(
+        simple_stage, scene, (), (iteration,),
+        (algorithm, res_x, res_y, base_seed, max_path_length,
+         min_path_length, rng_kind, comm.world_size(group), comm.rank(group),
+         group))

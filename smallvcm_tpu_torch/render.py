@@ -34,20 +34,18 @@ for all seven algorithms, with the JAX package's block runner:
 With ``RenderConfig.group`` (the JAX package's ``mesh``), every rank of the
 group runs :func:`render` with the same configuration: each renders its
 path shard (parallel/sharding.py) and holds the summed image, with one
-host read a block (under ``-t``, blocks of one). On an NCCL group each
-iteration is ONE CUDA graph with the photon exchange, the merge and the
-sums over ranks inside it (``vcm.sharded_iteration_stage``; el and pt:
+host read a block (under ``-t``, blocks of one). Each iteration is one
+function with the photon exchange, the merge and the sums over ranks
+inside it (``vcm.sharded_iteration_stage``; el and pt:
 ``sharding.simple_stage``), the counterpart of the JAX package's one
-program an iteration. On a gloo group, whose collectives stage through
-host memory and cannot be captured, an iteration runs stage by stage (the
-photon exchange sits between the graphs of the light and camera stages).
-The choice is static, by the group's backend (``comm.capturable``). Both
-merges run there at the caps above, from the configured factors (sharded
-runs measure nothing and write no cache); the overflow and stats are
-summed over the ranks, so every rank grows to the same caps over its
-share of the paths. Under a time budget rank 0 decides each step and
-broadcasts it, so every rank runs the same number of iterations; only
-rank 0 prints.
+program an iteration: ONE CUDA graph on an NCCL group's card, eager where
+``graphs.why_eager`` says so (a gloo group, whose collectives stage
+through host memory). Both merges run there at the caps above, from the
+configured factors (sharded runs measure nothing and write no cache); the
+overflow and stats are summed over the ranks, so every rank grows to the
+same caps over its share of the paths. Under a time budget rank 0 decides
+each step and broadcasts it, so every rank runs the same number of
+iterations; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -195,8 +193,8 @@ def merge_chunks(cfg: RenderConfig) -> int:
 def _caps_kw(cfg: RenderConfig) -> dict:
     """The merge caps of ``cfg`` as keywords of the VCM iteration
     functions: the pair merge's, and the cell merge's under a group; none
-    for the single process's stage-by-stage cell merge, whose tables are
-    the slot counts."""
+    for the single process's cell merge, whose tables are then the slot
+    counts."""
     if cfg.merge_backend != "xla":
         return ({} if cfg.group is None else
                 dict(photon_factor=cfg.photon_factor,
@@ -206,37 +204,19 @@ def _caps_kw(cfg: RenderConfig) -> dict:
                 query_factor=cfg.query_factor, merge_chunks=merge_chunks(cfg))
 
 
-def _sharded_vcm_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
-                           iteration: int):
-    """This rank's share of one sharded VCM-family iteration, stage by
-    stage -> (image, rays, overflow, stats), summed over the group's
-    ranks."""
-    res_x, res_y = cfg.resolution
-    use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
-    return sharding.sharded_render_iteration_with_stats(
-        cfg.group, scene, iteration, res_x, res_y, cfg.base_seed,
-        cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
-        cfg.radius_alpha, use_vc, use_vm, lt_only, ppm, cfg.vm_exchange,
-        cfg.rng_kind, cfg.merge_backend, **_caps_kw(cfg))
-
-
 def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
                      iteration: int):
-    """One iteration of the resolved algorithm, stage by stage -> (image,
-    ray_count); with ``cfg.group``, this rank's shard, summed over the
-    group's ranks. The pair merge, and under a group the cell merge too,
-    runs at ``cfg``'s caps and a truncation is not retried here (the
-    block runner retries). On a card el's and
-    pt's image and count are their graph's outputs, which the next
+    """One iteration of the resolved algorithm -> (image, ray_count); with
+    ``cfg.group``, this rank's shard, summed over the group's ranks. The
+    pair merge, and under a group the cell merge too, runs at ``cfg``'s
+    caps and a truncation is not retried here (the block runner retries).
+    On a card the image and count are a graph's outputs, which the next
     iteration overwrites: clone what you keep."""
     res_x, res_y = cfg.resolution
-    if cfg.group is not None:
-        if alg in ("el", "pt"):
-            return sharding.sharded_simple_iteration(
-                cfg.group, alg, scene, iteration, res_x, res_y,
-                cfg.base_seed, cfg.max_path_length, cfg.min_path_length,
-                cfg.rng_kind)
-        return _sharded_vcm_iteration(scene, cfg, alg, iteration)[:2]
+    if alg in ("el", "pt") and cfg.group is not None:
+        return sharding.sharded_simple_iteration(
+            cfg.group, alg, scene, iteration, res_x, res_y, cfg.base_seed,
+            cfg.max_path_length, cfg.min_path_length, cfg.rng_kind)
     if alg == "el":
         return eyelight.render_iteration(
             scene, iteration, res_x, res_y, cfg.base_seed, cfg.rng_kind)
@@ -245,12 +225,16 @@ def render_iteration(scene: SceneData, cfg: RenderConfig, alg: str,
             scene, iteration, res_x, res_y, cfg.base_seed,
             cfg.max_path_length, cfg.min_path_length, cfg.rng_kind)
     use_vc, use_vm, lt_only, ppm = _VCM_FLAGS[alg]
-    return vcm.render_iteration(
-        scene, iteration, res_x, res_y, cfg.base_seed, cfg.max_path_length,
-        cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha,
-        use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
-        rng_kind=cfg.rng_kind, merge_backend=cfg.merge_backend,
-        **_caps_kw(cfg))
+    args = (scene, iteration, res_x, res_y, cfg.base_seed,
+            cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
+            cfg.radius_alpha)
+    kw = dict(use_vc=use_vc, use_vm=use_vm, light_trace_only=lt_only,
+              ppm=ppm, rng_kind=cfg.rng_kind, merge_backend=cfg.merge_backend,
+              **_caps_kw(cfg))
+    if cfg.group is None:
+        return vcm.render_iteration(*args, **kw)
+    return sharding.sharded_render_iteration_with_stats(
+        cfg.group, *args, vm_exchange=cfg.vm_exchange, **kw)[:2]
 
 
 def _maybe_inject_test_fault(done: int) -> None:
@@ -475,9 +459,9 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     the same block again on overflow (at most MAX_GROWS times, then
     raises; each time counted in ``render.rerendered_blocks``), and reads
     the host once a block (twice when a block overflows). Each block arms the
-    device's stage clocks (``trace.block``). A VCM-family iteration is one
-    graph replay in a single process and on an NCCL group's rank, and runs
-    stage by stage on a gloo group's rank."""
+    device's stage clocks (``trace.block``). A VCM-family iteration is
+    ``vcm.render_block_with_stats``'s, in a single process and on a
+    group's rank alike."""
     res_x, res_y = cfg.resolution
     n = res_x * res_y
     dev = scene.device
@@ -505,8 +489,6 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
     # the group's ranks, so every rank grows to the same caps from the
     # same numbers: no broadcast is needed.
     n_shard = n if group is None else n // comm.world_size(group)
-    # One graph an iteration, or (a gloo group) stage by stage: static.
-    one_graph = group is None or comm.capturable(group)
 
     def stage_key():
         """The iteration graph's function and static key at the caps."""
@@ -520,34 +502,19 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
         return vcm.sharded_iteration_stage, vcm.sharded_static(
             static, cfg.vm_exchange, group)
 
-    def render_block(start, k, accum):
-        if one_graph:
-            return vcm.render_block_with_stats(
+    def read_block(start, k, accum):
+        with trace.block(dev, start, k) as clock:
+            return _read_block(*vcm.render_block_with_stats(
                 scene, start, res_x, res_y, k, cfg.base_seed,
-                cfg.max_path_length, cfg.min_path_length,
-                cfg.radius_factor, cfg.radius_alpha, use_vc=use_vc,
-                use_vm=use_vm, light_trace_only=lt_only, ppm=ppm,
+                cfg.max_path_length, cfg.min_path_length, cfg.radius_factor,
+                cfg.radius_alpha, use_vc=use_vc, use_vm=use_vm,
+                light_trace_only=lt_only, ppm=ppm,
                 photon_factor=cfg.photon_factor,
                 query_factor=cfg.query_factor, rng_kind=cfg.rng_kind,
                 accum=accum, pair_factor=cfg.pair_factor,
                 merge_chunks=merge_chunks(cfg),
                 merge_backend=cfg.merge_backend, group=group,
-                vm_exchange=cfg.vm_exchange)[:4]
-        # A gloo group: stage by stage, summed on the device, as the JAX
-        # package's sharded runner (render.py:425-449).
-        acc, rays, overflow, stats = accum, zero(), zero(), zero(3)
-        for j in range(k):
-            img, r, o, st = _sharded_vcm_iteration(scene, cfg, alg,
-                                                   start + j)
-            acc = acc + img
-            rays = rays + r
-            overflow = overflow + o
-            stats = torch.maximum(stats, st)
-        return acc, rays, overflow, stats
-
-    def read_block(start, k, accum):
-        with trace.block(dev, start, k) as clock:
-            return _read_block(*render_block(start, k, accum), clock)
+                vm_exchange=cfg.vm_exchange)[:4], clock)
 
     def run_block(start, k, accum):
         for grows in range(MAX_GROWS + 1):
@@ -565,8 +532,7 @@ def _make_block_runner(scene: SceneData, cfg: RenderConfig, alg: str):
                 cfg.pair_factor = _grow_pairs(cfg.pair_factor, pairs, n_shard)
             cfg.photon_factor = _grow(cfg.photon_factor, n_p, n_shard)
             cfg.query_factor = _grow(cfg.query_factor, n_q, n_shard)
-            if one_graph:
-                graphs.drop(*old)
+            graphs.drop(*old)
             if group is None:
                 _save_cached_caps(caps_key, _caps_of(cfg))
             if is_coordinator():

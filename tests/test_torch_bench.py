@@ -40,6 +40,7 @@ from smallvcm_tpu.algorithms import vcm as jvcm
 from smallvcm_tpu.io.framebuffer import new_fb_planes as jnew_fb
 from smallvcm_tpu.scene.scene import SCENE_CONFIGS
 from smallvcm_tpu.scene.scene import load_cornell_box as jload
+from smallvcm_tpu_torch import graphs
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm as tvcm
 from smallvcm_tpu_torch.scene.scene import load_cornell_box as tload
@@ -107,11 +108,14 @@ def port():
     it = bench_torch.COUNT_ITERATION
     misc = tvcm.compute_misc(ts, it, N, 0.003, 0.75, True, True)
     pix = torch.arange(N)
-    verts, _, light_rays = tvcm.trace_light_paths(
-        ts, misc, pix, it, tvcm.new_fb_planes(RES, RES), SEED, MAX_PATH, 0,
-        True, True, False)
-    _, queries, cam_rays = tvcm._camera_stage(
-        ts, misc, verts, pix, it, RES, SEED, MAX_PATH, 0, True, True, False)
+    walk = [graphs._scalar(v, "cpu")
+            for v in (it, misc.mis_vm_weight, misc.mis_vc_weight)]
+    verts, _, _, light_rays = tvcm.light_walk(
+        ts, pix, *walk, misc.light_sub_path_count, RES, RES, SEED, MAX_PATH,
+        0, True, True, False)
+    _, queries, cam_rays = tvcm.camera_walk(
+        ts, verts, pix, *walk, misc.light_sub_path_count, RES, SEED,
+        MAX_PATH, 0, True, True, False)
     _, overflow, stats = tvcm._merge(ts, misc, queries, verts, False,
                                      MAX_PATH, 0, N, "xla", "allgather",
                                      None)

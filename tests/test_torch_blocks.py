@@ -75,12 +75,8 @@ def _iteration_vertices(alg, radius_factor=0.05):
     use_vc, _, _, ppm = R._VCM_FLAGS[alg]
     scene = tload((RES, RES), SCENE_CONFIGS[1], device="cpu")
     misc = tvcm.compute_misc(scene, 1, N, radius_factor, 0.75, use_vc, True)
-    pix = torch.arange(N)
-    verts, _, _ = tvcm.trace_light_paths(
-        scene, misc, pix, 1, tfb.new_fb_planes(RES, RES), 1234, 10, 0,
-        use_vc, True, False)
-    _, queries, _ = tvcm._camera_stage(scene, misc, verts, pix, 1, RES, 1234,
-                                       10, 0, use_vc, True, ppm)
+    verts, queries = tvcm.trace_iteration(scene, 1, RES, RES, 1234, 10, 0,
+                                          radius_factor, 0.75, use_vc, ppm)
     return scene, misc, queries, verts, ppm
 
 

@@ -27,7 +27,6 @@ from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.core import rng
 from smallvcm_tpu_torch.core.vec3 import V3
-from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
 from smallvcm_tpu_torch.ops import bsdf as B
 from smallvcm_tpu_torch.ops import merge as M
 from smallvcm_tpu_torch.ops import sweep as S
@@ -246,14 +245,10 @@ def _merge_tables(dev, ppm):
     res = 64
     n = res * res
     scene = load_cornell_box((res, res), SCENE_CONFIGS[1], device=dev)
-    pix = torch.arange(n, device=dev)
     use_vc = not ppm
     misc = vcm.compute_misc(scene, 0, n, 0.02, 0.75, use_vc, True)
-    verts, _, _ = vcm.trace_light_paths(
-        scene, misc, pix, 0, new_fb_planes(res, res, dev), 1234, 10, 0,
-        use_vc, True, False)
-    _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, res, 1234,
-                                      10, 0, use_vc, True, ppm)
+    verts, queries = vcm.trace_iteration(scene, 0, res, res, 1234, 10, 0,
+                                         0.02, 0.75, use_vc, ppm)
     return M.merge_prep(scene, misc, queries, verts, n), misc
 
 

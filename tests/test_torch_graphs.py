@@ -7,15 +7,15 @@ tracing) stands in for the capture: like a CUDA graph it records the
 device operations of one call and freezes every Python value it sees.
 :class:`FxGraphs` plays ``graphs.stage``'s part with it (the first call of
 a key eager, the second traced then replayed, later calls replayed), and
-each stage of the slice (the VCM light walk and camera stage, pt's and
-el's pass) is traced at one iteration and replayed at three others, bit
-for bit against the eager stage. It does not see host reads that only
+each stage of the slice (the VCM light walk and camera stage, each
+staged on its own, pt's and el's pass) is traced at one iteration and
+replayed at three others, bit for bit against the eager stage. It does not see host reads that only
 set a shape (boolean indexing, ``nonzero``): capture on the card refuses
 those (chip_smoke.py phase 16).
 
 The whole VCM-family iteration (``vcm.iteration_stage``, the graph of a
 block's every iteration on a card) is traced and replayed the same way
-through render() here, and stage by stage in
+through render() here, and for vcm, ppm and lt in
 tests/test_torch_iteration_graph.py. Its cell merge runs there as
 ``merge_cells_plain``, whose pair expansion reads the host (it is the CPU
 stand-in for the kernel); the tests wrap it in an opaque custom op
@@ -38,6 +38,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
@@ -45,7 +46,6 @@ from smallvcm_tpu_torch import graphs
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import eyelight, pathtracer, vcm
 from smallvcm_tpu_torch.core import rng as trng
-from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
 from smallvcm_tpu_torch.ops import merge as M
 from smallvcm_tpu_torch.ops import sweep as S
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
@@ -163,29 +163,38 @@ def _misc(scene, it):
     return vcm.compute_misc(scene, it, N, 0.003, 0.75, True, True)
 
 
+def _walk_scalars(scene, it):
+    """(the walks' scalars: the iteration and the two MIS weights, the
+    light path count)."""
+    m = _misc(scene, it)
+    return (it, m.mis_vm_weight, m.mis_vc_weight), m.light_sub_path_count
+
+
 def _light(scene, it):
-    pix = torch.arange(N)
-    return vcm.trace_light_paths(scene, _misc(scene, it), pix, it,
-                                 new_fb_planes(RES, RES), SEED, MAX_PATH, 0,
-                                 True, True, False)
+    scalars, count = _walk_scalars(scene, it)
+    return graphs.stage(vcm.light_walk, scene, (torch.arange(N),), scalars,
+                        (count, RES, RES, SEED, MAX_PATH, 0, True, True,
+                         False, "threefry"))
 
 
 def test_light_walk_replays_bit_for_bit(scene, fx, monkeypatch):
-    """The VCM light walk (vertices, splats flushed into the frame, rays),
-    traced at one iteration, at three others."""
+    """The VCM light walk (vertices, camera splat rows, rays) through
+    graphs.stage, traced at one iteration, at three others."""
     _replays_equal_eager(fx, monkeypatch, lambda it: _light(scene, it),
                          "light walk")
 
 
 def test_camera_stage_replays_bit_for_bit(scene, fx, monkeypatch):
-    """The VCM camera stage (colour, merge queries, rays) on each
-    iteration's own light vertices."""
+    """The VCM camera stage (colour, merge queries, rays) through
+    graphs.stage on each iteration's own light vertices."""
     verts = {it: _light(scene, it)[0] for it in (TRACED_AT, *REPLAYED_AT)}
 
     def run(it):
-        return vcm._camera_stage(scene, _misc(scene, it), verts[it],
-                                 torch.arange(N), it, RES, SEED, MAX_PATH, 0,
-                                 True, True, False)
+        scalars, count = _walk_scalars(scene, it)
+        return graphs.stage(vcm.camera_walk, scene,
+                            (verts[it], torch.arange(N)), scalars,
+                            (count, RES, SEED, MAX_PATH, 0, True, True,
+                             False, "threefry"))
 
     _replays_equal_eager(fx, monkeypatch, run, "camera stage")
 
@@ -278,8 +287,8 @@ def test_mis_weight_tensors_equal_compute_misc(scene, flags):
 
 def test_stage_chooses_eager_off_the_card(scene):
     """On the CPU every stage runs eagerly; under autograd with a scene
-    leaf that requires grad it is eager on any device; graphs.eager()
-    says so too."""
+    leaf that requires grad it is eager on any device, and so is a stage
+    whose static values hold a gloo group; graphs.eager() says so too."""
     assert graphs.why_eager(scene) == "cpu"
     with graphs.eager():
         assert graphs.why_eager(scene) == "eager()"
@@ -292,6 +301,18 @@ def test_stage_chooses_eager_off_the_card(scene):
         assert graphs.why_eager(s) == "cpu"
     t = torch.zeros(3, requires_grad=True)
     assert graphs.why_eager(scene, (t,)) == "autograd"
+    # A gloo group's collectives stage through host memory: a sharded
+    # stage of one runs eagerly on any device.
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        assert graphs.why_eager(scene, (), ("k", 1, group)) == "gloo"
+        assert graphs.why_eager(scene, (), ("k", 1, None)) == "cpu"
+        with graphs.eager():
+            assert graphs.why_eager(scene, (), (group,)) == "eager()"
+    finally:
+        dist.destroy_process_group()
     # The eager path runs the stage function with 0-dim scalar tensors.
     seen = []
     counts = (graphs.stage.captures, graphs.stage.replays)

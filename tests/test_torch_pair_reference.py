@@ -18,7 +18,6 @@ from benchmark.reference import compute, pairs
 from benchmark.reference.svcm.ops import merge as ref_cell_merge
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm
-from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
 from smallvcm_tpu_torch.scene.scene import load_cornell_box
 
 torch.set_num_threads(2)
@@ -46,16 +45,12 @@ def _vertices(config: dict, iteration: int):
     use_vc, ppm = FLAGS[config["algorithm"]]
     scene = load_cornell_box((res_x, res_y), config["scene_mask"],
                              device="cpu")
-    pix = torch.arange(n, dtype=torch.int64)
     misc = vcm.compute_misc(scene, iteration, n, config["radius_factor"],
                             config["radius_alpha"], use_vc, True)
-    args = (BASE, config["max_path_length"], config["min_path_length"])
-    verts, _, _ = vcm.trace_light_paths(
-        scene, misc, pix, iteration, new_fb_planes(res_x, res_y, "cpu"),
-        *args, use_vc, True, False, config["rng"])
-    _, queries, _ = vcm._camera_stage(
-        scene, misc, verts, pix, iteration, res_x, *args, use_vc, True, ppm,
-        config["rng"])
+    verts, queries = vcm.trace_iteration(
+        scene, iteration, res_x, res_y, BASE, config["max_path_length"],
+        config["min_path_length"], config["radius_factor"],
+        config["radius_alpha"], use_vc, ppm, config["rng"])
     return (scene, compute.build_scene(config, "cpu"), misc, queries, verts,
             n)
 

@@ -44,7 +44,6 @@ from smallvcm_tpu.scene.scene import load_cornell_box as jload
 from smallvcm_tpu_torch import convert
 from smallvcm_tpu_torch.algorithms import vcm as tvcm
 from smallvcm_tpu_torch.core import rng
-from smallvcm_tpu_torch.io.framebuffer import new_fb_planes
 from smallvcm_tpu_torch.ops import lights as tlights
 from smallvcm_tpu_torch.scene.scene import load_cornell_box as tload
 
@@ -145,18 +144,16 @@ def test_scene3_bpm_firefly_is_radius_boundary_branching(monkeypatch):
     js = jload((RES, RES), SCENE_CONFIGS[3])
     ts = tload((RES, RES), SCENE_CONFIGS[3], device="cpu")
     tpix = torch.arange(N)
-    flags = (BPM["use_vc"], BPM["use_vm"])
 
     def port_merge(misc, queries, verts):
         color, _, _ = tvcm._merge(ts, misc, queries, verts, False, MAX_PATH,
                                   0, N, "auto", "allgather", None)
         return _np([c.numpy() for c in color])
 
-    def port_light_stage(misc):
-        verts, _, _ = tvcm.trace_light_paths(
-            ts, misc, tpix, ITERATION, new_fb_planes(RES, RES), SEED,
-            MAX_PATH, 0, *flags, False)
-        return verts
+    def port_stages():
+        """The port's light vertices and merge queries of ITERATION."""
+        return tvcm.trace_iteration(ts, ITERATION, RES, RES, SEED, MAX_PATH,
+                                    0, use_vc=BPM["use_vc"])
 
     # JAX's camera colours and queries and its light vertices, merged by
     # the port: both iterations give JAX's image, the firefly included.
@@ -178,10 +175,7 @@ def test_scene3_bpm_firefly_is_radius_boundary_branching(monkeypatch):
     assert golden[21, 6, 2] > 3.9
 
     # The port's own iteration 1: the pixel gets no merge colour ...
-    tverts = port_light_stage(tmisc)
-    _, tqueries, _ = tvcm._camera_stage(ts, tmisc, tverts, tpix, ITERATION,
-                                        RES, SEED, MAX_PATH, 0, *flags,
-                                        False)
+    tverts, tqueries = port_stages()
     assert jmerge[2, PIXEL] > 7.0
     assert np.all(port_merge(tmisc, tqueries, tverts)[:, PIXEL] == 0.0)
 
@@ -195,7 +189,7 @@ def test_scene3_bpm_firefly_is_radius_boundary_branching(monkeypatch):
             jax.tree.map(np.asarray, state), device="cpu")
 
     monkeypatch.setattr(tvcm, "generate_light_sample", jax_light_sample)
-    carried = port_light_stage(tmisc)
+    carried = port_stages()[0]
     monkeypatch.undo()
     assert np.all(port_merge(tmisc, tqueries, carried)[:, PIXEL] == 0.0)
 

@@ -11,24 +11,24 @@ package's sharded programs compile meanwhile; scene 1, 16x16, max path
 length 4 (tests/test_torch_sharding.py's sizes). Checks:
 
 1. ``render_block_with_stats(group=...)`` (a block of two iterations, each
-   ``sharded_iteration_stage``) equals the stage-by-stage
-   ``sharded_render_iteration_with_stats`` summed the same way, bit for
-   bit: image, rays, overflow, stats; vcm with the all-gather and with the
-   ring, ppm, lt and bpt, the cell merge and the pair merge ("xla");
-   ``simple_stage`` equals ``sharded_simple_iteration`` for el and pt.
+   ``sharded_iteration_stage``) on each rank against the single process's
+   block at the same caps: the image within rtol 1e-4 / atol 1e-6
+   (test_torch_sharding.py's bound) and the same on both ranks, equal
+   rays, no overflow; vcm with the all-gather and with the ring, ppm, lt
+   and bpt, the cell merge and the pair merge ("xla").
 2. A dispatch recorder (tests/test_torch_iteration_graph.py) finds no host
    read in either stage function; the c10d collectives it sees are not
    host reads.
 3. ``make_fx`` traces the sharded iteration at iteration 2 (ppm with the
-   ring and the cell merge, bpm with the all-gather and the pair merge),
+   ring and the cell merge, bpm with the all-gather and the pair merge)
+   and ``simple_stage`` through ``sharded_simple_iteration`` (el, pt),
    with the plain cell merge and the four collectives as opaque ops, and
    the trace replays iterations 0, 1 and 3 bit for bit.
 4. The sharded cell merge at caps: at caps that hold, the slot-count
    image bit for bit; at 0.05 both ranks overflow and the overflow is their
    sum; from 0.05 the block runner grows both ranks to the same factors by
-   the JAX rule (stage by stage, and through the one-graph branch), and
-   the image is the single process's at those caps within rtol 1e-4 /
-   atol 1e-6 (test_torch_sharding.py's bound).
+   the JAX rule, and the image is the single process's at those caps
+   within rtol 1e-4 / atol 1e-6 (test_torch_sharding.py's bound).
 5. The pair merge's two-rank iteration against the JAX package's
    ``sharded_render_iteration_with_stats`` on two virtual CPU devices:
    overflow and stats equal as integers (caps that hold, both exchanges;
@@ -111,24 +111,22 @@ def _graph_block(scene, group, alg, exchange, backend, start, k, **caps):
         **{**CAPS, **caps})[:4]
 
 
-def _staged_block(scene, group, alg, exchange, backend, start, k, **caps):
-    """The same iterations stage by stage, summed as render.py's gloo
-    branch sums them."""
-    f = _flags(alg)
-    acc = torch.zeros((RES, RES, 3))
-    rays = torch.zeros((), dtype=torch.int64)
-    overflow = torch.zeros((), dtype=torch.int64)
-    stats = torch.zeros((3,), dtype=torch.int64)
-    for it in range(start, start + k):
-        img, r, o, st = sharding.sharded_render_iteration_with_stats(
-            group, scene, it, RES, RES, SEED, MAXLEN, 0, 0.003, 0.75,
-            f["use_vc"], f["use_vm"], f["light_trace_only"], f["ppm"],
-            exchange, "threefry", backend, **{**CAPS, **caps})
-        acc = acc + img
-        rays = rays + r
-        overflow = overflow + o
-        stats = torch.maximum(stats, st)
-    return acc, rays, overflow, stats
+def _own_share(scene, group, it, res, vm_exchange="allgather",
+               merge_backend="auto", pair_factor=24.0, photon_factor=None,
+               query_factor=None):
+    """This rank's vcm iteration ``it`` before the sums over ranks
+    (``vcm._iteration_body`` on its shard) -> (image, rays, overflow,
+    stats)."""
+    n = res * res
+    scalars = [graphs._scalar(v, scene.device) for v in
+               vcm.iteration_scalars(scene, it, n, 0.003, 0.75, True, True)]
+    static = vcm.iteration_static(
+        res, res, SEED, MAXLEN, 0, True, True, False, False, "threefry",
+        photon_factor, query_factor, merge_backend, pair_factor)
+    pix = comm.shard_ids(n, comm.world_size(group), comm.rank(group),
+                         scene.device)
+    return vcm._iteration_body(scene, pix, n, *scalars, *static,
+                               vm_exchange, group)
 
 
 # -- the collectives as opaque ops (check 3) -----------------------------------
@@ -239,22 +237,39 @@ def _bytes_through_graphs(scene, group, exchange, k):
 # -- the ranks' work -------------------------------------------------------------
 
 
-def _grow_run(scene, group, one_graph: bool):
-    """A block of two from cell-merge caps of TINY through the block
-    runner, stage by stage or through the one-graph branch."""
+def _fx_replays(run):
+    """``run(iteration)`` eagerly, then through :class:`FxGraphs` with the
+    plain cell merge and the collectives opaque: warm-up and trace at
+    TRACED_AT, replays at REPLAYED_AT -> (eager outputs, replayed outputs,
+    captures, replays)."""
+    want = {it: run(it) for it in (TRACED_AT, *REPLAYED_AT)}
+    fx = FxGraphs()
+    # The iteration's view of comm, with the collectives opaque (the
+    # collectives themselves still count their bytes in comm).
+    opaque = types.SimpleNamespace(**{**vars(comm), **_OPAQUE_COMM})
     mp = pytest.MonkeyPatch()
-    if one_graph:
-        mp.setattr(comm, "capturable", lambda group=None: True)
+    mp.setattr(graphs, "stage", fx.stage)
+    mp.setattr(M, "merge_cells", _opaque_merge_cells)
+    mp.setattr(vcm, "comm", opaque)
+    mp.setattr(sharding, "comm", opaque)
     try:
-        cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES),
-                             max_path_length=MAXLEN, group=group,
-                             photon_factor=TINY, query_factor=TINY)
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            block = R._make_block_runner(scene, cfg, "vcm")(
-                0, 2, torch.zeros((RES, RES, 3)))
+        run(TRACED_AT)                       # warm-up: eager
+        got = {it: run(it) for it in (TRACED_AT, *REPLAYED_AT)}
     finally:
         mp.undo()
+    return want, got, fx.captures, fx.replays
+
+
+def _grow_run(scene, group):
+    """A block of two from cell-merge caps of TINY through the block
+    runner."""
+    cfg = R.RenderConfig(algorithm="vcm", resolution=(RES, RES),
+                         max_path_length=MAXLEN, group=group,
+                         photon_factor=TINY, query_factor=TINY)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        block = R._make_block_runner(scene, cfg, "vcm")(
+            0, 2, torch.zeros((RES, RES, 3)))
     return dict(img=block.accum, stats=block.stats, caps=R._caps_of(cfg),
                 out=out.getvalue())
 
@@ -266,17 +281,9 @@ def _rank_work():
     w, rank = comm.world_size(group), comm.rank(group)
     scene = _scene()
     out = {}
-    # 1. The graph functions against stage by stage.
+    # 1. The sharded blocks, for the single process's to match.
     for case in STAGE_CASES:
-        out["stage", case] = (_graph_block(scene, group, *case, 1, 2),
-                              _staged_block(scene, group, *case, 1, 2))
-    for alg in ("el", "pt"):
-        it = torch.tensor(3)
-        out["simple", alg] = (
-            sharding.simple_stage(scene, it, alg, RES, RES, SEED, MAXLEN, 0,
-                                  "threefry", w, rank, group),
-            sharding.sharded_simple_iteration(group, alg, scene, 3, RES,
-                                              RES, SEED, MAXLEN))
+        out["stage", case] = _graph_block(scene, group, *case, 1, 2)
     # 2. No host read.
     mp = pytest.MonkeyPatch()
     mp.setattr(M, "merge_cells", _opaque_merge_cells)
@@ -297,22 +304,12 @@ def _rank_work():
     # 3. make_fx: traced at one iteration, replayed at three others.
     _GROUP[:] = [group]
     for case in FX_CASES:
-        run = lambda it: _graph_block(scene, group, *case, it, 1)
-        want = {it: run(it) for it in (TRACED_AT, *REPLAYED_AT)}
-        fx = FxGraphs()
-        mp = pytest.MonkeyPatch()
-        mp.setattr(graphs, "stage", fx.stage)
-        mp.setattr(M, "merge_cells", _opaque_merge_cells)
-        # The iteration's view of comm, with the collectives opaque (the
-        # collectives themselves still count their bytes in comm).
-        mp.setattr(vcm, "comm", types.SimpleNamespace(
-            **{**vars(comm), **_OPAQUE_COMM}))
-        try:
-            run(TRACED_AT)                       # warm-up: eager
-            got = {it: run(it) for it in (TRACED_AT, *REPLAYED_AT)}
-        finally:
-            mp.undo()
-        out["fx", case] = (want, got, fx.captures, fx.replays)
+        out["fx", case] = _fx_replays(
+            lambda it: _graph_block(scene, group, *case, it, 1))
+    for alg in ("el", "pt"):
+        out["simple", alg] = _fx_replays(
+            lambda it: sharding.sharded_simple_iteration(
+                group, alg, scene, it, RES, RES, SEED, MAXLEN))
     # 4. The cell merge at caps.
     for exchange in ("allgather", "ring"):
         slots = sharding.sharded_render_iteration_with_stats(
@@ -321,15 +318,13 @@ def _rank_work():
             group, scene, 1, RES, RES, SEED, MAXLEN, vm_exchange=exchange,
             photon_factor=CAPS["photon_factor"],
             query_factor=CAPS["query_factor"])
-        pix = sharding.shard_pix(N, group, "cpu")
-        local = vcm.render_iteration_core(
-            scene, 1, pix, RES, RES, N, SEED, MAXLEN, vm_exchange=exchange,
-            group=group, photon_factor=TINY, query_factor=TINY)[2]
+        local = _own_share(scene, group, 1, RES, exchange,
+                           photon_factor=TINY, query_factor=TINY)[2]
         summed = sharding.sharded_render_iteration_with_stats(
             group, scene, 1, RES, RES, SEED, MAXLEN, vm_exchange=exchange,
             photon_factor=TINY, query_factor=TINY)[2]
         out["caps", exchange] = (slots, capped, int(local), int(summed))
-    out["grow"] = {b: _grow_run(scene, group, b) for b in (False, True)}
+    out["grow"] = _grow_run(scene, group)
     # 5. The pair merge's iteration, for the JAX package's to match.
     for name, exchange, res, pf, phf, qf in JAX_CASES:
         kw = dict(vm_exchange=exchange, merge_backend="xla", pair_factor=pf,
@@ -338,9 +333,7 @@ def _rank_work():
         img, rays, ovf, stats = sharding.sharded_render_iteration_with_stats(
             group, sc, 0, res, res, SEED, MAXLEN, **kw)
         # This rank's own merge overflow and stats, before the sums.
-        pix = sharding.shard_pix(res * res, group, "cpu")
-        _, _, local_ovf, local_stats = vcm.render_iteration_core(
-            sc, 0, pix, res, res, res * res, SEED, MAXLEN, group=group, **kw)
+        _, _, local_ovf, local_stats = _own_share(sc, group, 0, res, **kw)
         out["jax", name] = (img, int(rays), int(ovf), stats.tolist(),
                             int(local_ovf), local_stats.tolist())
     # 6. The exchanges' byte counters through a stand-in capture.
@@ -412,26 +405,38 @@ def test_pair_merge_iteration_matches_jax_sharded(jax_runs, ranks, case):
     assert_image_close(img.numpy(), want_img)
 
 
-# -- 1. the graph functions against stage by stage ----------------------------
+# -- 1. the sharded block against the single process's ----------------------
 
 
 @pytest.mark.parametrize("case", STAGE_CASES)
 def test_sharded_stage_equals_stage_by_stage(ranks, case):
+    """Each rank's sharded block against the single process's block at the
+    same caps: only the order of the sums over ranks differs."""
+    alg, _, backend = case
+    want_img, want_rays, want_ovf, _ = vcm.render_block_with_stats(
+        _scene(), 1, RES, RES, 2, SEED, MAXLEN, 0, **_flags(alg),
+        merge_backend=backend, **CAPS)[:4]
+    assert float(want_img.mean()) > 0.0 and int(want_ovf) == 0
     for out in ranks:
-        graph, staged = out["stage", case]
-        _assert_bitwise(graph, staged, case)
-    img = ranks[0]["stage", case][0][0]
-    assert float(img.mean()) > 0.0
-    assert torch.equal(img, ranks[1]["stage", case][0][0])
-    merges = R._VCM_FLAGS[case[0]][1]
-    assert (int(ranks[0]["stage", case][0][3][1]) > 0) == merges
+        img, rays, overflow, _ = out["stage", case]
+        torch.testing.assert_close(img, want_img, rtol=1e-4, atol=1e-6)
+        assert int(rays) == int(want_rays) and int(overflow) == 0
+    img = ranks[0]["stage", case][0]
+    assert torch.equal(img, ranks[1]["stage", case][0])
+    merges = R._VCM_FLAGS[alg][1]
+    assert (int(ranks[0]["stage", case][3][1]) > 0) == merges
 
 
 @pytest.mark.parametrize("alg", ["el", "pt"])
 def test_simple_stage_equals_stage_by_stage(ranks, alg):
+    """``simple_stage`` through ``sharded_simple_iteration``, traced once
+    with its sums opaque, replays other iterations bit for bit."""
     for out in ranks:
-        _assert_bitwise(*out["simple", alg], alg)
-    assert float(ranks[0]["simple", alg][0][0].mean()) > 0.0
+        want, got, captures, replays = out["simple", alg]
+        assert captures == 1 and replays == len(got)
+        for it in got:
+            _assert_bitwise(got[it], want[it], (alg, it))
+    assert float(ranks[0]["simple", alg][0][TRACED_AT][0].mean()) > 0.0
 
 
 # -- 2. no host read ------------------------------------------------------------
@@ -474,13 +479,11 @@ def test_cell_merge_caps_under_a_group(ranks, exchange):
 
 def test_sharded_cell_merge_grows_alike_to_the_single_process(ranks,
                                                               capsys):
-    runs = [out["grow"][b] for out in ranks for b in (False, True)]
-    first = runs[0]
-    for run in runs:
+    first = ranks[0]["grow"]
+    for run in (out["grow"] for out in ranks):
         assert run["caps"] == first["caps"] and run["stats"] == first["stats"]
         assert torch.equal(run["img"], first["img"])
-    for run in ranks[0]["grow"].values():          # only rank 0 prints
-        assert "merge cap overflow" in run["out"]
+    assert "merge cap overflow" in first["out"]    # only rank 0 prints
     # JAX's rule over a rank's paths, from the stats summed over the ranks.
     n_shard = N // RANKS
     _, n_p, n_q = first["stats"]

@@ -29,7 +29,7 @@ from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.core.vec3 import V3
 from smallvcm_tpu_torch.ops import merge as cell_merge
-from smallvcm_tpu_torch.parallel import multihost, sharding
+from smallvcm_tpu_torch.parallel import comm, multihost
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
 
 RES = 16
@@ -70,7 +70,8 @@ def _rank_renders():
            for alg, ex in CASES}
     out["camera"] = _camera_colour(scene, group)
     try:
-        sharding.shard_pix(RES * RES + 1, group, "cpu")
+        comm.shard_ids(RES * RES + 1, comm.world_size(group),
+                       comm.rank(group), "cpu")
     except ValueError as e:
         out["indivisible"] = str(e)
     return out
@@ -178,13 +179,9 @@ def test_merge_of_a_query_shard_against_every_photon(backend):
     column count."""
     scene = _scene()
     n = RES * RES
-    pix = torch.arange(n)
     misc = vcm.compute_misc(scene, 0, n, 0.05, 0.75, True, True)
-    fb = vcm.new_fb_planes(RES, RES, "cpu")
-    verts, _, _ = vcm.trace_light_paths(scene, misc, pix, 0, fb, 1234,
-                                        MAXLEN, 0, True, True, False)
-    _, queries, _ = vcm._camera_stage(scene, misc, verts, pix, 0, RES, 1234,
-                                      MAXLEN, 0, True, True, False)
+    verts, queries = vcm.trace_iteration(scene, 0, RES, RES, 1234, MAXLEN,
+                                         0, 0.05)
     if backend == "cells":
         def merge(q, m):
             color, overflow, stats = cell_merge.merge_stage(
