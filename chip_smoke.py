@@ -30,6 +30,10 @@ Phases (each one raises on failure; nothing is caught):
    sample_with_pdf over 262,144 lanes, evaluate over an expanded [8, N]
    camera state and setup_evaluate over [8, N], each call's time against
    its bytes bound, and the totals over one VCM iteration's walk calls;
+   the lights kernel (csrc/lights.cu) against the plain chains bit for
+   bit (NaNs equal): illuminate, emit and get_radiance over 262,144 lanes
+   on scenes 0-3 (directional, area, point and background lights), each
+   call's time against its bytes bound;
 4. the merge kernel against its plain version on every row of the merge
    tables of one real 512x512 scene-0 VCM iteration at the main path's
    static caps (dead rows zero; the live count, r^2 and the MIS weight
@@ -252,6 +256,14 @@ BSDF_STATE_BYTES = 65
 # caps are left out.
 BSDF_VCM_BOUNCES = 19
 BSDF_VCM_WINDOWS = tuple(range(8, 0, -1))
+# csrc/lights.cu is bound by bytes: (read, written) a lane by op, the
+# int64 light id 8 bytes, a position or direction 12, a uniform 4, an
+# output plane 4 (emit's two flags 1 each).
+LIGHT_LANE_BYTES = {"illuminate": (28, 40), "emit": (24, 50),
+                    "get_radiance": (20, 20)}
+# One VCM iteration's light calls over [N] lanes (pt makes the same but
+# emit): NEE and hit emission at each of 10 camera bounces, one emit.
+LIGHT_VCM_CALLS = {"illuminate": 10, "emit": 1, "get_radiance": 10}
 
 
 # The script's own time limit (the card's check runs it under 1200 s):
@@ -850,6 +862,68 @@ def check_bsdf(torch, dev):
                 calls=calls, windows=windows)
 
 
+def check_lights(torch, dev):
+    """Phase 3, the lights: csrc/lights.cu's three ops against the plain
+    chains (``ops/lights.py::illuminate_plain`` and its siblings) bit for
+    bit, NaNs equal, over 262,144 lanes (light ids -1 to the last) on each
+    scene's light kind; each call's device us against its bytes bound and
+    the plain chain's ms, and the totals over one VCM iteration's calls on
+    scene 0 (LIGHT_VCM_CALLS)."""
+    from smallvcm_tpu_torch.core.vec3 import V3
+    from smallvcm_tpu_torch.ops import lights as L
+    from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
+
+    n = RES * RES
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    calls = {}
+    for scene_id, config in enumerate(SCENE_CONFIGS):
+        scene = load_cornell_box((RES, RES), config).to(dev)
+        lights, sphere = scene.lights, scene.scene_sphere
+        idx = torch.randint(-1, lights.kind.shape[0], (n,), generator=g,
+                            device=dev)
+        pos = V3(*(torch.rand((3, n), generator=g, device=dev) * 3 - 1.5))
+        d = torch.randn((3, n), generator=g, device=dev)
+        d = V3(*(d / d.norm(dim=0)))
+        u = torch.rand((n, 5), generator=g, device=dev)
+        ill = (lights, idx, sphere, pos, u[:, 1], u[:, 2])
+        em = (lights, idx, sphere, *(u[:, k] for k in range(1, 5)))
+        rad = (lights, idx, sphere, d)
+        for op, args in (("illuminate", ill), ("emit", em),
+                         ("get_radiance", rad)):
+            kernel = lambda: getattr(L, op)(*args)
+            plain = lambda: getattr(L, f"{op}_plain")(*args)
+            launches = L.lights_kernel.launches
+            got, want = kernel(), plain()
+            if L.lights_kernel.launches != launches + 1:
+                raise AssertionError(f"lights {op}: not one launch")
+            diffs = {k: x for k, (a, b) in enumerate(
+                zip(L._leaves(got), L._leaves(want)))
+                if (x := _bits_differ(torch, a, b))}
+            if diffs:
+                raise AssertionError(f"lights {op}, scene {scene_id}: "
+                                     f"output planes differ: {diffs}")
+            ms = time_cuda(torch, kernel, 200)
+            plain_ms = time_cuda(torch, plain, 5)
+            b_ms, _ = bound_ms(n * sum(LIGHT_LANE_BYTES[op]), 0)
+            calls[f"{op}.s{scene_id}"] = dict(ms=ms, plain_ms=plain_ms,
+                                              bound_ms=b_ms, lanes=n)
+            log(f"[lights] {op}, scene {scene_id} (kind "
+                f"{int(lights.kind[0])}) x {n} lanes, bit for bit: kernel "
+                f"{1e3 * ms:.2f} us, plain {plain_ms:.3f} ms; bound "
+                f"{1e3 * b_ms:.2f} us by bytes, kernel at "
+                f"{100 * b_ms / ms:.1f}% of it")
+    tot = {k: sum(c * calls[f"{op}.s0"][k]
+                  for op, c in LIGHT_VCM_CALLS.items())
+           for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[lights] one VCM iteration's {sum(LIGHT_VCM_CALLS.values())} "
+        f"calls on scene 0: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.2f} ms, bound {1e3 * tot['bound_ms']:.1f} us "
+        f"by bytes, kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% of "
+        "it")
+    return dict(max_abs_err=0.0, **tot, bound_by="bytes", library_ms=None,
+                calls=calls)
+
+
 def check_rng(torch, dev):
     """Phase 3, the RNG: csrc/rng_slots.cu against ``_uniform_slots_plain``
     bit for bit at the main path's shapes (262,144 path ids, among them 0,
@@ -1092,25 +1166,27 @@ def run_cli(cli, out_path: str, alg: str = "vcm", n_iter: int = 8,
 def reset_counts(M, S):
     from smallvcm_tpu_torch.core import rng
 
-    from smallvcm_tpu_torch.ops import bsdf
+    from smallvcm_tpu_torch.ops import bsdf, lights
 
     S.sweep_kernel.launches = 0
     S.occluded_kernel.launches = 0
     M.merge_cells_kernel.launches = 0
     rng.uniform_slots_kernel.launches = 0
     bsdf.bsdf_kernel.launches = 0
+    lights.lights_kernel.launches = 0
 
 
 def read_counts(M, S) -> dict:
     from smallvcm_tpu_torch.core import rng
 
-    from smallvcm_tpu_torch.ops import bsdf
+    from smallvcm_tpu_torch.ops import bsdf, lights
 
     return dict(intersect_sweep=S.sweep_kernel.launches,
                 occluded_sweep=S.occluded_kernel.launches,
                 merge_cells=M.merge_cells_kernel.launches,
                 uniform_slots=rng.uniform_slots_kernel.launches,
-                bsdf=bsdf.bsdf_kernel.launches)
+                bsdf=bsdf.bsdf_kernel.launches,
+                lights=lights.lights_kernel.launches)
 
 
 def steady(blocks):
@@ -1190,7 +1266,8 @@ def check_simple_paths(torch):
         if abs(mean / ref - 1) > tol:
             raise AssertionError(f"{alg}: image mean {mean} vs {ref}")
         if launches["intersect_sweep"] <= 0 or launches["merge_cells"] \
-                or (launches["occluded_sweep"] > 0) != (alg == "pt"):
+                or (launches["occluded_sweep"] > 0) != (alg == "pt") \
+                or (launches["lights"] > 0) != (alg == "pt"):
             raise AssertionError(f"{alg}: launches {launches}")
         if not same or [i[2] for i in iters] != [i[2] for i in iters2]:
             raise AssertionError(f"{alg}: second run not bitwise equal")
@@ -1218,7 +1295,8 @@ def check_family_paths(torch):
         ref = PARITY_MEAN[alg]
         merges = alg in ("ppm", "bpm")
         if abs(mean / ref - 1) > 0.05 or launches["intersect_sweep"] <= 0 \
-                or (launches["merge_cells"] > 0) != merges:
+                or (launches["merge_cells"] > 0) != merges \
+                or launches["lights"] <= 0:
             raise AssertionError(f"{alg}: mean {mean} vs {ref}, launches "
                                  f"{launches}")
         log(f"[{alg}] {RES}x{RES} x2 via cli.main: first "
@@ -1363,7 +1441,7 @@ def check_gradients(torch, dev):
         if float(g.light_intensity.x.abs().max()) <= 0.0:
             raise AssertionError(f"grad {alg}: zero light-intensity grad")
         if (launches["intersect_sweep"] <= 0 or launches["bsdf"] <= 0
-                or launches["merge_cells"]):
+                or launches["lights"] <= 0 or launches["merge_cells"]):
             raise AssertionError(f"grad {alg}: launches {launches}")
         log(f"[grad] {alg} {GRAD_RES}x{GRAD_RES} x1 forward+backward: "
             f"{times[0]:.1f} ms cold, {ms:.1f} ms warm, peak {peak:.2f} "
@@ -3048,7 +3126,8 @@ def main() -> int:
     occl_r = check_occlusion(torch, dev)
     rng_r = check_rng(torch, dev)
     bsdf_r = check_bsdf(torch, dev)
-    phase_done("phase 3 (sweeps, rng, bsdf)")
+    lights_r = check_lights(torch, dev)
+    phase_done("phase 3 (sweeps, rng, bsdf, lights)")
     merge_r = check_merge(torch, dev)
     check_golden(torch, dev)
     phase_done("phases 4-5")
@@ -3131,6 +3210,11 @@ def main() -> int:
              replaces=None,
              launches=launches["bsdf"],
              launches_by_path=by_path("bsdf"), **bsdf_r),
+        dict(name="lights", route="cuda",
+             source="smallvcm_tpu_torch/csrc/lights.cu",
+             replaces=None,
+             launches=launches["lights"],
+             launches_by_path=by_path("lights"), **lights_r),
     ]
     caps_dir.cleanup()
     print(card)

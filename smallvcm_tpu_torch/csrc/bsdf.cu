@@ -13,16 +13,9 @@
 // ~60% of an iteration's kernels.
 //
 // It computes the same bits. Every torch op of the plain version is one
-// IEEE f32 operation here, in the same order, and the file is built with
-// -fmad=false, so no product and sum contract into one rounding. The
-// constants are Python's: a product Python folds in double (2.0 * PI_F,
-// INV_PI_F * 0.5) is folded in double here and cast to float, as ATen
-// casts a Python scalar. `1.0 / t` is ATen's reciprocal times 1.0.
-// clamp_min, clamp and torch.maximum propagate NaN as ATen's kernels do
-// (fmaxf alone would not). sqrtf is the correctly rounded square root as
-// in ATen; sinf, cosf and powf are the CUDA math library's, which ATen's
-// torch.sin, torch.cos and torch.pow call. Dead lanes compute everything,
-// as the plain version's do, and give the same NaNs.
+// IEEE f32 operation here, in the same order (elementwise.cuh says how).
+// Dead lanes compute everything, as the plain version's do, and give the
+// same NaNs.
 //
 // Bound: bytes. A lane reads 33-89 bytes and writes 24-82 (setup writes
 // the whole BsdfState, 21 planes) against a few hundred f32 operations,
@@ -37,9 +30,7 @@
 // allocation, launched on the caller's stream, so a CUDA graph captures
 // it as it is.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "elementwise.cuh"
 
 namespace {
 
@@ -52,22 +43,11 @@ constexpr int kMaxMaterials = 1024;
 // Operation codes of ops/bsdf.py::_OPS.
 enum Op { kSetup = 0, kEvaluate = 1, kSample = 2, kSetupEvaluate = 3 };
 
-// core/vecmath.py's constants: Python doubles, cast to float where a
-// tensor op takes them.
-constexpr double kPi = 3.14159265358979;
-constexpr double kInvPi = 1.0 / kPi;
-#define F(x) ((float)(x))
-#define EPS_COSINE F(1e-6)
 #define EPS_PHONG F(1e-3)
 
 // Event codes (ops/bsdf.py).
 constexpr long long kEvDiffuse = 1, kEvPhong = 2, kEvReflect = 4,
                     kEvRefract = 8;
-
-struct Plane {
-  const void* p;
-  long long rs, cs;  // element strides along rows and columns
-};
 
 struct Args {
   Plane in[kMaxIn];
@@ -76,83 +56,11 @@ struct Args {
   int m, rows, n;
 };
 
-struct V {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V mk(float x, float y, float z) {
-  V v;
-  v.x = x;
-  v.y = y;
-  v.z = z;
-  return v;
-}
-
-// -- ATen's elementwise semantics ------------------------------------------
-
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return v != v ? v : fmaxf(v, lo);
-}
-
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float maximum(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float recip(float a) {  // `1.0 / t`
-  return (1.0f / a) * 1.0f;
-}
-
-// -- core/vec3.py and core/vecmath.py ---------------------------------------
-
-__device__ __forceinline__ float dot(V a, V b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-__device__ __forceinline__ V cross(V a, V b) {
-  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
-}
-
-__device__ __forceinline__ V scale(V a, float s) {
-  return mk(a.x * s, a.y * s, a.z * s);
-}
-
-__device__ __forceinline__ V add(V a, V b) {
-  return mk(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-
-__device__ __forceinline__ V pick(bool c, V a, V b) {
-  return mk(c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z);
-}
-
-__device__ __forceinline__ V normalize(V a) {
-  const float len = sqrtf(clamp_min(dot(a, a), F(1e-35)));
-  return scale(a, recip(len));
-}
-
 __device__ __forceinline__ float luminance(V c) {
   return F(0.212671) * c.x + F(0.715160) * c.y + F(0.072169) * c.z;
 }
 
 __device__ __forceinline__ V reflect_local(V v) { return mk(-v.x, -v.y, v.z); }
-
-struct Frame {
-  V x, y, z;
-};
-
-__device__ __forceinline__ Frame frame_set_from_z(V z) {
-  Frame f;
-  f.z = normalize(z);
-  const bool use_y = fabsf(f.z.x) > F(0.99);
-  const V tmp = mk(use_y ? 0.0f : 1.0f, use_y ? 1.0f : 0.0f, 0.0f);
-  f.y = normalize(cross(f.z, tmp));
-  f.x = cross(f.y, f.z);
-  return f;
-}
 
 __device__ __forceinline__ V to_local(const Frame& f, V a) {
   return mk(dot(a, f.x), dot(a, f.y), dot(a, f.z));
@@ -178,15 +86,6 @@ __device__ __forceinline__ float fresnel_dielectric(float cos_inc,
       (term2 - cos_t) / clamp_min(term2 + cos_t, F(1e-35));
   const float fres = 0.5f * (r_par * r_par + r_perp * r_perp);
   return ior < 0.0f ? 1.0f : fres;
-}
-
-__device__ __forceinline__ V sample_cos_hemisphere(float u1, float u2,
-                                                   float* pdf) {
-  const float term1 = F(2.0 * kPi) * u1;
-  const float term2 = sqrtf(clamp_min(1.0f - u2, F(1e-12)));
-  const float z = sqrtf(clamp_min(u2, F(1e-12)));
-  *pdf = z * F(kInvPi);
-  return mk(cosf(term1) * term2, sinf(term1) * term2, z);
 }
 
 __device__ __forceinline__ V sample_power_cos_hemisphere(float u1, float u2,
@@ -443,11 +342,6 @@ __device__ __forceinline__ Sample sample_lane(const State& s,
 }
 
 // -- operands -----------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ T ld(const Plane& a, long long r, long long i) {
-  return static_cast<const T*>(a.p)[r * a.rs + i * a.cs];
-}
 
 __device__ __forceinline__ V ld3(const Args& a, int k, long long r,
                                  long long i) {

@@ -104,6 +104,7 @@ from torch.utils import _pytree as pytree
 from . import trace
 from .core import rng
 from .ops import bsdf as bsdf_ops
+from .ops import lights as light_ops
 from .ops import merge as merge_ops
 from .ops import sweep as sweep_ops
 from .parallel import comm
@@ -135,6 +136,7 @@ def _counters():
             ("rng.uniform_slots_launches", rng.uniform_slots_kernel,
              "launches"),
             ("bsdf.launches", bsdf_ops.bsdf_kernel, "launches"),
+            ("lights.launches", light_ops.lights_kernel, "launches"),
             ("comm.all_gather_bytes", comm.all_gather_columns, "bytes"),
             ("comm.ring_shift_bytes", comm.ring_shift, "bytes"),
             ("trace.stamp_launches", trace.stamp_kernel, "launches"))

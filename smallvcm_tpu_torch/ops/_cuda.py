@@ -6,21 +6,30 @@ The kernels have a plain C interface and are bound with ``ctypes``: one
 build happens at first use, into
 ``smallvcm_tpu_torch/_build/<hash>/`` (listed in .gitignore), keyed by a
 hash of the sources and flags, so a checkout builds from its own sources
-and a changed source never loads a stale library.
+and a changed source never loads a stale library. One process builds at a
+time (a file lock beside the library): the ranks of a group started
+together wait for the first one's build instead of each compiling every
+source.
 
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` raises when it is not 0.
+The per-lane kernels' wrappers (``ops/bsdf.py``, ``ops/lights.py``) share
+the helpers at the end: the dispatch rule, the lane grid and the backward
+through the plain chain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from .. import trace
 
@@ -68,6 +77,10 @@ SIGNATURES = {
     # material rows,
     # rows, columns, mat_id is int64, fix_is_light, stream
     "svcm_bsdf": (_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # op, operand triples, operands, output pointers, outputs, the light
+    # table's (pointer, stride) pairs, lights, the scene sphere's five
+    # device pointers, rows, columns, id is int64, stream
+    "svcm_lights": (_I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
 }
 
 
@@ -110,11 +123,21 @@ def _run_all(cmds):
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hash-keyed library unless it exists."""
+    """Compile csrc/*.cu into the hash-keyed library unless it exists,
+    holding the build directory's lock (a process that waited for it finds
+    the library built)."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     nvcc = _nvcc()
     tag = os.getpid()
     tmp = so.with_suffix(f".{tag}.tmp")
@@ -132,7 +155,6 @@ def build() -> Path:
     if any(rc != 0 for _, rc, _ in results):
         raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
-    return so
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,3 +181,56 @@ def require(cond: bool, msg: str) -> None:
     """Wrapper-side input validation (kept when python runs with -O)."""
     if not cond:
         raise ValueError(msg)
+
+
+def leaves(*operands):
+    """The tensors (and other leaves) of nested tuples and lists, in
+    order."""
+    for o in operands:
+        if isinstance(o, (tuple, list)):
+            yield from leaves(*o)
+        else:
+            yield o
+
+
+def on_card(*operands) -> bool:
+    """Whether any operand is a CUDA tensor: a per-lane op then takes its
+    kernel, which refuses operands on other devices."""
+    return any(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in leaves(*operands))
+
+
+def lane_grid(name: str, planes):
+    """The operands' broadcast shape (at most two dimensions), as a
+    ``[rows, n]`` lane grid, and each operand's (pointer, row stride,
+    column stride) over it, for a per-lane kernel that reads every
+    operand through its strides (a stride 0 where it broadcasts)."""
+    shape = torch.broadcast_shapes(*(t.shape for t in planes))
+    require(len(shape) <= 2, f"{name}: operands of {len(shape)} dimensions")
+    rows, n = (1, 1) if not shape else (
+        (1, shape[0]) if len(shape) == 1 else tuple(shape))
+    require(rows * n < 2 ** 31, f"{name}: too many lanes")
+    ins = []
+    for t in planes:
+        st = t.expand(shape).stride()
+        rs, cs = (0, 0) if not st else (
+            (0, st[0]) if len(st) == 1 else st)
+        ins += [t.data_ptr(), rs, cs]
+    return shape, rows, n, (ctypes.c_longlong * len(ins))(*ins)
+
+
+def plain_backward(saved, needs, plain, g_outs):
+    """A kernel's backward through its plain chain: ``plain`` run again
+    under grad mode on fresh leaves of the ``saved`` operands (those in
+    ``needs`` requiring grad) and differentiated against ``g_outs`` ->
+    each operand's gradient, None where it needs none."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(k) for t, k in zip(saved, needs)]
+        outs = plain(ins)
+        pairs = [(o, g) for o, g in zip(outs, g_outs)
+                 if g is not None and o.requires_grad]
+        live = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], live, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(live))
+    return [next(grads) if t.requires_grad else None for t in ins]

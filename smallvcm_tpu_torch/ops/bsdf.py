@@ -39,6 +39,7 @@ from ..core.vecmath import (
 )
 from ..scene.scene import Materials
 from . import _cuda
+from ._cuda import leaves as _leaves, on_card as _on_card
 
 # Event codes (bsdf.hxx:72-82).
 EV_NONE = 0
@@ -360,21 +361,6 @@ _SETUP_OPS = ("setup", "setup_evaluate")
 MAX_MATERIALS = 1024  # csrc/bsdf.cu's kMaxMaterials: the table's rows
 
 
-def _leaves(*operands):
-    for o in operands:
-        if isinstance(o, tuple):
-            yield from _leaves(*o)
-        else:
-            yield o
-
-
-def _on_card(*operands) -> bool:
-    """Whether any operand is a CUDA tensor: the call then takes the
-    kernel, which refuses operands on other devices."""
-    return any(isinstance(t, torch.Tensor) and t.is_cuda
-               for t in _leaves(*operands))
-
-
 def _state_of(planes) -> BsdfState:
     p = list(planes)
     return BsdfState(p[0], p[1], V3(*p[2:5]), V3(*p[5:8]), V3(*p[8:11]),
@@ -435,11 +421,7 @@ def bsdf_kernel(op: str, materials: Materials, planes, fix_is_light=False):
         and t.shape == (m,) for t in mats) and 1 <= m <= MAX_MATERIALS,
         f"{name}: materials are 11 float32 planes of 1 to "
         f"{MAX_MATERIALS} rows")
-    shape = torch.broadcast_shapes(*(t.shape for t in planes))
-    req(len(shape) <= 2, f"{name}: operands of {len(shape)} dimensions")
-    rows, n = (1, 1) if not shape else (
-        (1, shape[0]) if len(shape) == 1 else tuple(shape))
-    req(rows * n < 2 ** 31, f"{name}: too many lanes")
+    shape, rows, n, ins = _cuda.lane_grid(name, planes)
     dev = planes[0].device
     req(dev.type == "cuda"
         and all(t.device == dev for t in planes + mats),
@@ -447,15 +429,9 @@ def bsdf_kernel(op: str, materials: Materials, planes, fix_is_light=False):
     outs = [torch.empty(shape, dtype=d, device=dev) for d in _OUTS[op]]
     if rows * n == 0:
         return outs
-    ins = []
-    for t in planes:
-        st = t.expand(shape).stride()
-        rs, cs = (0, 0) if not st else (
-            (0, st[0]) if len(st) == 1 else st)
-        ins += [t.data_ptr(), rs, cs]
     lib = _cuda.load_library()
     status = lib.svcm_bsdf(
-        _OPS[op], (ctypes.c_longlong * len(ins))(*ins), len(planes),
+        _OPS[op], ins, len(planes),
         (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs)),
         len(outs), (ctypes.c_longlong * 22)(
             *(v for t in mats for v in (t.data_ptr(), t.stride(0)))),
@@ -492,20 +468,10 @@ class _BsdfKernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g_outs):
-        need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(k) for t, k in
-                   zip(ctx.saved_tensors, need)]
-            outs = _plain(ctx.op, _materials_of(ins[:11]), ins[11:],
-                          ctx.fix_is_light)
-            pairs = [(o, g) for o, g in zip(outs, g_outs)
-                     if g is not None and o.requires_grad]
-            live = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in pairs], live, [g for _, g in pairs],
-                allow_unused=True) if pairs else [None] * len(live))
-        return (None, None, *(next(grads) if t.requires_grad else None
-                              for t in ins))
+        return (None, None, *_cuda.plain_backward(
+            ctx.saved_tensors, ctx.needs_input_grad[2:],
+            lambda ins: _plain(ctx.op, _materials_of(ins[:11]), ins[11:],
+                               ctx.fix_is_light), g_outs))
 
 
 def _run(op: str, materials: Materials, planes, fix_is_light=False):

@@ -4,10 +4,18 @@ Port of ``smallvcm_tpu/ops/lights.py``: every lane gathers its picked
 light's unified parameter record, all four type formulas are computed and
 the result is selected by the type code (lights.hxx:112-514, including the
 background light's "pdf lies in area measure" convention, :469-471).
+
+The entry points :func:`illuminate`, :func:`emit` and :func:`get_radiance`
+choose their path by device: on a card a call is one launch of the
+hand-written kernel ``csrc/lights.cu`` (:func:`lights_kernel`), bit for
+bit the plain functions (``illuminate_plain`` and its siblings), and under
+autograd (``diff.py``) its gradient is the plain functions'
+(:class:`_LightsKernelFn`); on the CPU the plain functions run.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -33,6 +41,8 @@ from ..scene.scene import (
     Lights,
     SceneSphere,
 )
+from . import _cuda
+from ._cuda import leaves as _leaves, on_card as _on_card
 
 
 class IlluminateResult(NamedTuple):
@@ -89,7 +99,7 @@ def _pick4(kind, a, d, p, b):
     )
 
 
-def illuminate(
+def illuminate_plain(
     lights: Lights, idx, sphere: SceneSphere, recv_pos: V3, u1, u2
 ) -> IlluminateResult:
     """AbstractLight::Illuminate for every lane's picked light."""
@@ -147,7 +157,7 @@ def illuminate(
     )
 
 
-def emit(
+def emit_plain(
     lights: Lights, idx, sphere: SceneSphere, ud1, ud2, up1, up2
 ) -> EmitResult:
     """AbstractLight::Emit for every lane's picked light.
@@ -199,7 +209,7 @@ def emit(
     )
 
 
-def get_radiance(
+def get_radiance_plain(
     lights: Lights, idx, sphere: SceneSphere, ray_dir: V3
 ) -> RadianceResult:
     """AbstractLight::GetRadiance for lights hit by a random ray."""
@@ -232,3 +242,177 @@ def get_radiance(
     return RadianceResult(
         radiance=radiance, direct_pdf_a=direct_pdf, emission_pdf_w=emission_pdf
     )
+
+
+# ---------------------------------------------------------------------------
+# Dispatch, and the kernel (csrc/lights.cu)
+# ---------------------------------------------------------------------------
+
+# Operation codes of csrc/lights.cu, each one's operand planes (the light
+# id first), and the dtypes of its outputs (its result's fields in order).
+_F, _B = torch.float32, torch.bool
+_OPS = {"illuminate": 0, "emit": 1, "get_radiance": 2}
+_N_IN = {"illuminate": 6, "emit": 5, "get_radiance": 4}
+_OUTS = {
+    "illuminate": (_F,) * 10,
+    "emit": (*(_F,) * 12, _B, _B),
+    "get_radiance": (_F,) * 5,
+}
+MAX_LIGHTS = 256  # csrc/lights.cu's kMaxLights: the table's rows
+_N_TABLE = 25  # Lights' planes: kind, 7 V3 fields, inv_area, 2 flags
+
+
+def _table_dtype(k: int):
+    return (torch.int32 if k == 0 else torch.bool if k >= 23
+            else torch.float32)
+
+
+def _plain(op: str, lights: Lights, sphere: SceneSphere, planes):
+    """The plain chain of ``op`` over :func:`lights_kernel`'s operand
+    planes -> its output planes, in ``_OUTS[op]``'s order."""
+    p = list(planes)
+    if op == "illuminate":
+        r = illuminate_plain(lights, p[0], sphere, V3(*p[1:4]), p[4], p[5])
+    elif op == "emit":
+        r = emit_plain(lights, p[0], sphere, *p[1:5])
+    else:
+        r = get_radiance_plain(lights, p[0], sphere, V3(*p[1:4]))
+    return tuple(_leaves(r))
+
+
+def _lights_of(planes) -> Lights:
+    p = list(planes)
+    return Lights(p[0], *(V3(*p[k:k + 3]) for k in range(1, 22, 3)),
+                  *p[22:25])
+
+
+def _operands_of(flat):
+    """:func:`_run`'s flat operand list -> (lights, sphere, planes)."""
+    f, t = list(flat), _N_TABLE
+    return (_lights_of(f[:t]),
+            SceneSphere(V3(*f[t:t + 3]), f[t + 3], f[t + 4]), f[t + 5:])
+
+
+def lights_kernel(op: str, lights: Lights, sphere: SceneSphere, planes):
+    """Launch ``csrc/lights.cu``'s ``op`` over ``planes`` -> its output
+    planes (``_OUTS[op]``'s dtypes, the operands' broadcast shape).
+
+    ``planes``: the int64 light id, then illuminate's receiving
+    position (3), u1, u2; emit's ud1, ud2, up1, up2; or get_radiance's ray
+    direction (3). Operands broadcast to one shape of at most two
+    dimensions and are read through their strides: a column of an
+    ``[N, slots]`` draw is read in place."""
+    req = _cuda.require
+    name = f"lights_kernel({op!r})"
+    req(op in _OPS, f"lights_kernel: unknown op {op!r}")
+    planes = list(planes)
+    req(len(planes) == _N_IN[op], f"{name}: {len(planes)} operand planes")
+    req(all(isinstance(t, torch.Tensor) for t in planes),
+        f"{name}: operands are tensors")
+    for k, t in enumerate(planes):
+        want = torch.int64 if k == 0 else torch.float32
+        req(t.dtype == want, f"{name}: operand {k} is {t.dtype}, not "
+            f"{want}")
+    table = list(_leaves(lights))
+    l = table[0].shape[0] if table and isinstance(
+        table[0], torch.Tensor) and table[0].dim() == 1 else 0
+    req(len(table) == _N_TABLE and all(
+        isinstance(t, torch.Tensor) and t.dtype == _table_dtype(k)
+        and t.shape == (l,) for k, t in enumerate(table))
+        and 1 <= l <= MAX_LIGHTS,
+        f"{name}: lights are {_N_TABLE} planes (kind int32, is_finite and "
+        f"is_delta bool, the rest float32) of 1 to {MAX_LIGHTS} rows")
+    scalars = list(_leaves(sphere))
+    req(len(scalars) == 5 and all(
+        isinstance(t, torch.Tensor) and t.dtype == torch.float32
+        and t.numel() == 1 for t in scalars),
+        f"{name}: the scene sphere is 5 float32 scalars")
+    shape, rows, n, ins = _cuda.lane_grid(name, planes)
+    dev = planes[0].device
+    req(dev.type == "cuda"
+        and all(t.device == dev for t in planes + table + scalars),
+        f"{name}: every operand on one CUDA device")
+    outs = [torch.empty(shape, dtype=d, device=dev) for d in _OUTS[op]]
+    if rows * n == 0:
+        return outs
+    lib = _cuda.load_library()
+    status = lib.svcm_lights(
+        _OPS[op], ins, len(planes),
+        (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs)),
+        len(outs), (ctypes.c_longlong * (2 * _N_TABLE))(
+            *(v for t in table for v in (t.data_ptr(), t.stride(0)))),
+        l, (ctypes.c_longlong * 5)(*(t.data_ptr() for t in scalars)),
+        rows, n, torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "svcm_lights")
+    lights_kernel.launches += 1
+    return outs
+
+
+# Kernel launches on the device: graphs.py takes a capture's increment back
+# and adds it at every replay (counter ``lights.launches``).
+lights_kernel.launches = 0
+
+
+class _LightsKernelFn(torch.autograd.Function):
+    """The kernel with a gradient: forward launches :func:`lights_kernel`;
+    backward runs the op's plain chain (:func:`_plain`) again on the saved
+    operands and differentiates it, so the gradient is the plain path's.
+    The bool outputs (emit's is_finite and is_delta) get none."""
+
+    @staticmethod
+    def forward(ctx, op, *tensors):
+        outs = lights_kernel(op, *_operands_of(tensors))
+        ctx.op = op
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(
+            *(o for o in outs if o.dtype != torch.float32))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *g_outs):
+        return (None, *_cuda.plain_backward(
+            ctx.saved_tensors, ctx.needs_input_grad[1:],
+            lambda ins: _plain(ctx.op, *_operands_of(ins)), g_outs))
+
+
+def _run(op: str, lights: Lights, sphere: SceneSphere, planes):
+    """``op``'s output planes: the plain chain on the CPU, the kernel on a
+    card (through :class:`_LightsKernelFn` when an operand needs a
+    gradient)."""
+    planes = list(planes)
+    if not _on_card(lights, sphere, planes):
+        return _plain(op, lights, sphere, planes)
+    flat = [*_leaves(lights), *_leaves(sphere), *planes]
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        return _LightsKernelFn.apply(op, *flat)
+    return lights_kernel(op, lights, sphere, planes)
+
+
+def illuminate(
+    lights: Lights, idx, sphere: SceneSphere, recv_pos: V3, u1, u2
+) -> IlluminateResult:
+    """AbstractLight::Illuminate for every lane's picked light: the kernel
+    on a card, else :func:`illuminate_plain`."""
+    o = _run("illuminate", lights, sphere, (idx, *recv_pos, u1, u2))
+    return IlluminateResult(V3(*o[0:3]), V3(*o[3:6]), *o[6:])
+
+
+def emit(
+    lights: Lights, idx, sphere: SceneSphere, ud1, ud2, up1, up2
+) -> EmitResult:
+    """AbstractLight::Emit for every lane's picked light (ud* the direction
+    pair, up* the position pair): the kernel on a card, else
+    :func:`emit_plain`."""
+    o = _run("emit", lights, sphere, (idx, ud1, ud2, up1, up2))
+    return EmitResult(V3(*o[0:3]), V3(*o[3:6]), V3(*o[6:9]), *o[9:])
+
+
+def get_radiance(
+    lights: Lights, idx, sphere: SceneSphere, ray_dir: V3
+) -> RadianceResult:
+    """AbstractLight::GetRadiance for lights hit by a random ray: the
+    kernel on a card, else :func:`get_radiance_plain`."""
+    o = _run("get_radiance", lights, sphere, (idx, *ray_dir))
+    return RadianceResult(V3(*o[0:3]), *o[3:])

@@ -10,8 +10,9 @@ Tolerances: the RNG kernel bit for bit (integer arithmetic, and an
 exact conversion to float); the sweeps exactly: closest-hit distances and occlusion
 answers bit for bit (both sides round each product and sum alike; the
 kernels are built with -fmad=false), primitive ids equal except on exact
-ties; the BSDF kernel bit for bit, any NaN equal to any NaN (one IEEE
-f32 op per torch op, the same CUDA math library for sin, cos and pow);
+ties; the BSDF and lights kernels bit for bit, any NaN equal to any NaN
+(one IEEE f32 op per torch op, the same CUDA math library for sin, cos
+and pow);
 the merge's per-query sums to
 rtol 1e-4 / atol 1e-6 (the kernel sums a query's photons in another
 order); a whole render on the card against the same render on the CPU
@@ -28,6 +29,7 @@ from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.core import rng
 from smallvcm_tpu_torch.core.vec3 import V3
 from smallvcm_tpu_torch.ops import bsdf as B
+from smallvcm_tpu_torch.ops import lights as L
 from smallvcm_tpu_torch.ops import merge as M
 from smallvcm_tpu_torch.ops import sweep as S
 from smallvcm_tpu_torch.scene.scene import SCENE_CONFIGS, load_cornell_box
@@ -954,6 +956,246 @@ def test_iteration_graphs_equal_plain_bsdf_on_card(dev, alg, calls,
     assert graphs.stage.captures > captures
     assert launches == 4 * calls
     monkeypatch.setattr(B, "_on_card", lambda *operands: False)
+    want, plain_launches = run()
+    assert plain_launches == 0
+    for (a, ra), (b, rb) in zip(got, want):
+        assert _differ(a, b) == "" and ra == rb
+
+
+# ---------------------------------------------------------------------------
+# The lights kernel (csrc/lights.cu) against the plain chain
+# ---------------------------------------------------------------------------
+
+LIGHT_OPS = ("illuminate", "emit", "get_radiance")
+
+
+def _all_kinds(dev):
+    """One table of every light of scenes 0-3 (directional, two area,
+    point, background), with scene 0's sphere: lanes of one call pick
+    every kind, so a warp branches four ways."""
+    scenes = [load_cornell_box((8, 8), c, device=dev) for c in SCENE_CONFIGS]
+    planes = [torch.cat(p) for p in zip(*(L._leaves(s.lights)
+                                          for s in scenes))]
+    return L._lights_of(planes), scenes[0].scene_sphere
+
+
+def _light_lanes(n, seed, dev, scene_id):
+    """Scene ``scene_id``'s lights and sphere ("all": :func:`_all_kinds`)
+    and n lanes: light ids with -1 lanes, receiving positions and ray
+    directions with zero, tiny, huge, infinite and NaN ones, and an
+    [n, 5] draw (its columns strided, as the RNG's output gives them) with
+    0 and the largest float below 1."""
+    if scene_id == "all":
+        lights, sphere = _all_kinds(dev)
+    else:
+        s = load_cornell_box((8, 8), SCENE_CONFIGS[scene_id], device=dev)
+        lights, sphere = s.lights, s.scene_sphere
+    l = lights.kind.shape[0]
+    r = np.random.default_rng(seed)
+    pos = (r.random((3, n)) * 3.0 - 1.5).astype(np.float32)
+    d = r.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    bad = np.array([[np.nan, 0, 0], [np.inf, 1, 0], [0, 0, 0],
+                    [1e-30, 0, 0], [3e30, 1, 0], [0, 0, -1]], np.float32).T
+    pos[:, :6] = bad
+    d[:, :6] = bad
+    u = r.random((n, 5), dtype=np.float32)
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    u[6:10] = np.array([[0] * 5, [below_one] * 5, [0.5, 0, 1e-7, 0.25, 0.75],
+                        [1e-30, 1 - 1e-7, 0.5, 0, 0.5]])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    idx = to(r.integers(-1, l, n)).long()
+    return lights, sphere, idx, V3(*to(pos)), V3(*to(d)), to(u)
+
+
+def _light_calls(lights, sphere, idx, pos, d, u):
+    """op -> (its call, its plain function's call), the uniforms as
+    columns of the draw."""
+    ill = (idx, sphere, pos, u[:, 1], u[:, 2])
+    em = (idx, sphere, u[:, 1], u[:, 2], u[:, 3], u[:, 4])
+    rad = (idx, sphere, d)
+    return {
+        "illuminate": (lambda: L.illuminate(lights, *ill),
+                       lambda: L.illuminate_plain(lights, *ill)),
+        "emit": (lambda: L.emit(lights, *em),
+                 lambda: L.emit_plain(lights, *em)),
+        "get_radiance": (lambda: L.get_radiance(lights, *rad),
+                         lambda: L.get_radiance_plain(lights, *rad)),
+    }
+
+
+@pytest.mark.parametrize("scene_id", [0, 1, 2, 3, "all"])
+@pytest.mark.parametrize("op", LIGHT_OPS)
+def test_lights_kernel_matches_plain(dev, op, scene_id):
+    """Each op at 262,144 lanes, one launch, bit for bit (NaNs equal) on
+    the directional (scene 0), area (1), point (2) and background (3)
+    lights and on one table of all four."""
+    ops = _light_lanes(262_144, 21, dev, scene_id)
+    call, plain = _light_calls(*ops)[op]
+    before = L.lights_kernel.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert L.lights_kernel.launches == before + 1
+    assert type(got) is type(plain())
+    _assert_same(got, plain(), f"{op}, scene {scene_id}")
+
+
+def test_lights_kernel_broadcast_point(dev):
+    """One receiving point broadcast over the lanes (read with stride
+    0)."""
+    lights, sphere, idx, pos, d, u = _light_lanes(4096, 22, dev, "all")
+    point = V3(*(c[7:8] for c in pos))
+    _assert_same(L.illuminate(lights, idx, sphere, point, u[:, 1], u[:, 2]),
+                 L.illuminate_plain(lights, idx, sphere, point, u[:, 1],
+                                    u[:, 2]), "illuminate, a broadcast point")
+
+
+def test_lights_kernels_in_a_graph_replay(dev):
+    """illuminate, emit and get_radiance captured in one CUDA graph: a
+    replay on new inputs copied into the captured ones gives the plain
+    path's bits, and the capture launched each kernel once."""
+    n = 262_144
+    lights, sphere, idx, pos, d, u = _light_lanes(n, 23, dev, "all")
+    calls = _light_calls(lights, sphere, idx, pos, d, u)
+
+    def chain():
+        return tuple(calls[op][0]() for op in LIGHT_OPS)
+
+    def plain():
+        return tuple(calls[op][1]() for op in LIGHT_OPS)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = L.lights_kernel.launches
+    with torch.cuda.graph(graph):
+        out = chain()
+    assert L.lights_kernel.launches == before + 3
+    for seed in (24, 25):
+        _, _, idx2, pos2, d2, u2 = _light_lanes(n, seed, dev, "all")
+        for dst, src in zip((idx, *pos, *d, u), (idx2, *pos2, *d2, u2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same(out, plain(), f"graph replay, seed {seed}")
+
+
+def test_lights_kernel_gradient_matches_plain(dev):
+    """Under autograd the kernel runs (ops/lights.py::_LightsKernelFn),
+    once a call, and its gradients to the light intensity, the receiving
+    positions and the ray directions are the plain chain's autograd's,
+    over 262,144 lanes of every kind."""
+    n = 262_144
+    lights0, sphere, idx, pos0, d0, u = _light_lanes(n, 26, dev, "all")
+    wts = torch.rand(n, device=dev)
+    live = torch.isfinite(pos0.x) & torch.isfinite(d0.x)
+
+    def grads(kernel):
+        leaves = [t.clone().requires_grad_()
+                  for t in (*lights0.intensity, *pos0, *d0)]
+        lights = lights0._replace(intensity=V3(*leaves[:3]))
+        pos, d = V3(*leaves[3:6]), V3(*leaves[6:])
+        before = L.lights_kernel.launches
+        calls = _light_calls(lights, sphere, idx, pos, d, u)
+        with torch.enable_grad():
+            outs = [calls[op][0 if kernel else 1]() for op in LIGHT_OPS]
+            flat = [x for x in L._leaves(outs) if x.requires_grad]
+            total = sum(torch.where(live, x * wts, 0.0).nan_to_num().sum()
+                        for x in flat)
+            gs = torch.autograd.grad(total, leaves, allow_unused=True)
+        return ([torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, gs)],
+                L.lights_kernel.launches - before)
+
+    (got, k_launches), (want, p_launches) = grads(True), grads(False)
+    assert (k_launches, p_launches) == (3, 0)
+    _close_grads(got, want)
+
+
+@pytest.mark.parametrize("alg", ["pt", "vcm"])
+def test_gradient_step_runs_the_lights_kernel_on_card(dev, alg,
+                                                      monkeypatch):
+    """diff.loss_and_grad at 32x32 launches the lights kernel and gives
+    the loss and gradients (the light intensity's among them) of the step
+    with every light call sent down the plain path."""
+    from smallvcm_tpu_torch import diff
+
+    scene = load_cornell_box((32, 32), SCENE_CONFIGS[1], device=dev)
+    target = torch.full((32, 32, 3), 0.1, device=dev)
+
+    def step():
+        before = L.lights_kernel.launches
+        loss, g = diff.loss_and_grad(scene, diff.extract_params(scene),
+                                     target, 0, alg, 32, 32)
+        return loss, list(diff._leaves(g)), L.lights_kernel.launches - before
+
+    loss, got, launches = step()
+    monkeypatch.setattr(L, "_on_card", lambda *operands: False)
+    want_loss, want, plain_launches = step()
+    assert launches > 0 and plain_launches == 0
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0.0)
+    _close_grads(got, want, rtol=1e-4)
+
+
+def test_lights_kernel_wrapper_checks(dev):
+    lights, sphere, idx, pos, d, u = _light_lanes(64, 27, dev, 1)
+    planes = [idx, *pos, u[:, 1], u[:, 2]]
+    before = L.lights_kernel.launches
+    for args, match in (
+            (("shade", lights, sphere, planes), "unknown op"),
+            (("illuminate", lights, sphere, planes[:5]), "operand planes"),
+            (("illuminate", lights, sphere, [idx.float(), *planes[1:]]),
+             "operand 0"),
+            (("illuminate", lights, sphere, [idx.int(), *planes[1:]]),
+             "operand 0"),
+            (("illuminate", lights._replace(kind=lights.kind.long()),
+              sphere, planes), "lights are"),
+            (("illuminate", lights, sphere._replace(
+                radius=sphere.radius.cpu()), planes), "CUDA device"),
+            (("illuminate", lights, sphere, [*planes[:5], u[:, 2].cpu()]),
+             "CUDA device"),
+            (("emit", lights, sphere, planes), "operand planes")):
+        with pytest.raises(ValueError, match=match):
+            L.lights_kernel(*args)
+    with pytest.raises(RuntimeError):  # shapes that do not broadcast
+        L.lights_kernel("illuminate", lights, sphere,
+                        [*planes[:5], u[:10, 2]])
+    assert L.lights_kernel.launches == before
+    empty = L.lights_kernel("illuminate", lights, sphere,
+                            [p[:0] for p in planes])
+    assert len(empty) == 10 and all(e.shape == (0,) for e in empty)
+    assert L.lights_kernel.launches == before
+
+
+@pytest.mark.parametrize("alg,calls", [("pt", 20), ("vcm", 21)])
+def test_iteration_graphs_equal_plain_lights_on_card(dev, alg, calls,
+                                                     monkeypatch):
+    """A pt and a VCM iteration at 64x64 (iteration 0 eager, 1 captured,
+    2-3 replayed) give bitwise the same images and rays with the lights
+    kernel as with every light call sent down the plain path, and the
+    kernel runs once a call, replays counted: pt 20 an iteration (10
+    bounces of get_radiance and illuminate) and VCM 21 (emit, then 10
+    camera bounces of the same two)."""
+    from smallvcm_tpu_torch import graphs
+
+    def run():
+        scene = load_cornell_box((64, 64), SCENE_CONFIGS[0], device=dev)
+        cfg = R.RenderConfig(algorithm=alg, resolution=(64, 64))
+        before = L.lights_kernel.launches
+        out = []
+        for it in range(4):
+            img, rays = R.render_iteration(scene, cfg, alg, it)
+            out.append((img.clone(), int(rays)))
+        return out, L.lights_kernel.launches - before
+
+    captures = graphs.stage.captures
+    got, launches = run()
+    assert graphs.stage.captures > captures
+    assert launches == 4 * calls
+    monkeypatch.setattr(L, "_on_card", lambda *operands: False)
     want, plain_launches = run()
     assert plain_launches == 0
     for (a, ra), (b, rb) in zip(got, want):

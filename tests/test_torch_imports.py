@@ -95,15 +95,16 @@ def test_entry_points_build_on_the_card_by_default():
 def test_kernel_sources_present_and_build_is_keyed_by_source():
     names = {p.name for p in _cuda.CSRC_DIR.glob("*.cu")}
     assert names == {"merge_cells.cu", "intersect_sweep.cu",
-                     "trace_stamp.cu", "rng_slots.cu", "bsdf.cu"}
+                     "trace_stamp.cu", "rng_slots.cu", "bsdf.cu",
+                     "lights.cu"}
     for p in _cuda.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         # Each source names the TPU kernel it replaces, or says it
         # replaces none (the stage clocks' stamp, which the TPU has not,
-        # and the RNG and the BSDF, which XLA fuses there).
+        # and the RNG, the BSDF and the lights, which XLA fuses there).
         replaces = ("replaces no tpu kernel"
                     if p.name in ("trace_stamp.cu", "rng_slots.cu",
-                                  "bsdf.cu")
+                                  "bsdf.cu", "lights.cu")
                     else "replaces the tpu kernel")
         assert replaces in text.lower()
         assert "cudaGetLastError" in text
@@ -111,6 +112,40 @@ def test_kernel_sources_present_and_build_is_keyed_by_source():
     assert path.parent.parent == _cuda.BUILD_DIR
     assert path.parent.name == _cuda.source_digest()
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
+
+
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Processes (here threads, each with its own lock file handle) that
+    ask for the library together: one compiles, the others wait for its
+    lock and load what it built."""
+    import threading
+    import time
+
+    so = tmp_path / "digest" / _cuda.LIB_NAME
+    compiles = []
+
+    def run_all(cmds):
+        if cmds[0][1:3] == ["-shared", "-o"]:
+            time.sleep(0.2)  # a slow link: the other builds are waiting
+            Path(cmds[0][3]).write_bytes(b"lib")
+        else:
+            compiles.append(len(cmds))
+        return [(c, 0, "") for c in cmds]
+
+    monkeypatch.setattr(_cuda, "library_path", lambda: so)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_cuda, "_run_all", run_all)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_cuda.build()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == [so] * 4 and so.read_bytes() == b"lib"
+    assert compiles == [len(list(_cuda.CSRC_DIR.glob("*.cu")))]
+    assert not list(so.parent.glob("*.o")) and not list(
+        so.parent.glob("*.tmp"))
 
 
 def test_dense_sweep_is_never_chosen_for_a_card():
