@@ -235,6 +235,7 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int,
 
     psrc = _source_planes(light_verts)
     qsrc = _source_planes(queries)
+    merge_prep.photon_rows = psrc.shape[1]
     photon_cap = psrc.shape[1] if photon_cap is None else photon_cap
     query_cap = qsrc.shape[1] if query_cap is None else query_cap
     pv = psrc[15] > 0.0
@@ -347,6 +348,15 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int,
         qtab=qtab, ranges=ranges.to(torch.int32),
         ppos=torch.stack([prows[0], prows[1], prows[2], p_len], dim=1),
         ptab=ptab, q_path=q_path, n_p=n_p, n_q=n_q)
+
+
+# The photon rows the last preparation sorted: the slots of its photon
+# tables (every rank's, after the sharded all-gather), a static size,
+# counted at capture on a card; reported as the counter
+# ``merge.photon_rows``.
+merge_prep.photon_rows = 0
+trace.report_counters("merge", lambda: {
+    "merge.photon_rows": merge_prep.photon_rows})
 
 
 # ---------------------------------------------------------------------------
@@ -499,21 +509,23 @@ def merge_stage(scene, misc, queries, light_verts, ppm: bool,
     the query tables' column count; the photon table may have more columns
     (the sharded all-gather: merge_prep derives each side's path lengths
     and owners from its own column count). Stamps the stage clocks'
-    ``merge_prep`` after the tables and ``merge_kernel`` after the sums
-    (trace.py)."""
+    ``merge_prep`` after the tables, with the live photons, and
+    ``merge_kernel`` after the sums, with the candidate pairs: the sum of
+    the live queries' range lengths, which the walk visits (trace.py)."""
     t = merge_prep(scene, misc, queries, light_verts, n_paths, photon_cap,
                    query_cap)
-    trace.stamp("merge_prep")
+    trace.stamp("merge_prep", count=t.n_p)
     out = merge_cells(
         *t[:5], misc.radius_sqr, misc.mis_vc_weight, n_live=t.n_q,
         max_path_length=max_path_length, min_path_length=min_path_length,
         ppm=ppm,
     )
     z = merge_post(out, t.qtab, t.q_path, misc.vm_normalization, n_paths)
+    # Dead and out-of-bbox queries have empty ranges.
+    pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
     if with_stats:
         overflow = ((t.n_p > t.ptab.shape[0]).to(torch.int64)
                     + (t.n_q > t.qtab.shape[0]).to(torch.int64))
-        pairs = (t.ranges[ROWS:] - t.ranges[:ROWS]).sum().to(torch.int64)
         z = z, overflow, torch.stack([pairs, t.n_p, t.n_q])
-    trace.stamp("merge_kernel")
+    trace.stamp("merge_kernel", count=pairs)
     return z

@@ -20,7 +20,10 @@ under the names the summary gives them:
 - render.py: ``render.render.rerendered_blocks``, each block rendered
   again after a merge cap overflow;
 - algorithms/vcm.py: ``vcm.pair_surv_rows``, the survivor rows the last
-  pair merge built shades (a static size).
+  pair merge built shades (a static size);
+- ops/merge.py: ``merge.photon_rows``, the photon rows the last cell
+  merge's preparation sorted (its photon tables' slots, every rank's
+  after the sharded all-gather; a static size).
 
 **Spans** (:class:`span`): a name, the start and end in ns on the host's
 wall clock (``time.time_ns``, the clock of the torch profiler's host
@@ -46,8 +49,10 @@ a card (:func:`block`), each stage of an iteration ends with a stamp: a
 one-thread kernel (``csrc/trace_stamp.cu``) that writes the device's
 ``%globaltimer`` into row ``iteration mod ROWS`` of a small float64 ring on
 the card, in the stage's slot (:data:`STAGES`; the bounces of the walks in
-:data:`BOUNCES`, each with its live lanes; a stage may carry a count too,
-as the pair merge's carry their candidate pairs and survivors). The
+:data:`BOUNCES`, each with its live lanes; a stage may carry a count too:
+the cell merge's ``merge_prep`` its live photons and ``merge_kernel`` its
+candidate pairs, the pair merge's ``pair_expand`` its candidate pairs and
+``pair_shade`` its survivors). The
 ``start`` stamp reads the iteration from device memory (a graph's 0-dim
 input buffer) and leaves the row for the stamps after it, so a replay
 stamps its own row. Stamps are

@@ -340,9 +340,43 @@ def test_pair_merge_stamps_its_three_stages_with_their_counts(cpu_clock):
     st = trace.summary()["stages"]
     assert not {"pair_tables", "pair_expand", "pair_shade"} & set(st)
     for _, _, stages, _, _, counts in trace._iterations(cpu_clock.blocks):
-        assert counts == {}
+        assert set(counts) == {"merge_prep", "merge_kernel"}
     assert st["merge"]["iterations"] == 2
     assert {"merge_prep", "merge_kernel"} <= set(st)
+
+
+def test_cell_merge_stamps_its_live_photons_and_candidate_pairs(cpu_clock):
+    """The cell merge's ``merge_prep`` stamp carries the live photons and
+    ``merge_kernel`` the cell walk's candidate pairs (the live queries'
+    range lengths), each iteration's as ``merge_stage(..., with_stats=
+    True)`` and the ranges give them; the counter ``merge.photon_rows`` is
+    the photon table's rows, which the preparation sorts."""
+    from smallvcm_tpu_torch.ops import merge as M
+
+    rf = 0.05           # a radius wide enough for the few paths to pair
+    _render("vcm", iterations=3, block=3, radius_factor=rf)
+    rows = list(trace._iterations(cpu_clock.blocks))
+    assert len(rows) == 3
+    scene, n = _scene(), RES * RES
+    for it, (_, _, _, _, _, counts) in enumerate(rows):
+        misc = vcm.compute_misc(scene, it, n, rf, 0.75, True, True)
+        verts, queries = vcm.trace_iteration(
+            scene, it, RES, RES, max_path_length=4, radius_factor=rf)
+        _, overflow, stats = M.merge_stage(scene, misc, queries, verts,
+                                           False, 4, 0, n, with_stats=True)
+        t = M.merge_prep(scene, misc, queries, verts, n)
+        ranges = t.ranges.long()
+        pairs = int((ranges[M.ROWS:] - ranges[:M.ROWS]).sum())
+        assert int(overflow) == 0 and pairs > 0
+        assert counts == {"merge_prep": int(stats[1]),
+                          "merge_kernel": int(stats[0])}
+        assert counts["merge_prep"] == int(t.n_p)
+        assert counts["merge_kernel"] == pairs
+    s = trace.summary()
+    assert s["counters"]["merge.photon_rows"] == verts.valid.numel() == \
+        t.ptab.shape[0]
+    assert s["stages"]["merge_kernel"]["count"] > 0
+    assert 0 < s["stages"]["merge_prep"]["count"] < verts.valid.numel()
 
 
 def test_chunked_pair_merge_clocks_expansion_and_shading_as_one(
@@ -389,7 +423,8 @@ def test_summary_has_its_documented_shape(cpu_clock):
             "comm.all_gather_bytes",
             "comm.ring_shift_bytes", "trace.stamp_launches",
             "graphs.captures", "graphs.replays", "graphs.capture_s",
-            "render.rerendered_blocks", "vcm.pair_surv_rows"} == set(
+            "render.rerendered_blocks", "vcm.pair_surv_rows",
+            "merge.photon_rows"} == set(
                 s["counters"])
     assert s["counters"]["comm.all_gather_bytes"] == \
         comm.all_gather_columns.bytes
