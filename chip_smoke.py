@@ -34,19 +34,25 @@ Phases (each one raises on failure; nothing is caught):
    bit (NaNs equal): illuminate, emit and get_radiance over 262,144 lanes
    on scenes 0-3 (directional, area, point and background lights), each
    call's time against its bytes bound;
-4. the merge kernel against its plain version on every row of the merge
-   tables of one real 512x512 scene-0 VCM iteration at the main path's
-   static caps (dead rows zero; the live count, r^2 and the MIS weight
-   read from device memory), a bitwise second launch, its candidate-pair
-   counts and its bound; the cell size formed on the device against the
-   host's at the main path's radii;
+4. the cell merge's preparation (csrc/merge_prep.cu) against
+   ``merge_prep_plain`` on one real 512x512 scene-0 VCM iteration at the
+   main path's static caps, and on a four-rank photon table (four
+   iterations' light vertices side by side, as the all-gather gives) at
+   the four-card cell's photon cap: every MergeTables field as raw bits,
+   a bitwise second launch, 17 launches a call, its time, the plain
+   chain's and its bytes bound; the merge kernel against its plain
+   version on every row of the kernel-built tables of that iteration
+   (dead rows zero; the live count, r^2 and the MIS weight read from
+   device memory), a bitwise second launch, its candidate-pair counts and
+   its bound; the cell size formed on the device against the host's at
+   the main path's radii;
 5. the golden image (tests/data/torch_golden_vcm_s0_32.npz, rendered by
    the JAX package) against the port's render on the card, and a bitwise
    repeat of that render;
 6. the main path through the CLI entry: VCM, scene 0, 512x512, 8
    iterations at the default block (one block of 8) -> BMP, image mean
-   against the reference, kernel launch counts (the merge's once an
-   iteration), and the same render with ``--block 1``: the same BMP bytes,
+   against the reference, kernel launch counts (the merge's once and
+   the preparation's 17 times an iteration), and the same render with ``--block 1``: the same BMP bytes,
    ms/iteration and rays/s from its per-iteration lines;
 7. eye light (2 iterations) and path tracing (8 iterations) at 512x512
    through the CLI: ms/iteration, rays/s, image mean against the
@@ -231,6 +237,20 @@ MERGE_OPS_CANDIDATE = 9
 MERGE_OPS_PASS = 71
 MERGE_QUERY_FIELDS = 25
 MERGE_PHOTON_FIELDS = 9
+# csrc/merge_prep.cu: the launches of one preparation (3 slot passes, 4
+# sort passes of 3 launches, 2 bakes), and the bytes its bound counts
+# (prep_bytes): a slot's validity read twice (bbox, keys), a live photon's
+# position twice and a live query's once, PREP_SORT_PASSES radix passes
+# that read and write an int32 key and slot over the live slots, a cap
+# row's 14 f32 fields, int64 material id and int32 sorted slot read once,
+# and the rows written once (ppos 16 + ptab 64 bytes a photon row; qpos 16
+# + qtab 128 + ranges 32 + q_path 8 a query row). The ranges' searches read
+# the L2-resident sorted key column and are not counted.
+PREP_LAUNCHES = 17
+PREP_SORT_PASSES = 4
+PREP_ROW_IN = 14 * 4 + 8 + 4
+PREP_PHOTON_ROW_OUT = 16 + 64
+PREP_QUERY_ROW_OUT = 16 + 128 + 32 + 8
 # csrc/rng_slots.cu is integer work, so its bound is instruction issue and
 # not the f32 rate: each SM issues one warp instruction a clock on each of
 # its four sub-partitions, at the H100 SXM's boost clock.
@@ -249,11 +269,10 @@ BSDF_LANE_BYTES = {"setup": (33, 82), "evaluate": (77, 24),
                    "sample": (89, 45), "setup_evaluate": (45, 28)}
 BSDF_STATE_BYTES = 65
 # One VCM iteration's BSDF calls at the walks' shapes (tests/
-# test_torch_cuda.py counts 75 launches an iteration): over [N] lanes,
+# test_torch_cuda.py counts 73 launches an iteration): over [N] lanes,
 # 19 bounces (9 light, 10 camera) of setup, evaluate and sample; the
 # connection windows, [w, N] for w = 8 down to 1, of evaluate (an
-# expanded camera state) and setup_evaluate; the merge's two setups at its
-# caps are left out.
+# expanded camera state) and setup_evaluate.
 BSDF_VCM_BOUNCES = 19
 BSDF_VCM_WINDOWS = tuple(range(8, 0, -1))
 # csrc/lights.cu is bound by bytes: (read, written) a lane by op, the
@@ -1027,12 +1046,83 @@ def merge_work(torch, M, tabs, r2, max_pl, min_pl):
                 mean_per_query=cand / n_live, bytes=n_bytes, ops=n_ops)
 
 
+def prep_bytes(mp: int, mq: int, n_p: int, n_q: int, pcap: int,
+               qcap: int) -> int:
+    """The bytes csrc/merge_prep.cu's bound counts (PREP_LAUNCHES' note)
+    for mp photon and mq query slots, n_p and n_q of them live, at caps
+    pcap and qcap (rows past the slot count repeat the last slot)."""
+    return (2 * (mp + mq) + 12 * (2 * n_p + n_q)
+            + PREP_SORT_PASSES * 16 * (n_p + n_q)
+            + PREP_ROW_IN * (min(pcap, mp) + min(qcap, mq))
+            + PREP_PHOTON_ROW_OUT * pcap + PREP_QUERY_ROW_OUT * qcap)
+
+
+def check_merge_prep(torch, scene, cfg, misc, queries, verts, n, caps):
+    """Phase 4's preparation: csrc/merge_prep.cu against merge_prep_plain
+    on one real iteration at the main path's caps, and on a four-rank
+    photon table (four iterations' light vertices side by side, as the
+    all-gather lays every rank's columns out) at the four-card cell's caps
+    (the photon cap of 4 n paths): every MergeTables field as raw bits
+    (NaN equal to NaN), a bitwise second launch, PREP_LAUNCHES launches a
+    call, each one's time, the plain chain's and the bytes bound ->
+    (the one-rank kernel tables, the kernels line's numbers)."""
+    from smallvcm_tpu_torch.algorithms import vcm
+    from smallvcm_tpu_torch.ops import merge as M
+
+    four = vcm.unpack_vertices(torch.cat([vcm.pack_vertices(verts)] + [
+        vcm.pack_vertices(vcm.trace_iteration(
+            scene, it, RES, RES, SEED, 10, 0)[0]) for it in range(1, 4)],
+        dim=2))
+    cases = (("one_rank", verts, caps),
+             ("four_ranks", four, (vcm.merge_caps(
+                 cfg.photon_factor, cfg.query_factor, 4 * n)[0], caps[1])))
+    out, tables = {}, None
+    for name, lv, (pcap, qcap) in cases:
+        args = (scene, misc, queries, lv, n, pcap, qcap)
+        before = M.merge_prep_kernel.launches
+        got = M.merge_prep_kernel(*args)
+        launches = M.merge_prep_kernel.launches - before
+        again = M.merge_prep_kernel(*args)
+        want = M.merge_prep_plain(*args)
+        torch.cuda.synchronize()
+        diffs = {f: d for f, g, w in zip(M.MergeTables._fields, got, want)
+                 if (d := _bits_differ(torch, g, w))}
+        if diffs or launches != PREP_LAUNCHES:
+            raise AssertionError(f"merge_prep {name}: fields differ from "
+                                 f"the plain chain {diffs}, {launches} "
+                                 f"launches (not {PREP_LAUNCHES})")
+        if any(_bits_differ(torch, g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"merge_prep {name}: a second launch is "
+                                 "not bitwise equal")
+        mp, mq = lv.valid.numel(), queries.valid.numel()
+        n_p, n_q = int(got.n_p), int(got.n_q)
+        if not (0 < n_p < mp and 0 < n_q < mq):
+            raise AssertionError(f"merge_prep {name}: live counts {n_p} "
+                                 f"of {mp}, {n_q} of {mq}")
+        ms = time_cuda(torch, lambda: M.merge_prep_kernel(*args), 20)
+        plain_ms = time_cuda(torch, lambda: M.merge_prep_plain(*args), 3)
+        n_bytes = prep_bytes(mp, mq, n_p, n_q, pcap, qcap)
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        log(f"[merge_prep] {name}: photon slots {mp} ({n_p} live, cap "
+            f"{pcap}), query slots {mq} ({n_q} live, cap {qcap}); every "
+            f"MergeTables field bit for bit the plain chain, second launch "
+            f"bitwise equal, {launches} launches; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms; bound {1e3 * b_ms:.1f} us by {b_by} "
+            f"({n_bytes} B), kernel at {100 * b_ms / ms:.1f}% of it")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=n_bytes,
+                         slots=[mp, mq], live=[n_p, n_q], caps=[pcap, qcap])
+        tables = tables or got
+    one = out.pop("one_rank")
+    return tables, dict(max_abs_err=0.0, library_ms=None, **one, **out)
+
+
 def check_merge(torch, dev):
-    """Phase 4: the kernel against its plain version on the merge tables of
-    one real iteration at the main path's caps (every row, live and dead),
-    with n_q, r^2 and the MIS weight in device memory as in the graph; the
-    cell size formed on the device against the host's for the main path's
-    radii."""
+    """Phase 4: the preparation (check_merge_prep), then the kernel against
+    its plain version on the merge tables of one real iteration at the
+    main path's caps (every row, live and dead), with n_q, r^2 and the MIS
+    weight in device memory as in the graph; the cell size formed on the
+    device against the host's for the main path's radii."""
     from smallvcm_tpu_torch import render as R
     from smallvcm_tpu_torch.algorithms import vcm
     from smallvcm_tpu_torch.ops import hashgrid
@@ -1052,7 +1142,8 @@ def check_merge(torch, dev):
     caps = vcm.merge_caps(cfg.photon_factor, cfg.query_factor, n)
     misc = vcm.compute_misc(scene, 0, n, 0.003, 0.75, True, True)
     verts, queries = vcm.trace_iteration(scene, 0, RES, RES, SEED, 10, 0)
-    tabs = M.merge_prep(scene, misc, queries, verts, n, *caps)
+    tabs, prep_r = check_merge_prep(torch, scene, cfg, misc, queries, verts,
+                                    n, caps)
     n_q, n_p = tabs.qtab.shape[0], tabs.ptab.shape[0]
     live_q, live_p = int(tabs.n_q), int(tabs.n_p)
     if live_q > n_q or live_p > n_p:
@@ -1091,7 +1182,7 @@ def check_merge(torch, dev):
         f"{100 * b_ms / ms:.1f}% of it; device cell size equal to the "
         f"host's at iterations 0-63")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), prep_r
 
 
 def check_golden(torch, dev, path=GOLDEN):
@@ -1171,6 +1262,7 @@ def reset_counts(M, S):
     S.sweep_kernel.launches = 0
     S.occluded_kernel.launches = 0
     M.merge_cells_kernel.launches = 0
+    M.merge_prep_kernel.launches = 0
     rng.uniform_slots_kernel.launches = 0
     bsdf.bsdf_kernel.launches = 0
     lights.lights_kernel.launches = 0
@@ -1184,6 +1276,7 @@ def read_counts(M, S) -> dict:
     return dict(intersect_sweep=S.sweep_kernel.launches,
                 occluded_sweep=S.occluded_kernel.launches,
                 merge_cells=M.merge_cells_kernel.launches,
+                merge_prep=M.merge_prep_kernel.launches,
                 uniform_slots=rng.uniform_slots_kernel.launches,
                 bsdf=bsdf.bsdf_kernel.launches,
                 lights=lights.lights_kernel.launches)
@@ -1228,8 +1321,10 @@ def check_main_path(torch):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched {name}")
-    if launches["merge_cells"] != 8:
+    if launches["merge_cells"] != 8 \
+            or launches["merge_prep"] != 8 * PREP_LAUNCHES:
         raise AssertionError(f"main path: {launches['merge_cells']} merge "
+                             f"and {launches['merge_prep']} preparation "
                              "launches for 8 iterations")
     if b1 != b2 or singles[-1][2] != mean or sum(rays) != blocks[0][3]:
         raise AssertionError("cli: --block 1 render is not bitwise the "
@@ -1266,6 +1361,7 @@ def check_simple_paths(torch):
         if abs(mean / ref - 1) > tol:
             raise AssertionError(f"{alg}: image mean {mean} vs {ref}")
         if launches["intersect_sweep"] <= 0 or launches["merge_cells"] \
+                or launches["merge_prep"] \
                 or (launches["occluded_sweep"] > 0) != (alg == "pt") \
                 or (launches["lights"] > 0) != (alg == "pt"):
             raise AssertionError(f"{alg}: launches {launches}")
@@ -1296,6 +1392,7 @@ def check_family_paths(torch):
         merges = alg in ("ppm", "bpm")
         if abs(mean / ref - 1) > 0.05 or launches["intersect_sweep"] <= 0 \
                 or (launches["merge_cells"] > 0) != merges \
+                or (launches["merge_prep"] > 0) != merges \
                 or launches["lights"] <= 0:
             raise AssertionError(f"{alg}: mean {mean} vs {ref}, launches "
                                  f"{launches}")
@@ -1441,7 +1538,8 @@ def check_gradients(torch, dev):
         if float(g.light_intensity.x.abs().max()) <= 0.0:
             raise AssertionError(f"grad {alg}: zero light-intensity grad")
         if (launches["intersect_sweep"] <= 0 or launches["bsdf"] <= 0
-                or launches["lights"] <= 0 or launches["merge_cells"]):
+                or launches["lights"] <= 0 or launches["merge_cells"]
+                or launches["merge_prep"]):
             raise AssertionError(f"grad {alg}: launches {launches}")
         log(f"[grad] {alg} {GRAD_RES}x{GRAD_RES} x1 forward+backward: "
             f"{times[0]:.1f} ms cold, {ms:.1f} ms warm, peak {peak:.2f} "
@@ -1772,7 +1870,8 @@ def _check_ranks(torch, ranks, ref, spawn_s: float) -> dict:
                                        atol=1e-6)
             n = got["launches"]
             if n["intersect_sweep"] <= 0 or n["occluded_sweep"] <= 0 or \
-                    (n["merge_cells"] > 0) != (alg == "vcm"):
+                    (n["merge_cells"] > 0) != (alg == "vcm") or \
+                    (n["merge_prep"] > 0) != (alg == "vcm"):
                 raise AssertionError(f"sharded {name} rank {r}: launches {n}")
         err = float((ranks[0][name]["img"] - want).abs().max())
         launches[f"sharded_{name}"] = [o[name]["launches"] for o in ranks]
@@ -1794,7 +1893,7 @@ def _check_ranks(torch, ranks, ref, spawn_s: float) -> dict:
                 torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-5)
             n = got["launches"]
             if n["intersect_sweep"] <= 0 or n["occluded_sweep"] <= 0 or \
-                    n["merge_cells"]:
+                    n["merge_cells"] or n["merge_prep"]:
                 raise AssertionError(f"sharded grad {alg} rank {r}: "
                                      f"launches {n}")
         launches[f"sharded_grad_{alg}"] = [o[f"grad_{alg}"]["launches"]
@@ -3128,7 +3227,7 @@ def main() -> int:
     bsdf_r = check_bsdf(torch, dev)
     lights_r = check_lights(torch, dev)
     phase_done("phase 3 (sweeps, rng, bsdf, lights)")
-    merge_r = check_merge(torch, dev)
+    merge_r, prep_r = check_merge(torch, dev)
     check_golden(torch, dev)
     phase_done("phases 4-5")
     launches, _ms_iter, _rays_s, rays_iter1 = check_main_path(torch)
@@ -3190,6 +3289,11 @@ def main() -> int:
              replaces="smallvcm_tpu/ops/pallas_merge.py:170",
              launches=launches["merge_cells"],
              launches_by_path=by_path("merge_cells"), **merge_r),
+        dict(name="merge_prep", route="cuda",
+             source="smallvcm_tpu_torch/csrc/merge_prep.cu",
+             replaces=None,
+             launches=launches["merge_prep"],
+             launches_by_path=by_path("merge_prep"), **prep_r),
         dict(name="intersect_sweep", route="cuda",
              source="smallvcm_tpu_torch/csrc/intersect_sweep.cu",
              replaces="smallvcm_tpu/ops/pallas_intersect.py:46",

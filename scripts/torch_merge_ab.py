@@ -8,8 +8,9 @@ the port's merge kernel within one run on one card.
 Each argument is the root of a checkout of this repository (for example a
 parent commit unpacked with ``git archive`` into a git-ignored directory);
 that checkout's chip_smoke.py and smallvcm_tpu_torch build and run. Prints
-the card, then for each run its ptxas lines, its merge line and its result
-dict, and exits non-zero if any run fails.
+the card, then for each run its ptxas lines, its merge lines and its
+result (the walk's dict, and the preparation's where the checkout's phase 4
+checks csrc/merge_prep.cu too), and exits non-zero if any run fails.
 """
 
 from __future__ import annotations

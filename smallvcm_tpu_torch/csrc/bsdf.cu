@@ -23,22 +23,21 @@
 // fusion keeps the intermediate state in registers: setup_evaluate over
 // a connection window writes 7 planes where setup wrote 21.
 // Design: one thread a lane, 256 a block; the material table (11 planes
-// of a few rows) is read into shared memory once a block; each operand
-// is read through its own (row, column) strides, so a state expanded
-// from [N] to [w, N] (stride 0 along w) is read from its [N] base and
-// never materialised; outputs are contiguous planes. No atomics, no
-// allocation, launched on the caller's stream, so a CUDA graph captures
-// it as it is.
+// of a few rows) is read into shared memory once a block (the set-up and
+// the table's reads are bsdf_setup.cuh's, shared with merge_prep.cu);
+// each operand is read through its own (row, column) strides, so a state
+// expanded from [N] to [w, N] (stride 0 along w) is read from its [N]
+// base and never materialised; outputs are contiguous planes. No
+// atomics, no allocation, launched on the caller's stream, so a CUDA graph
+// captures it as it is.
 
-#include "elementwise.cuh"
+#include "bsdf_setup.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kMaxIn = 24;
 constexpr int kMaxOut = 21;
-constexpr int kMatPlanes = 11;
-constexpr int kMaxMaterials = 1024;
 
 // Operation codes of ops/bsdf.py::_OPS.
 enum Op { kSetup = 0, kEvaluate = 1, kSample = 2, kSetupEvaluate = 3 };
@@ -56,36 +55,10 @@ struct Args {
   int m, rows, n;
 };
 
-__device__ __forceinline__ float luminance(V c) {
-  return F(0.212671) * c.x + F(0.715160) * c.y + F(0.072169) * c.z;
-}
-
 __device__ __forceinline__ V reflect_local(V v) { return mk(-v.x, -v.y, v.z); }
-
-__device__ __forceinline__ V to_local(const Frame& f, V a) {
-  return mk(dot(a, f.x), dot(a, f.y), dot(a, f.z));
-}
 
 __device__ __forceinline__ V to_world(const Frame& f, V a) {
   return add(add(scale(f.x, a.x), scale(f.y, a.y)), scale(f.z, a.z));
-}
-
-__device__ __forceinline__ float fresnel_dielectric(float cos_inc,
-                                                    float ior) {
-  const bool inside = cos_inc < 0.0f;
-  const float abs_cos = fabsf(cos_inc);
-  const float safe_ior = ior <= 0.0f ? 1.5f : ior;
-  const float eta = inside ? safe_ior : recip(safe_ior);
-  const float sin_t2 = (eta * eta) * (1.0f - abs_cos * abs_cos);
-  const float cos_t = sqrtf(clamp_min(1.0f - sin_t2, F(1e-12)));
-  const float term1 = eta * cos_t;
-  const float r_par =
-      (abs_cos - term1) / clamp_min(abs_cos + term1, F(1e-35));
-  const float term2 = eta * abs_cos;
-  const float r_perp =
-      (term2 - cos_t) / clamp_min(term2 + cos_t, F(1e-35));
-  const float fres = 0.5f * (r_par * r_par + r_perp * r_perp);
-  return ior < 0.0f ? 1.0f : fres;
 }
 
 __device__ __forceinline__ V sample_power_cos_hemisphere(float u1, float u2,
@@ -107,34 +80,6 @@ __device__ __forceinline__ float power_cos_hemisphere_pdf(V normal, V dir,
 }
 
 // -- ops/bsdf.py --------------------------------------------------------------
-
-struct Material {
-  V diffuse, phong, mirror;
-  float exponent, ior;
-};
-
-// Material id's row of the table in shared memory (11 planes of m rows),
-// the id clamped to the table as the plain gather's clamp_min(0) does.
-__device__ __forceinline__ Material material(const float* smat, int m,
-                                             long long id) {
-  const int k = (int)min(max(id, 0LL), (long long)(m - 1));
-  Material mt;
-  mt.diffuse = mk(smat[0 * m + k], smat[1 * m + k], smat[2 * m + k]);
-  mt.phong = mk(smat[3 * m + k], smat[4 * m + k], smat[5 * m + k]);
-  mt.exponent = smat[6 * m + k];
-  mt.mirror = mk(smat[7 * m + k], smat[8 * m + k], smat[9 * m + k]);
-  mt.ior = smat[10 * m + k];
-  return mt;
-}
-
-// A lane's BsdfState, as setup forms it and the other entry points read
-// it (the material id apart).
-struct State {
-  bool valid;
-  Frame frame;
-  V fix;  // local_dir_fix
-  float p_diff, p_phong, p_refl, p_refr, cont, rc;
-};
 
 __device__ __forceinline__ float phong_rho_s(float exponent) {
   return ((exponent + 2.0f) * 0.5f) * F(kInvPi);
@@ -186,34 +131,6 @@ __device__ __forceinline__ float pdf_phong(const State& s, float exponent,
   const float pdf_w =
       power_cos_hemisphere_pdf(refl_fix, g, exponent) * s.p_phong;
   return ok ? pdf_w : 0.0f;
-}
-
-// setup (BSDF::Setup with GetComponentProbabilities).
-__device__ __forceinline__ State setup_lane(const float* smat, int m,
-                                            V ray_dir, V normal,
-                                            long long id, bool hit) {
-  State s;
-  s.frame = frame_set_from_z(normal);
-  s.fix = to_local(s.frame, mk(-ray_dir.x, -ray_dir.y, -ray_dir.z));
-  s.valid = hit & (id >= 0) & (fabsf(s.fix.z) >= EPS_COSINE);
-  const Material mt = material(smat, m, id);
-
-  s.rc = fresnel_dielectric(s.fix.z, mt.ior);
-  const float albedo_diff = luminance(mt.diffuse);
-  const float albedo_phong = luminance(mt.phong);
-  const float albedo_refl = s.rc * luminance(mt.mirror);
-  const float albedo_refr = (1.0f - s.rc) * (mt.ior > 0.0f ? 1.0f : 0.0f);
-  const float total = albedo_diff + albedo_phong + albedo_refl + albedo_refr;
-  const bool degenerate = total < F(1e-9);
-  const float safe_total = degenerate ? 1.0f : total;
-  s.p_diff = degenerate ? 0.0f : albedo_diff / safe_total;
-  s.p_phong = degenerate ? 0.0f : albedo_phong / safe_total;
-  s.p_refl = degenerate ? 0.0f : albedo_refl / safe_total;
-  s.p_refr = degenerate ? 0.0f : albedo_refr / safe_total;
-  const V c = add(add(mt.diffuse, mt.phong), scale(mt.mirror, s.rc));
-  const float cont = maximum(c.x, maximum(c.y, c.z)) + (1.0f - s.rc);
-  s.cont = degenerate ? 0.0f : clamp(cont, 0.0f, 1.0f);
-  return s;
 }
 
 struct Eval {
@@ -463,10 +380,7 @@ template <int kOp, typename Id>
 __global__ void __launch_bounds__(kBlock)
     bsdf_kernel(const __grid_constant__ Args a, bool fix_is_light) {
   extern __shared__ float smat[];
-  for (int k = threadIdx.x; k < kMatPlanes * a.m; k += kBlock) {
-    smat[k] = ld<float>(a.mat[k / a.m], 0, k % a.m);
-  }
-  __syncthreads();
+  load_materials(smat, a.mat, a.m);
   // rows * n < 2^31 (the wrapper's check).
   const unsigned int t = blockIdx.x * kBlock + threadIdx.x;
   if (t >= (unsigned int)a.rows * (unsigned int)a.n) return;

@@ -133,6 +133,8 @@ def _counters():
             ("sweep.any_hit_launches", sweep_ops.occluded_kernel,
              "launches"),
             ("merge.launches", merge_ops.merge_cells_kernel, "launches"),
+            ("merge.prep_launches", merge_ops.merge_prep_kernel,
+             "launches"),
             ("rng.uniform_slots_launches", rng.uniform_slots_kernel,
              "launches"),
             ("bsdf.launches", bsdf_ops.bsdf_kernel, "launches"),

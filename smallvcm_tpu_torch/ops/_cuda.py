@@ -81,6 +81,19 @@ SIGNATURES = {
     # table's (pointer, stride) pairs, lights, the scene sphere's five
     # device pointers, rows, columns, id is int64, stream
     "svcm_lights": (_I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
+    # photon planes (16 pointers), photon slots, query planes, query
+    # slots, radius, tile partials, tile live bases, the sort's 8 buffers,
+    # digit counts, digit totals, photon rows, query rows, params, n_p,
+    # n_q, stream
+    "svcm_merge_sort": (_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P),
+    # photon planes, slots, columns, rows, sorted slot indices, sorted
+    # keys, photon_cap, ppos, ptab; query planes, slots, columns, rows,
+    # sorted slot indices, query_cap, qpos, qtab, ranges, q_path; n_paths,
+    # material planes' (pointer, stride) pairs, material rows, params, n_p,
+    # n_q, stream
+    "svcm_merge_bake": (_P, _L, _L, _P, _P, _P, _I, _P, _P, _P, _L, _L, _P,
+                        _P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _P, _P, _P),
 }
 
 

@@ -16,9 +16,10 @@ nearest each query (hashgrid.hxx:124-138). Here:
 
 The pair merge (algorithms/vcm.py::merge_stage) hashes with
 :func:`_hash_cell` and compacts with :func:`sort_compact_planes`; the cell
-merge (ops/merge.py) compacts with :func:`sort_compact_planes`, and its
-plain version expands its ranges with :func:`query_chunks` and
-:func:`expand_pairs`.
+merge (ops/merge.py) compacts with :func:`sort_compact_planes` on the CPU
+only (its preparation on a card is ``csrc/merge_prep.cu``, which sorts the
+live slots' int32 keys itself), and its plain walk expands its ranges with
+:func:`query_chunks` and :func:`expand_pairs`.
 
 Cell coordinates may be negative (queries just outside the photon bbox).
 The JAX package casts them to uint32 and multiplies modulo 2**32; in int64

@@ -12,7 +12,12 @@ VCM's main path (RangeQuery::Process, vertexcm.hxx:130-169):
   query or photon), and gives every live query the <= ``ROWS`` sorted-photon
   ranges that hold its 2x2x2 probe neighbourhood (hashgrid.hxx:124-138):
   one range per probed (y, z) row, over the row's one or two probed x
-  cells.
+  cells. CPU tensors take :func:`merge_prep_plain` (ATen ops, int64 keys
+  sorted with ``hashgrid.sort_compact_planes``); CUDA tensors outside
+  autograd take :func:`merge_prep_kernel`: ``csrc/merge_prep.cu``'s bbox,
+  live counts and int32 keys, a stable radix sort of the live slots alone
+  and the bake of both tables and the ranges, the same bits in 17
+  launches.
 * :func:`merge_cells` walks each live query's ranges: exact r^2 test,
   path-length window (vertexcm.hxx:132-135), camera BSDF (diffuse + Phong)
   toward -photon.in_dir, MIS weight 1/(w_light + 1 + w_camera) [tech. rep.
@@ -41,6 +46,7 @@ per-iteration scalars (radius, r^2, vm normalization, MIS weight) may be
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -51,6 +57,7 @@ from ..core.vecmath import EPS_COSINE, EPS_PHONG, INV_PI_F
 from ..io.framebuffer import deterministic_index_add
 from . import _cuda
 from . import bsdf as bsdf_ops
+from ._cuda import leaves as _leaves, on_card as _on_card
 from .hashgrid import (expand_pairs, inv_cell_size, query_chunks,
                        sort_compact_planes)
 
@@ -216,6 +223,10 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int,
     tensor: the cell size is formed on the device, rounded as
     ``hashgrid.inv_cell_size`` rounds it.
 
+    On CUDA operands outside autograd this is :func:`merge_prep_kernel`
+    (``csrc/merge_prep.cu``), bit for bit :func:`merge_prep_plain`, which
+    runs everywhere else.
+
     qtab fields: 0-2 pos | 3-11 frame x/y/z | 12 local_dir_fix.z |
     13-15 reflected fix dir | 16 prob_diff | 17 prob_phong | 18 cont |
     19 d_vcm | 20 d_vm | 21-23 diffuse/pi | 24-26 phong rho | 27 exponent |
@@ -226,6 +237,21 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int,
     probed row, rows ROWS..2*ROWS-1 one past its last (empty: lo == hi),
     in ascending photon order.
     """
+    flat = [*_leaves(scene.materials, queries, light_verts)]
+    if _on_card(flat) and not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in flat)):
+        fn = merge_prep_kernel
+    else:
+        fn = merge_prep_plain
+    return fn(scene, misc, queries, light_verts, n_paths, photon_cap,
+              query_cap)
+
+
+def merge_prep_plain(scene, misc, queries, light_verts, n_paths: int,
+                     photon_cap: int | None = None,
+                     query_cap: int | None = None) -> MergeTables:
+    """:func:`merge_prep` as a chain of ATen ops: the CPU path and the
+    kernel's reference."""
     # Query columns are this process's paths; photon columns may be every
     # rank's (the sharded all-gather), so each side keeps its own count.
     n = queries.valid.shape[1]
@@ -349,6 +375,122 @@ def merge_prep(scene, misc, queries, light_verts, n_paths: int,
         ppos=torch.stack([prows[0], prows[1], prows[2], p_len], dim=1),
         ptab=ptab, q_path=q_path, n_p=n_p, n_q=n_q)
 
+
+def _side_planes(name: str, verts) -> list:
+    """A vertex table's planes as ``csrc/merge_prep.cu`` takes them:
+    position, in_dir, normal, throughput (3 each), d_vcm, d_vm (float32),
+    mat_id (int64), valid (bool), one [L, N] shape, contiguous."""
+    planes = [*verts.position, *verts.in_dir, *verts.normal,
+              *verts.throughput, verts.d_vcm, verts.d_vm, verts.mat_id,
+              verts.valid]
+    req = _cuda.require
+    req(all(isinstance(t, torch.Tensor) for t in planes),
+        f"merge_prep_kernel: {name} planes are tensors")
+    shape = verts.valid.shape
+    for k, t in enumerate(planes):
+        dt = (torch.int64 if k == 14 else torch.bool if k == 15
+              else torch.float32)
+        req(t.dtype == dt, f"merge_prep_kernel: {name} plane {k} is "
+            f"{t.dtype}, not {dt}")
+        req(t.dim() == 2 and t.shape == shape,
+            f"merge_prep_kernel: {name} planes of one [L, N] shape")
+        req(t.is_contiguous(), "merge_prep_kernel: contiguous planes only")
+        req(not t.requires_grad, "merge_prep_kernel is forward-only")
+    req(0 < shape.numel() < 2 ** 31,
+        f"merge_prep_kernel: {name} slots must be 1 to 2**31 - 1 for "
+        "int32 indices")
+    return planes
+
+
+def merge_prep_kernel(scene, misc, queries, light_verts, n_paths: int,
+                      photon_cap: int | None = None,
+                      query_cap: int | None = None) -> MergeTables:
+    """:func:`merge_prep` on the card: ``csrc/merge_prep.cu``'s slot passes
+    (bbox, live counts, int32 cell keys), its stable radix sort of each
+    side's live slots by key, then its bake of the photon and query tables
+    and the ranges, bit for bit :func:`merge_prep_plain`, with no host
+    read. The vertex planes are read where they lie (no stacked copy); the
+    radius is read from device memory (a Python float is filled in first,
+    outside a capture only). Counts its launches in ``.launches``."""
+    req = _cuda.require
+    n = queries.valid.shape[-1]
+    n_ph = light_verts.valid.shape[-1]
+    pplanes = _side_planes("photon", light_verts)
+    qplanes = _side_planes("query", queries)
+    mp, mq = pplanes[0].numel(), qplanes[0].numel()
+    photon_cap = mp if photon_cap is None else photon_cap
+    query_cap = mq if query_cap is None else query_cap
+    req(0 <= photon_cap and photon_cap * PF < 2 ** 31
+        and 0 <= query_cap and query_cap * QF < 2 ** 31,
+        "merge_prep_kernel: caps too large for int32 indices")
+    mats = list(_leaves(scene.materials))
+    m = mats[0].shape[0] if mats and mats[0].dim() == 1 else 0
+    req(len(mats) == 11 and all(
+        isinstance(t, torch.Tensor) and t.dtype == torch.float32
+        and t.shape == (m,) for t in mats)
+        and 1 <= m <= bsdf_ops.MAX_MATERIALS,
+        "merge_prep_kernel: materials are 11 float32 planes of 1 to "
+        f"{bsdf_ops.MAX_MATERIALS} rows")
+    dev = queries.valid.device
+    req(dev.type == "cuda", "merge_prep_kernel needs CUDA tensors")
+    radius = _dev_scalar(misc.radius, dev)
+    req(all(t.device == dev for t in pplanes + qplanes + mats + [radius]),
+        "merge_prep_kernel: every operand on one CUDA device")
+    req(radius.dtype == torch.float32 and radius.numel() == 1,
+        "merge_prep_kernel: the radius is one float32 value")
+    merge_prep.photon_rows = mp
+
+    lib = _cuda.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = lambda ts: (ctypes.c_longlong * len(ts))(
+        *(t.data_ptr() for t in ts))
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    empty = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype,
+                                                  device=dev)
+    tiles = -(-mp // _PREP_TILE) - (-mq // _PREP_TILE)
+    parts, live_base = empty(tiles, 8), empty(tiles, dtype=i32)
+    # Each side's sort buffers: keys and slots, twice.
+    sort = [empty(m_side, dtype=i32) for m_side in (mp, mq) for _ in range(4)]
+    counts, totals = empty(256, tiles, dtype=i32), empty(2, 256, dtype=i32)
+    ppack, qpack = empty(mp, 16), empty(mq, 16)
+    prm, n_p, n_q = empty(16), empty(dtype=i64), empty(dtype=i64)
+    _cuda.check(lib.svcm_merge_sort(
+        ptrs(pplanes), mp, ptrs(qplanes), mq, radius.data_ptr(),
+        parts.data_ptr(), live_base.data_ptr(), ptrs(sort),
+        counts.data_ptr(), totals.data_ptr(), ppack.data_ptr(),
+        qpack.data_ptr(), prm.data_ptr(), n_p.data_ptr(), n_q.data_ptr(),
+        stream), "svcm_merge_sort")
+    merge_prep_kernel.launches += 3 + 3 * _PREP_PASSES
+    pkey, pidx, qidx = sort[0], sort[1], sort[5]
+
+    qpos, qtab = empty(query_cap, 4), empty(query_cap, QF)
+    ranges = empty(2 * ROWS, query_cap, dtype=i32)
+    q_path = empty(query_cap, dtype=i64)
+    ppos, ptab = empty(photon_cap, 4), empty(photon_cap, PF)
+    _cuda.check(lib.svcm_merge_bake(
+        ptrs(pplanes), mp, n_ph, ppack.data_ptr(), pidx.data_ptr(),
+        pkey.data_ptr(), photon_cap, ppos.data_ptr(), ptab.data_ptr(),
+        ptrs(qplanes), mq, n, qpack.data_ptr(), qidx.data_ptr(), query_cap,
+        qpos.data_ptr(),
+        qtab.data_ptr(), ranges.data_ptr(), q_path.data_ptr(), n_paths,
+        (ctypes.c_longlong * 22)(
+            *(v for t in mats for v in (t.data_ptr(), t.stride(0)))),
+        m, prm.data_ptr(), n_p.data_ptr(), n_q.data_ptr(), stream),
+        "svcm_merge_bake")
+    merge_prep_kernel.launches += (photon_cap > 0) + (query_cap > 0)
+    return MergeTables(qpos=qpos, qtab=qtab, ranges=ranges, ppos=ppos,
+                       ptab=ptab, q_path=q_path, n_p=n_p, n_q=n_q)
+
+
+# csrc/merge_prep.cu's kTile (the slots a block of its slot and sort
+# passes takes) and kPasses (the sort's passes, of three launches each).
+_PREP_TILE = 2048
+_PREP_PASSES = 4
+
+# Launches on the device, as ops/sweep.py's counters (graphs.py adds a
+# capture's launches at each replay; counter ``merge.prep_launches``): 17
+# a preparation.
+merge_prep_kernel.launches = 0
 
 # The photon rows the last preparation sorted: the slots of its photon
 # tables (every rank's, after the sharded all-gather), a static size,

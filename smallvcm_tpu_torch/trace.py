@@ -11,7 +11,9 @@ where the work happens, which the module that owns them reports here
 under the names the summary gives them:
 
 - graphs.py: the kernels' ``.launches`` (``ops/sweep.py``,
-  ``ops/merge.py``, ``core/rng.py``, :func:`stamp_kernel`) and the exchanges' ``.bytes``
+  ``ops/merge.py``: the walk's ``merge.launches`` and the preparation's
+  ``merge.prep_launches``, ``core/rng.py``, :func:`stamp_kernel`) and the
+  exchanges' ``.bytes``
   (``parallel/comm.py``), bumped in Python beside a device launch or
   transfer, which a CUDA graph's replay does not run (graphs.py takes a
   capture's increments back and adds them at each replay, so they count

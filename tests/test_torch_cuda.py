@@ -10,9 +10,9 @@ Tolerances: the RNG kernel bit for bit (integer arithmetic, and an
 exact conversion to float); the sweeps exactly: closest-hit distances and occlusion
 answers bit for bit (both sides round each product and sum alike; the
 kernels are built with -fmad=false), primitive ids equal except on exact
-ties; the BSDF and lights kernels bit for bit, any NaN equal to any NaN
-(one IEEE f32 op per torch op, the same CUDA math library for sin, cos
-and pow);
+ties; the BSDF and lights kernels and the cell merge's preparation bit
+for bit, any NaN equal to any NaN (one IEEE f32 op per torch op, the same
+CUDA math library for sin, cos and pow; min, max and sorts exact);
 the merge's per-query sums to
 rtol 1e-4 / atol 1e-6 (the kernel sums a query's photons in another
 order); a whole render on the card against the same render on the CPU
@@ -928,17 +928,17 @@ def test_bsdf_kernel_wrapper_checks(dev):
     assert B.bsdf_kernel.launches == before
 
 
-@pytest.mark.parametrize("alg,calls", [("pt", 30), ("vcm", 75)])
+@pytest.mark.parametrize("alg,calls", [("pt", 30), ("vcm", 73)])
 def test_iteration_graphs_equal_plain_bsdf_on_card(dev, alg, calls,
                                                    monkeypatch):
     """A pt and a VCM iteration at 64x64 (iteration 0 eager, 1 captured,
     2-3 replayed) give bitwise the same images and rays with the BSDF
     kernel as with every call sent down the plain path, and the kernel
     runs once a call, replays counted: pt 30 an iteration (10 bounces of
-    setup, evaluate, sample) and VCM 75 (9 light bounces of setup,
+    setup, evaluate, sample) and VCM 73 (9 light bounces of setup,
     evaluate, sample_with_pdf; 10 camera bounces of the same; 8
-    connection windows of evaluate and setup_evaluate; the merge's two
-    setups)."""
+    connection windows of evaluate and setup_evaluate; the cell merge's
+    preparation runs its set-ups inside csrc/merge_prep.cu)."""
     from smallvcm_tpu_torch import graphs
 
     def run():
@@ -1198,5 +1198,106 @@ def test_iteration_graphs_equal_plain_lights_on_card(dev, alg, calls,
     monkeypatch.setattr(L, "_on_card", lambda *operands: False)
     want, plain_launches = run()
     assert plain_launches == 0
+    for (a, ra), (b, rb) in zip(got, want):
+        assert _differ(a, b) == "" and ra == rb
+
+
+# ---------------------------------------------------------------------------
+# The cell merge's preparation (csrc/merge_prep.cu) against the plain chain
+# ---------------------------------------------------------------------------
+
+
+def _prep_case(dev, scene_id, ranks=1, res=64):
+    """A VCM iteration's queries at res x res on ``scene_id``, and its
+    light vertices; with ``ranks`` > 1 the light vertices of that many
+    iterations side by side, as the all-gather lays out every rank's
+    columns (a photon table of ``ranks`` times the query columns)."""
+    n = res * res
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[scene_id], device=dev)
+    misc = vcm.compute_misc(scene, 0, n, 0.02, 0.75, True, True)
+    verts, queries = vcm.trace_iteration(scene, 0, res, res, 1234, 10, 0,
+                                         0.02, 0.75, True, False)
+    if ranks > 1:
+        packed = [vcm.pack_vertices(verts)] + [
+            vcm.pack_vertices(vcm.trace_iteration(
+                scene, it, res, res, 1234, 10, 0, 0.02, 0.75, True,
+                False)[0]) for it in range(1, ranks)]
+        verts = vcm.unpack_vertices(torch.cat(packed, dim=2))
+    return scene, misc, queries, verts, n
+
+
+@pytest.mark.parametrize("caps", ["slots", "live", "below", "above"])
+@pytest.mark.parametrize("scene_id,ranks", [(0, 1), (1, 1), (0, 4)])
+def test_merge_prep_kernel_matches_plain(dev, scene_id, ranks, caps):
+    """Every field of the kernel's MergeTables equals the plain chain's as
+    raw bits (any NaN equal to any NaN), dead rows and the padding of a cap
+    above the slot count included, at caps at the slot counts, at the live
+    counts, below them (overflow) and above the slot counts; in 17
+    launches, the radius read from device memory."""
+    scene, misc, queries, verts, n = _prep_case(dev, scene_id, ranks)
+    full = M.merge_prep_plain(scene, misc, queries, verts, n)
+    n_p, n_q = int(full.n_p), int(full.n_q)
+    mp, mq = verts.valid.numel(), queries.valid.numel()
+    assert 0 < n_p < mp and 0 < n_q < mq
+    assert int((full.ranges[M.ROWS:] > full.ranges[:M.ROWS]).sum()) > 0
+    pcap, qcap = {"slots": (None, None), "live": (n_p, n_q),
+                  "below": (n_p // 2, n_q // 3),
+                  "above": (mp + 300, mq + 77)}[caps]
+    if caps == "live":  # the radius as a graph holds it
+        misc = misc._replace(radius=torch.full(
+            (), misc.radius, dtype=torch.float32, device=dev))
+    want = M.merge_prep_plain(scene, misc, queries, verts, n, pcap, qcap)
+    before = M.merge_prep_kernel.launches
+    got = M.merge_prep(scene, misc, queries, verts, n, pcap, qcap)
+    torch.cuda.synchronize()
+    assert M.merge_prep_kernel.launches == before + 17
+    assert got.ptab.shape[0] == (mp if pcap is None else pcap)
+    assert got.qtab.shape[0] == (mq if qcap is None else qcap)
+    diffs = {name: d for name, g, w in zip(M.MergeTables._fields, got, want)
+             if (d := _differ(g, w))}
+    assert not diffs, f"merge_prep: fields differ {diffs}"
+    assert M.merge_prep.photon_rows == mp
+
+
+def test_merge_prep_kernel_wrapper_checks(dev):
+    scene, misc, queries, verts, n = _prep_case(dev, 0, res=16)
+    before = M.merge_prep_kernel.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        M.merge_prep_kernel(scene, misc, queries, verts._replace(
+            d_vm=verts.d_vm.cpu()), n)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        M.merge_prep_kernel(scene, misc, queries._replace(
+            d_vcm=queries.d_vcm.cpu()), verts, n)
+    with pytest.raises(ValueError, match="radius"):
+        M.merge_prep_kernel(scene, misc._replace(radius=torch.zeros(
+            2, device=dev)), queries, verts, n)
+    assert M.merge_prep_kernel.launches == before
+
+
+def test_vcm_iterations_equal_plain_merge_prep_on_card(dev, monkeypatch):
+    """Ten VCM iterations at 64x64 (iteration 0 eager, 1 captured, 2-9
+    replayed) give bitwise the same images and rays with the kernel
+    preparation as with every preparation sent down the plain chain, and
+    the kernels launch 17 times an iteration, replays counted."""
+    from smallvcm_tpu_torch import graphs
+
+    def run():
+        scene = load_cornell_box((64, 64), SCENE_CONFIGS[0], device=dev)
+        cfg = R.RenderConfig(algorithm="vcm", resolution=(64, 64))
+        before = M.merge_prep_kernel.launches
+        out = []
+        for it in range(10):
+            img, rays = R.render_iteration(scene, cfg, "vcm", it)
+            out.append((img.clone(), int(rays)))
+        return out, M.merge_prep_kernel.launches - before
+
+    captures = graphs.stage.captures
+    got, launches = run()
+    assert graphs.stage.captures > captures
+    assert launches == 10 * 17
+    monkeypatch.setattr(M, "_on_card", lambda *operands: False)
+    want, plain_launches = run()
+    assert plain_launches == 0
+    assert float(want[-1][0].sum()) > 0.0
     for (a, ra), (b, rb) in zip(got, want):
         assert _differ(a, b) == "" and ra == rb

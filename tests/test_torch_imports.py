@@ -96,15 +96,16 @@ def test_kernel_sources_present_and_build_is_keyed_by_source():
     names = {p.name for p in _cuda.CSRC_DIR.glob("*.cu")}
     assert names == {"merge_cells.cu", "intersect_sweep.cu",
                      "trace_stamp.cu", "rng_slots.cu", "bsdf.cu",
-                     "lights.cu"}
+                     "lights.cu", "merge_prep.cu"}
     for p in _cuda.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         # Each source names the TPU kernel it replaces, or says it
         # replaces none (the stage clocks' stamp, which the TPU has not,
-        # and the RNG, the BSDF and the lights, which XLA fuses there).
+        # and the RNG, the BSDF, the lights and the merge's preparation,
+        # which XLA fuses there).
         replaces = ("replaces no tpu kernel"
                     if p.name in ("trace_stamp.cu", "rng_slots.cu",
-                                  "bsdf.cu", "lights.cu")
+                                  "bsdf.cu", "lights.cu", "merge_prep.cu")
                     else "replaces the tpu kernel")
         assert replaces in text.lower()
         assert "cudaGetLastError" in text

@@ -11,6 +11,8 @@ listed exactly once, and the range lengths count the photons of the
 query's 2x2x2 probe cells.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -252,6 +254,92 @@ def _range_case(name):
                       ranges=t.ranges[:, :n_q], q_path=t.q_path[:n_q],
                       ppos=t.ppos[:n_p], ptab=t.ptab[:n_p])
     return live, r
+
+
+def _prep_operands():
+    """CPU operands of a small preparation: scene 1, 3 query and 4 photon
+    slots a path at random positions -> (scene, misc, queries, photons)."""
+    ts = tload((RES, RES), SCENE_CONFIGS[1], device="cpu")
+    misc = tvcm.compute_misc(ts, 0, N, 0.05, 0.75, True, True)
+    rng = np.random.default_rng(5)
+    span = 20.0 * misc.radius
+    return (ts, misc, _np_vertices(rng, span * rng.random((3, 3, N))),
+            _np_vertices(rng, span * rng.random((3, 4, N))))
+
+
+def _bad_plane(v, field, value):
+    """Vertices ``v`` with one plane replaced (a position axis by name)."""
+    if field in "xyz":
+        return v._replace(position=v.position._replace(**{field: value}))
+    return v._replace(**{field: value})
+
+
+@pytest.mark.parametrize("side,field,make,match", [
+    (None, None, None, "needs CUDA"),
+    ("photons", "x", lambda t: t.double(), "float32"),
+    ("queries", "mat_id", lambda t: t.int(), "int64"),
+    ("photons", "valid", lambda t: t.to(torch.uint8), "bool"),
+    ("queries", "d_vm", lambda t: t.T.contiguous().T, "contiguous"),
+    ("photons", "d_vcm", lambda t: t[:, :-1], r"one \[L, N\] shape"),
+    ("queries", "y", lambda t: t.clone().requires_grad_(), "forward-only"),
+    ("caps", "photon_cap", 2 ** 27, "int32 indices"),
+    ("caps", "query_cap", 2 ** 26, "int32 indices"),
+    ("scene", "exponent", lambda t: t.double(), "materials"),
+])
+def test_prep_kernel_wrapper_refuses(side, field, make, match):
+    """The preparation's kernel entry raises on what the kernel does not
+    take, before any launch; on CPU tensors it raises rather than run the
+    plain chain."""
+    ts, misc, queries, photons = _prep_operands()
+    caps = {}
+    if side == "photons":
+        photons = _bad_plane(photons, field, make(
+            getattr(photons.position, field, None) if field in "xyz"
+            else getattr(photons, field)))
+    elif side == "queries":
+        queries = _bad_plane(queries, field, make(
+            getattr(queries.position, field, None) if field in "xyz"
+            else getattr(queries, field)))
+    elif side == "caps":
+        caps = {field: make}
+    elif side == "scene":
+        ts = dataclasses.replace(ts, materials=ts.materials._replace(
+            **{field: make(getattr(ts.materials, field))}))
+    before = TM.merge_prep_kernel.launches
+    with pytest.raises(ValueError, match=match):
+        TM.merge_prep_kernel(ts, misc, queries, photons, N, **caps)
+    assert TM.merge_prep_kernel.launches == before
+
+
+def test_prep_dispatch_takes_the_plain_chain_on_cpu(monkeypatch):
+    """merge_prep on CPU tensors is the plain chain, bit for bit, and adds
+    no launch; the counter ``merge.prep_launches`` is in the summary. On
+    CUDA operands the dispatch takes the kernel, and the plain chain under
+    autograd when an operand requires grad."""
+    from smallvcm_tpu_torch import graphs, trace
+
+    ts, misc, queries, photons = _prep_operands()
+    before = TM.merge_prep_kernel.launches
+    got = TM.merge_prep(ts, misc, queries, photons, N, 50, 60)
+    want = TM.merge_prep_plain(ts, misc, queries, photons, N, 50, 60)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert TM.merge_prep_kernel.launches == before
+    assert "merge.prep_launches" in trace.summary()["counters"]
+    assert any(name == "merge.prep_launches" for name, _, _ in
+               graphs._counters())
+
+    taken = []
+    monkeypatch.setattr(TM, "_on_card", lambda *operands: True)
+    monkeypatch.setattr(TM, "merge_prep_kernel",
+                        lambda *a: taken.append("kernel"))
+    monkeypatch.setattr(TM, "merge_prep_plain",
+                        lambda *a: taken.append("plain"))
+    TM.merge_prep(ts, misc, queries, photons, N)
+    grad = queries._replace(d_vcm=queries.d_vcm.clone().requires_grad_())
+    TM.merge_prep(ts, misc, grad, photons, N)
+    with torch.no_grad():
+        TM.merge_prep(ts, misc, grad, photons, N)
+    assert taken == ["kernel", "plain", "kernel"]
 
 
 @pytest.mark.parametrize("name", ["random", "edge", "wide"])

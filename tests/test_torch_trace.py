@@ -418,8 +418,8 @@ def test_summary_has_its_documented_shape(cpu_clock):
     assert set(s) == {"counters", "spans", "stages", "bounces", "idle",
                       "clocks", "ranks"}
     assert {"sweep.closest_hit_launches", "sweep.any_hit_launches",
-            "merge.launches", "rng.uniform_slots_launches", "bsdf.launches",
-            "lights.launches",
+            "merge.launches", "merge.prep_launches",
+            "rng.uniform_slots_launches", "bsdf.launches", "lights.launches",
             "comm.all_gather_bytes",
             "comm.ring_shift_bytes", "trace.stamp_launches",
             "graphs.captures", "graphs.replays", "graphs.capture_s",
