@@ -66,7 +66,8 @@ Phases (each one raises on failure; nothing is caught):
 10. checkpoint/resume through the CLI: -i 2 then -i 4 resumed gives the
     BMP bytes of an uninterrupted -i 4;
 11. gradients: loss_and_grad against the JAX gradient golden at 32x32
-    (pt, bpm); one forward+backward of pt and vcm at full size with time,
+    (pt, bpm); three forward+backward steps of pt and vcm at full size
+    (eager, captured, replayed: the step is one CUDA graph) with time,
     peak memory and sweep launches; the sweep kernel's autograd Function
     against the plain sweep's autograd on 262,144 rays;
 12. ``--report -i 1 --resolution 64 64`` on the card, every combination
@@ -1519,7 +1520,9 @@ def check_gradients(torch, dev):
     steps = {}
     for alg in ("pt", "vcm"):
         times = []
-        for it in range(2):   # the first step also warms PyTorch's kernels
+        # The first step warms PyTorch's kernels (eager), the second
+        # captures the step's CUDA graph, the third replays it.
+        for it in range(3):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(M, S)
@@ -1529,7 +1532,7 @@ def check_gradients(torch, dev):
                                          GRAD_RES)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
-        ms = times[1]
+        ms = times[2]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = read_counts(M, S)
         leaves = diff._leaves(g)
@@ -1542,7 +1545,8 @@ def check_gradients(torch, dev):
                 or launches["merge_prep"]):
             raise AssertionError(f"grad {alg}: launches {launches}")
         log(f"[grad] {alg} {GRAD_RES}x{GRAD_RES} x1 forward+backward: "
-            f"{times[0]:.1f} ms cold, {ms:.1f} ms warm, peak {peak:.2f} "
+            f"{times[0]:.1f} ms cold, {times[1]:.1f} ms captured, {ms:.1f} "
+            f"ms replayed, peak {peak:.2f} "
             f"GiB allocated, loss "
             f"{float(loss):.6g}, light-intensity grad "
             f"{float(g.light_intensity.x[0]):.6g}; launches {launches}")
@@ -2737,7 +2741,7 @@ def check_pair_caps(torch, dev, bench_pairs: int, grad_steps: dict) -> dict:
     target = torch.full((GRAD_RES, GRAD_RES, 3), 0.1, device=dev)
     gcaps = R._caps_of(cfg)
     times = []
-    for it in range(2):
+    for it in range(3):   # eager, captured, replayed
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(M, S)
@@ -2754,7 +2758,7 @@ def check_pair_caps(torch, dev, bench_pairs: int, grad_steps: dict) -> dict:
         raise AssertionError(f"pair caps grad: launches {glaunches}")
     launches["pair_caps_grad_vcm"] = glaunches
     plog(f"vcm {GRAD_RES}x{GRAD_RES} x1 forward+backward at the measured "
-         f"caps {gcaps}: {times[0]:.1f} ms cold, {times[1]:.1f} ms warm, "
+         f"caps {gcaps}: {times[0]:.1f} ms cold, {times[2]:.1f} ms replayed, "
          f"peak {gpeak:.2f} GiB allocated (phase 11, default caps 24 / 3 / "
          f"3: {grad_steps['vcm']['ms']:.1f} ms, "
          f"{grad_steps['vcm']['peak_gib']:.2f} GiB); loss {float(loss):.6g}")

@@ -19,7 +19,13 @@ The stages are:
   paths, with the photon exchange, the merge at static caps and the sums
   over ranks inside the graph, the counterpart of the JAX package's
   ``_vcm_program``), and the whole pass of a sharded el or pt rank with
-  its framebuffer sum (``parallel/sharding.py::simple_stage``).
+  its framebuffer sum (``parallel/sharding.py::simple_stage``);
+- the whole gradient step of one process (``diff.py::_step``: the
+  forward through ``render_params``' stages, the L2 loss, the
+  checkpoint's recomputation and ``torch.autograd.grad``), one replay a
+  ``diff.loss_and_grad`` call. Its inputs need no gradient; it makes its
+  own leaves inside, so the stages it calls run eagerly under autograd
+  within its capture.
 
 What stays outside every graph: the sums over a block's iterations (a
 few launches an iteration), the per-iteration scalars' fills, and the
@@ -36,7 +42,10 @@ A stage function is called as ``fn(scene, *tensors, *scalars, *static)``:
   reaches ``fn`` as a 0-dim device tensor (int -> int64, float ->
   float32), which a replay fills first. ``fn`` uses them only in device
   arithmetic: a Python number derived from one would be frozen into the
-  capture.
+  capture. A scalar that is already a 0-dim device tensor (a stage
+  called inside another's body, such as the iteration inside
+  ``diff.py``'s gradient step) reaches ``fn`` as it is, and a replay
+  copies it into the graph's buffer.
 - ``static``: hashable values of the key, frozen into the capture (the
   merge caps among them: grown caps are a new key, and :func:`drop`
   frees the old graph's memory pool).
@@ -66,8 +75,9 @@ captures.
 observe. Graphs apply on a CUDA device, outside :func:`eager`, whenever
 autograd would record nothing and the static values hold no group whose
 collectives a graph cannot hold. Under grad mode with a scene tensor or
-input that requires grad (``diff.py``'s gradients, the sweep's autograd
-Function in ``ops/sweep.py``) the stage runs eagerly, always; so does a
+input that requires grad (the stages inside ``diff.py``'s gradient step,
+the sweep's autograd Function in ``ops/sweep.py``) the stage runs
+eagerly, always (inside the step's own graph on a card); so does a
 sharded stage of a gloo group (``comm.capturable``: gloo stages CUDA
 tensors through host memory), such as ranks that share one card. There
 is no other way back to eager launches on a card: a failed capture or
@@ -192,6 +202,11 @@ def why_eager(scene, tensors=(), static=()):
 
 
 def _scalar(value, dev):
+    """A per-call scalar as a 0-dim device tensor: a tensor as it is (the
+    caller filled it on the device, as a graph's replay fills its own
+    buffers), a Python number filled in (int -> int64, float -> float32)."""
+    if isinstance(value, torch.Tensor):
+        return value
     dtype = torch.int64 if isinstance(value, int) else torch.float32
     return torch.full((), value, dtype=dtype, device=dev)
 
@@ -283,7 +298,8 @@ def drop_group(group) -> int:
 def _capture(fn, scene, flat_in, in_spec, scalars, static, dev) -> _Graph:
     global _CAPTURING
     inputs = [t.clone() for t in flat_in]
-    bufs = [_scalar(v, dev) for v in scalars]
+    bufs = [v.clone() if isinstance(v, torch.Tensor) else _scalar(v, dev)
+            for v in scalars]
     before = _read_counters()
     graph = torch.cuda.CUDAGraph()
     _CAPTURING = True

@@ -398,6 +398,22 @@ def _size_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
             setattr(cfg, f, cached[f])
         cfg.merge_caps_frozen = True
         return "cached"
+    caps = measure_merge_caps(scene, cfg, alg)
+    if cfg.merge_backend != "xla":
+        caps["pair_factor"] = max(cfg.pair_factor, caps["pair_factor"])
+    for f in CAPS_FIELDS:
+        setattr(cfg, f, caps[f])
+    cfg.merge_caps_frozen = True
+    _save_cached_caps(key, _caps_of(cfg))
+    return "measured"
+
+
+def measure_merge_caps(scene: SceneData, cfg: RenderConfig,
+                       alg: str) -> dict:
+    """The merge caps fitted to the exact demand of iteration 0 of
+    ``scene`` under ``cfg``'s seed -> {field of CAPS_FIELDS: factor}:
+    photons and queries x1.03, the pair merge's pairs x1.15, bucketed
+    (the JAX package's render.py:246-324; :func:`_ensure_merge_caps`)."""
     use_vc, _, _, ppm = _VCM_FLAGS[alg]
     res_x, res_y = cfg.resolution
     n = res_x * res_y
@@ -405,14 +421,9 @@ def _size_merge_caps(scene: SceneData, cfg: RenderConfig, alg: str) -> str:
         scene, 0, res_x, res_y, cfg.base_seed, cfg.max_path_length,
         cfg.min_path_length, cfg.radius_factor, cfg.radius_alpha, use_vc,
         ppm, cfg.rng_kind)
-    pair_factor = _bucket(pairs * 1.15, n)
-    cfg.pair_factor = (pair_factor if cfg.merge_backend == "xla"
-                       else max(cfg.pair_factor, pair_factor))
-    cfg.photon_factor = _bucket(n_p * 1.03, n)
-    cfg.query_factor = _bucket(n_q * 1.03, n)
-    cfg.merge_caps_frozen = True
-    _save_cached_caps(key, _caps_of(cfg))
-    return "measured"
+    return dict(pair_factor=_bucket(pairs * 1.15, n),
+                photon_factor=_bucket(n_p * 1.03, n),
+                query_factor=_bucket(n_q * 1.03, n))
 
 
 # ---------------------------------------------------------------------------

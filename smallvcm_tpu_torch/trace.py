@@ -25,7 +25,11 @@ under the names the summary gives them:
   pair merge built shades (a static size);
 - ops/merge.py: ``merge.photon_rows``, the photon rows the last cell
   merge's preparation sorted (its photon tables' slots, every rank's
-  after the sharded all-gather; a static size).
+  after the sharded all-gather; a static size);
+- diff.py: ``diff.steps`` and ``diff.step_replays``, the gradient steps
+  taken and those that were a graph's replay, and
+  ``diff.truncated_steps``, the steps whose pair merge truncated at its
+  caps, counted on the device (read here, when the summary is taken).
 
 **Spans** (:class:`span`): a name, the start and end in ns on the host's
 wall clock (``time.time_ns``, the clock of the torch profiler's host
@@ -54,7 +58,10 @@ the card, in the stage's slot (:data:`STAGES`; the bounces of the walks in
 :data:`BOUNCES`, each with its live lanes; a stage may carry a count too:
 the cell merge's ``merge_prep`` its live photons and ``merge_kernel`` its
 candidate pairs, the pair merge's ``pair_expand`` its candidate pairs and
-``pair_shade`` its survivors). The
+``pair_shade`` its survivors). A gradient step (``diff.loss_and_grad``)
+stamps ``start``, then :data:`GRAD_STAGES` alone: ``grad_forward`` at
+the loss and ``grad_backward`` at the gradients, the checkpoint's
+recomputation inside it; its caller arms the clock (:func:`block`). The
 ``start`` stamp reads the iteration from device memory (a graph's 0-dim
 input buffer) and leaves the row for the stamps after it, so a replay
 stamps its own row. Stamps are
@@ -99,7 +106,11 @@ MAX_BOUNCES = 32
 ROWS_KEPT = 4096
 STAGES = ("start", "light_walk", "splat_flush", "camera_walk", "exchange",
           "merge_prep", "merge_kernel", "pair_tables", "pair_expand",
-          "pair_shade", "ring", "finish")
+          "pair_shade", "ring", "finish", "grad_forward", "grad_backward")
+# The stamps of a gradient step (diff.py): its forward to the loss, then
+# the backward with the checkpoint's recomputation. The step holds back
+# every other stamp, which the recomputation would stamp a second time.
+GRAD_STAGES = ("grad_forward", "grad_backward")
 # The stages of a merge: the cell merge's (ops/merge.py) or the pair
 # merge's (algorithms/vcm.py::merge_stage); the summary's ``merge`` sums
 # those an iteration stamped.

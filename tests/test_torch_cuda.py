@@ -1301,3 +1301,129 @@ def test_vcm_iterations_equal_plain_merge_prep_on_card(dev, monkeypatch):
     assert float(want[-1][0].sum()) > 0.0
     for (a, ra), (b, rb) in zip(got, want):
         assert _differ(a, b) == "" and ra == rb
+
+
+# -- the gradient step as one CUDA graph (diff.loss_and_grad) ---------------
+
+GRAD_RES = 64
+
+
+def _grad_job(dev, alg):
+    """A gradient job at 64x64 on scene 0, its merge radius widened to 5%
+    of the scene's so that the few paths merge: (diff, scene, two
+    parameter sets, target, loss_and_grad's keywords at the fitted
+    caps)."""
+    from smallvcm_tpu_torch import diff
+
+    scene = load_cornell_box((GRAD_RES, GRAD_RES), SCENE_CONFIGS[0],
+                             device=dev)
+    base = diff.extract_params(scene)
+    other = base._replace(diffuse=base.diffuse * 0.5,
+                          exponent=base.exponent * 2.0)
+    target = torch.full((GRAD_RES, GRAD_RES, 3), 0.1, device=dev)
+    kw = dict(radius_factor=0.05, **diff.fit_caps(
+        scene, base, alg, GRAD_RES, GRAD_RES, radius_factor=0.05))
+    return diff, scene, (base, other), target, kw
+
+
+def _grad_step(diff, scene, params, target, it, alg, **kw):
+    """One step -> its loss and every gradient leaf as one flat tensor."""
+    loss, g = diff.loss_and_grad(scene, params, target, it, alg, GRAD_RES,
+                                 GRAD_RES, **kw)
+    return torch.cat([loss.reshape(1), *(x.reshape(-1)
+                                         for x in diff._leaves(g))])
+
+
+@pytest.mark.parametrize("alg", ["vcm", "pt"])
+def test_replayed_gradient_step_equals_the_eager_step(dev, alg):
+    """The step's graph, captured once, replays the eager step's loss and
+    gradients bit for bit at two parameter sets and two iterations: its
+    parameter, target and scalar buffers are refilled every call; and it
+    adds the eager step's rays to ``diff.traced_rays``."""
+    from smallvcm_tpu_torch import graphs
+
+    diff, scene, params, target, kw = _grad_job(dev, alg)
+    rays = {}
+
+    def step(p, it, i=None):
+        r0 = int(diff.traced_rays(dev))
+        out = _grad_step(diff, scene, p, target, it, alg, **kw)
+        if i is not None:
+            rays.setdefault((i, it), []).append(
+                int(diff.traced_rays(dev)) - r0)
+        return out
+
+    with graphs.eager():
+        want = {(i, it): step(p, it, i) for i, p in enumerate(params)
+                for it in (3, 4)}
+    captures = graphs.stage.captures
+    replays = diff._report()["diff.step_replays"]
+    truncated = int(diff.truncated_steps(dev))
+    step(params[0], 0)                 # eager: the key's warm-up
+    step(params[1], 1)                 # the capture, then its replay
+    for i, it in ((0, 3), (1, 4), (1, 3), (0, 4)):
+        got = step(params[i], it, i)
+        assert torch.equal(got, want[(i, it)]), (i, it)
+    assert all(len(r) == 2 and r[0] == r[1] and r[0] > GRAD_RES ** 2
+               for r in rays.values()), rays
+    assert not torch.equal(want[(0, 3)], want[(1, 3)])
+    assert not torch.equal(want[(0, 3)], want[(0, 4)])
+    assert float(want[(0, 3)][1:].abs().sum()) > 0.0
+    assert graphs.stage.captures == captures + 1
+    assert diff._report()["diff.step_replays"] == replays + 5
+    assert int(diff.truncated_steps(dev)) == truncated
+
+
+def test_gradient_step_captures_once_a_key_then_replays(dev):
+    from smallvcm_tpu_torch import graphs
+
+    diff, scene, params, target, kw = _grad_job(dev, "vcm")
+    c0 = graphs.stage.captures
+    r0, s0 = (diff._report()[k] for k in ("diff.step_replays", "diff.steps"))
+    for it in range(5):
+        _grad_step(diff, scene, params[0], target, it, "vcm", **kw)
+    assert graphs.stage.captures == c0 + 1
+    assert diff._report()["diff.step_replays"] == r0 + 4
+    assert diff._report()["diff.steps"] == s0 + 5
+    # Another key (two iterations a step): its own warm-up and capture.
+    for it in range(3):
+        _grad_step(diff, scene, params[0], target, it, "vcm",
+                   n_iterations=2, **kw)
+    assert graphs.stage.captures == c0 + 2
+    assert diff._report()["diff.step_replays"] == r0 + 6
+
+
+def test_replayed_gradient_step_makes_no_host_sync(dev):
+    """``set_sync_debug_mode("error")`` is silent over a replayed step with
+    new parameter values."""
+    diff, scene, params, target, kw = _grad_job(dev, "vcm")
+    for it in range(2):
+        _grad_step(diff, scene, params[0], target, it, "vcm", **kw)
+    replays = diff._report()["diff.step_replays"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, g = diff.loss_and_grad(scene, params[1], target, 2, "vcm",
+                                     GRAD_RES, GRAD_RES, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert diff._report()["diff.step_replays"] == replays + 1
+    assert bool(torch.isfinite(loss))
+
+
+def test_truncated_gradient_step_is_counted_on_card(dev):
+    """A photon cap far too small truncates every step (eager, captured
+    and replayed alike), which ``diff.truncated_steps`` and the trace's
+    counter count; the fitted caps truncate none."""
+    from smallvcm_tpu_torch import trace
+
+    diff, scene, params, target, kw = _grad_job(dev, "vcm")
+    before = int(diff.truncated_steps(dev))
+    for it in range(3):
+        _grad_step(diff, scene, params[0], target, it, "vcm",
+                   **dict(kw, photon_factor=0.01))
+    assert int(diff.truncated_steps(dev)) == before + 3
+    assert trace.summary()["counters"]["diff.truncated_steps"] >= before + 3
+    for it in range(3):
+        _grad_step(diff, scene, params[0], target, it, "vcm", **kw)
+    assert int(diff.truncated_steps(dev)) == before + 3

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from benchmark.harness import spec
-from smallvcm_tpu_torch import graphs, trace
+from smallvcm_tpu_torch import diff, graphs, trace
 from smallvcm_tpu_torch import render as R
 from smallvcm_tpu_torch.algorithms import vcm
 from smallvcm_tpu_torch.ops import sweep as S
@@ -31,7 +31,8 @@ RES = 8
 NEW_METRICS = ("stage_ms.light_walk", "stage_ms.camera_walk",
                "stage_ms.merge", "stage_ms.exchange", "idle_share.replays",
                "caps_measure_s", "graph_capture_s", "library_load_s",
-               "rerendered_blocks")
+               "rerendered_blocks", "stage_ms.grad_forward",
+               "stage_ms.grad_backward")
 
 
 class HostClock(trace._Clock):
@@ -424,7 +425,8 @@ def test_summary_has_its_documented_shape(cpu_clock):
             "comm.ring_shift_bytes", "trace.stamp_launches",
             "graphs.captures", "graphs.replays", "graphs.capture_s",
             "render.rerendered_blocks", "vcm.pair_surv_rows",
-            "merge.photon_rows"} == set(
+            "merge.photon_rows", "diff.steps", "diff.step_replays",
+            "diff.truncated_steps"} == set(
                 s["counters"])
     assert s["counters"]["comm.all_gather_bytes"] == \
         comm.all_gather_columns.bytes
@@ -461,6 +463,32 @@ def test_paused_holds_back_the_named_stamps(cpu_clock):
         trace.stamp("finish")
         assert cpu_clock.ring[0, 0, slot["finish"]] > 0
     assert trace.stamping() is None
+
+
+def test_gradient_step_stamps_its_two_stages_and_counts(cpu_clock):
+    """A block of two gradient steps (VCM through the pair merge) stamps
+    start, grad_forward and grad_backward alone, its stages held back
+    (the checkpoint's recomputation would stamp them twice); the summary
+    gives both stages and the three counters of diff.py."""
+    scene = _scene()
+    params = diff.extract_params(scene)
+    target = torch.full((RES, RES, 3), 0.2)
+    before = diff._report()
+    with trace.block(torch.device("cpu"), 5, 2) as clock:
+        for it in (5, 6):
+            diff.loss_and_grad(scene, params, target, it, "vcm", RES, RES,
+                               max_path_length=4, radius_factor=0.05)
+        clock.record(clock.rows().clone())
+    s = trace.summary()
+    assert {"grad_forward", "grad_backward", "iteration"} == set(s["stages"])
+    for name in ("grad_forward", "grad_backward"):
+        assert s["stages"][name]["iterations"] == 2
+        assert s["stages"][name]["median_ms"] > 0
+    assert s["bounces"] == {}
+    c = s["counters"]
+    assert c["diff.steps"] == before["diff.steps"] + 2
+    assert c["diff.step_replays"] == before["diff.step_replays"]  # eager
+    assert c["diff.truncated_steps"] == before["diff.truncated_steps"]
 
 
 def test_device_times_map_onto_the_host_by_the_two_fits(cpu_clock):
@@ -562,13 +590,15 @@ WANT = {"stage_ms.light_walk": 20.0, "stage_ms.camera_walk": 50.0,
         "stage_ms.merge": 3.0, "stage_ms.exchange": 7.0,
         "idle_share.replays": 0.25, "caps_measure_s": 4.0,
         "graph_capture_s": 1.5, "library_load_s": 0.5,
-        "rerendered_blocks": 0.0}
+        "rerendered_blocks": 0.0, "stage_ms.grad_forward": 30.0,
+        "stage_ms.grad_backward": 60.0}
 
 
 def _summary_of(scale, rerendered=0):
     return _planted(
         dict(light_walk=20.0 * scale, camera_walk=50.0 * scale,
-             merge=3.0 * scale, exchange=7.0 * scale),
+             merge=3.0 * scale, exchange=7.0 * scale,
+             grad_forward=30.0 * scale, grad_backward=60.0 * scale),
         0.0025 * scale,
         {"render.caps_measure.measured": 4.0 * scale,
          "graphs.capture": 1.5 * scale, "cuda.library_load": 0.5 * scale},
